@@ -1,0 +1,135 @@
+"""Analyzer — Algorithm 4 lines 3-12.
+
+For every task it evaluates the analytical performance model on both engines
+and pushes the task into the Sparse Task Queue (STQ → ALU arrays / block-skip
+kernels) or the Dense Task Queue (DTQ → AIE array / MXU GEMM).
+
+Two strategies:
+
+- ``greedy`` — the literal per-task rule of Alg. 4: compare t_ALU (ONE ALU
+  array) against t_AIE and pick the faster engine.  (Note: the paper's
+  listing line 9 reads ``if t_ALU > t_AIE then STQ.push`` which routes tasks
+  to the engine the model says is slower; lines 10/11 are evidently
+  transposed in typesetting — the surrounding text and every result table
+  require the faster engine to win.  We implement the consistent rule.)
+
+- ``balanced`` (default) — unit-aware list scheduling.  The platform has
+  ``n_sparse_units`` ALU arrays but a single AIE array; a per-task comparison
+  ignores queue contention (8 marginally-AIE-favored tasks would serialize on
+  the AIE while 8 ALU arrays idle).  The paper's runtime achieves balance
+  through its idle-unit pop loop (Alg. 4 lines 13-21) feeding from both
+  queues it created; we model the combined analyzer+scheduler behaviour with
+  a heterogeneous-makespan greedy (LPT): tasks in decreasing work order, each
+  placed where its finish time is earliest.  LPT is a heuristic, not an
+  optimum — on adversarial task sets the per-task greedy rule can beat it —
+  so ``balanced`` simulates BOTH assignments with the Scheduler's own model
+  (``scheduler.simulate``, which includes the memory-bandwidth bound) and
+  returns whichever has the smaller modeled makespan (ties prefer LPT).
+  The returned assignment is therefore never worse than ``greedy`` under
+  the same :class:`HardwareModel` — measured (``CalibratedModel``) or
+  analytical.  This reproduces the paper's reported hybrid wins (Tables
+  VI/VII); ``greedy`` underuses the ALUs on medium-density kernels and is
+  kept for ablation.
+
+The ``hw`` argument is any :class:`HardwareModel`.  ``analyze_sharded`` (the
+mesh placement) comes with the multi-device slice of the port.
+"""
+from __future__ import annotations
+
+import heapq
+
+from repro_torch.core.partition import KernelPartition, Task
+from repro_torch.core.perfmodel import HardwareModel, t_dense, t_sparse
+
+
+def _fill_times(task: Task, hw: HardwareModel) -> None:
+    task.t_dense = t_dense(task.shape, hw)
+    ts, prim = t_sparse(task.shape, hw)
+    task.t_sparse = ts
+    task._sparse_prim = prim  # stash; queue decided by the strategy
+
+
+def analyze_kernel(
+    part: KernelPartition,
+    hw: HardwareModel,
+    strategy: str = "balanced",
+) -> tuple[list[Task], list[Task]]:
+    """Fill per-task primitive/queue decisions; return (STQ, DTQ)."""
+    for task in part.tasks:
+        _fill_times(task, hw)
+
+    stq: list[Task] = []
+    dtq: list[Task] = []
+
+    if strategy == "greedy":
+        for task in part.tasks:
+            if task.t_sparse <= task.t_dense:
+                task.primitive = task._sparse_prim
+                task.queue = "STQ"
+                stq.append(task)
+            else:
+                task.primitive = "GEMM"
+                task.queue = "DTQ"
+                dtq.append(task)
+        return stq, dtq
+
+    if strategy != "balanced":
+        raise ValueError(strategy)
+
+    # LPT over heterogeneous units: earliest-finish placement
+    order = sorted(part.tasks, key=lambda t: -min(t.t_sparse, t.t_dense))
+    sparse_free = [0.0] * hw.n_sparse_units
+    heapq.heapify(sparse_free)
+    dense_free = 0.0
+    for task in order:
+        s0 = sparse_free[0]
+        finish_sparse = s0 + task.t_sparse
+        finish_dense = dense_free + task.t_dense
+        if finish_sparse <= finish_dense:
+            heapq.heapreplace(sparse_free, finish_sparse)
+            task.primitive = task._sparse_prim
+            task.queue = "STQ"
+            stq.append(task)
+        else:
+            dense_free = finish_dense
+            task.primitive = "GEMM"
+            task.queue = "DTQ"
+            dtq.append(task)
+
+    # LPT can lose to the per-task rule on adversarial sets (its ordering
+    # ignores which engine a task prefers).  Simulate both assignments and
+    # keep the better one, so "balanced ≤ greedy" holds by construction.
+    from repro_torch.core import scheduler as _scheduler
+    lpt_makespan = _scheduler.simulate(stq, dtq, hw).makespan
+    lpt_choice = [(t.queue, t.primitive) for t in part.tasks]
+    g_stq, g_dtq = analyze_kernel(part, hw, "greedy")
+    if _scheduler.simulate(g_stq, g_dtq, hw).makespan < lpt_makespan:
+        return g_stq, g_dtq
+    stq, dtq = [], []
+    for task, (queue, prim) in zip(part.tasks, lpt_choice):
+        task.queue, task.primitive = queue, prim
+        (stq if queue == "STQ" else dtq).append(task)
+    return stq, dtq
+
+
+def force_queue(part: KernelPartition, hw: HardwareModel, queue: str) -> tuple[list[Task], list[Task]]:
+    """Baselines: route EVERY task to one engine.
+
+    ``queue="STQ"`` is the sparse-engine-only design; combined with dense
+    feature accounting it reproduces the paper's "PL Only" baseline
+    (Table VII — a BoostGCN-style PL design exploiting adjacency sparsity
+    only); ``queue="DTQ"`` is the dense-only (AIE/GEMM-everything) baseline.
+    """
+    stq: list[Task] = []
+    dtq: list[Task] = []
+    for task in part.tasks:
+        _fill_times(task, hw)
+        if queue == "STQ":
+            task.primitive = task._sparse_prim
+            task.queue = "STQ"
+            stq.append(task)
+        else:
+            task.primitive = "GEMM"
+            task.queue = "DTQ"
+            dtq.append(task)
+    return stq, dtq

@@ -1,0 +1,83 @@
+"""Fused multi-task SpMM (block-sparse x block-sparse) on an in-place canvas.
+
+``spmm_fused`` launches the hand-written CUDA kernel (``csrc/spmm_fused.cu``)
+for CUDA tensors and runs ``spmm_fused_plain`` for CPU tensors.  The TPU
+kernel aliases the canvas to its output; here the kernel updates the canvas
+``z`` IN PLACE and the wrapper returns it.  Run semantics are those of
+:mod:`repro_torch.kernels.spdmm`, on ``B x B`` output blocks: each triple
+adds ``A_pool[a_ids[t]] @ Y_pool[y_ids[t]]``.  Sentinel zero blocks at the
+end of each pool back the padding triples.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.formats import run_starts
+from repro_torch.kernels.spdmm import fold_runs
+
+_DESCRIPTORS = ("a_ids", "y_ids", "out_rows", "out_cols", "first")
+
+
+def _validate(a_blocks, y_blocks, desc, B, z, runs):
+    E = desc[0].shape[0]
+    _build.require(all(d.shape == (E,) for d in desc),
+                   f"descriptor shapes {[d.shape for d in desc]}")
+    for pool in (a_blocks, y_blocks):
+        _build.require(pool.ndim == 3 and pool.shape[1:] == (B, B),
+                       f"pool {pool.shape} for block {B}")
+    _build.require(z.shape[0] % B == 0 and z.shape[1] % B == 0,
+                   f"canvas {z.shape} for block {B}")
+    devs = {t.device for t in (a_blocks, y_blocks, z, runs, *desc)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+
+
+def spmm_fused(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols, first,
+               *, block_size: int, z: torch.Tensor,
+               runs: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused SpMM into the canvas ``z`` ``(m_pad, n_pad)``, in place.
+
+    ``a_blocks`` / ``y_blocks`` are ``(P, B, B)`` pools; the five int32
+    descriptor arrays are sorted by output block; ``runs`` as in
+    :func:`repro_torch.kernels.spdmm.spdmm_fused`.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel (or raise)."""
+    B = block_size
+    desc = (a_ids, y_ids, out_rows, out_cols, first)
+    if runs is None:
+        runs = run_starts(out_rows, out_cols)
+    _validate(a_blocks, y_blocks, desc, B, z, runs)
+    if z.device.type == "cpu":
+        return spmm_fused_plain(a_blocks, y_blocks, *desc, block_size=B, z=z,
+                                runs=runs)
+    _build.check_operand("a_blocks", a_blocks, torch.float32, 3)
+    _build.check_operand("y_blocks", y_blocks, torch.float32, 3)
+    _build.check_operand("z", z, torch.float32, 2)
+    _build.check_operand("runs", runs, torch.int32, 1)
+    for name, d in zip(_DESCRIPTORS, desc):
+        _build.check_operand(name, d, torch.int32, 1)
+    n_runs = int(runs.shape[0]) - 1
+    if n_runs == 0:
+        return z
+    lib = _build.library()
+    err = lib.spmm_fused_f32(
+        a_blocks.data_ptr(), y_blocks.data_ptr(),
+        *(d.data_ptr() for d in desc), runs.data_ptr(), n_runs, z.data_ptr(),
+        B, z.shape[1], torch.cuda.current_stream(z.device).cuda_stream)
+    _build.check(err, "spmm_fused")
+    _build.count_launch("spmm_fused")
+    return z
+
+
+def spmm_fused_plain(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols,
+                     first, *, block_size: int, z: torch.Tensor,
+                     runs: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spmm_fused` (same in-place
+    contract): gather both blocks of every triple, one batched product,
+    then :func:`repro_torch.kernels.spdmm.fold_runs`."""
+    B = block_size
+    if runs is None:
+        runs = run_starts(out_rows, out_cols)
+    prod = torch.bmm(a_blocks[a_ids.long()].float(),
+                     y_blocks[y_ids.long()].float())
+    return fold_runs(prod, first, out_rows, out_cols, runs, z, B, B)

@@ -1,0 +1,122 @@
+"""The port's kernel layer on the CPU: each plain PyTorch version equals
+the JAX wrapper (Pallas interpret mode) on the same numpy inputs, including
+ragged tiles, canvas blocks no entry covers, a ``first`` reset in the middle
+of a run and a run with no ``first`` that adds onto the canvas.  The CUDA
+kernels are held against these plain versions in
+``test_torch_kernels_cuda.py``."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.formats import pack_blockcsr as jpack
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.formats import pack_blockcsr as tpack
+from test_torch_kernels_cuda import (ATOL, RTOL, _gemm_case, _spdmm_case,
+                                     _spmm_case, _t)
+
+
+@pytest.mark.parametrize("k", [20, 32, 300])
+def test_gemm_batch_scatter_plain_matches_pallas(k):
+    rng = np.random.default_rng(k)
+    x, y, rows, cols, z = _gemm_case(rng, k=k)
+    want = np.asarray(jops.gemm_batch_scatter(
+        jnp.asarray(x), jnp.asarray(y), rows, cols, jnp.asarray(z),
+        interpret=True))
+    tz = torch.as_tensor(z.copy())
+    got = tops.gemm_batch_scatter(*_t(x, y), rows, cols, tz)
+    assert got is tz                                  # updated in place
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    covered = np.zeros(z.shape, bool)
+    for r, c in zip(rows, cols):
+        covered[r * 16:(r + 1) * 16, c * 8:(c + 1) * 8] = True
+    np.testing.assert_array_equal(got.numpy()[~covered], z[~covered])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spdmm_fused_plain_matches_pallas(seed):
+    rng = np.random.default_rng(seed)
+    a, y, desc, z = _spdmm_case(rng)
+    want = np.asarray(jops.spdmm_fused(
+        jnp.asarray(a), jnp.asarray(y), *desc, block_size=8, bn=16,
+        m_pad=z.shape[0], interpret=True, z=jnp.asarray(z)))
+    got = tops.spdmm_fused(*_t(a, y), *desc, block_size=8, bn=16,
+                           m_pad=z.shape[0], z=torch.as_tensor(z.copy()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    covered = np.zeros(z.shape, bool)
+    for r, c in zip(desc[2], desc[3]):
+        covered[r * 8:(r + 1) * 8, c * 16:(c + 1) * 16] = True
+    assert (~covered).any()
+    np.testing.assert_array_equal(got.numpy()[~covered], z[~covered])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spmm_fused_plain_matches_pallas(seed):
+    rng = np.random.default_rng(10 + seed)
+    a, yb, desc, z = _spmm_case(rng)
+    want = np.asarray(jops.spmm_fused(
+        jnp.asarray(a), jnp.asarray(yb), *desc, block_size=8,
+        m_pad=z.shape[0], n_pad=z.shape[1], interpret=True,
+        z=jnp.asarray(z)))
+    got = tops.spmm_fused(*_t(a, yb), *desc, block_size=8, m_pad=z.shape[0],
+                          n_pad=z.shape[1], z=torch.as_tensor(z.copy()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_first_reset_and_accumulate_semantics():
+    """Hand-checked: a run with no ``first`` adds onto the canvas, a
+    mid-run ``first`` discards what came before it, uncovered blocks keep
+    their content."""
+    a = np.stack([np.eye(2, dtype=np.float32) * s for s in (1, 2, 3)])
+    yb = np.ones((1, 2, 2), np.float32)
+    z = np.full((4, 4), 10.0, np.float32)
+    # block (0,0): no first -> 10 + 1 + 2; block (0,1): reset at entry 2
+    # -> 3 only; block (1,*): uncovered.
+    desc = [np.array(v, np.int32) for v in
+            ([0, 1, 1, 2], [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 1, 1],
+             [0, 0, 0, 1])]
+    got = tops.spmm_fused(*_t(a, yb), *desc, block_size=2, m_pad=4,
+                          n_pad=4, z=torch.as_tensor(z.copy())).numpy()
+    want = z.copy()
+    want[:2, :2] = 10 + 1 + 2          # A_s @ ones(2, 2) == s * ones
+    want[:2, 2:] = 3
+    np.testing.assert_array_equal(got, want)
+
+
+def test_wrappers_count_calls_and_never_launch_on_cpu():
+    rng = np.random.default_rng(3)
+    x, y, rows, cols, z = _gemm_case(rng)
+    tops.reset_kernel_call_count()
+    tops.reset_cuda_launch_counts()
+    tops.gemm_batch_scatter(*_t(x, y), rows, cols, torch.as_tensor(z))
+    a, yd, desc, z2 = _spdmm_case(rng)
+    tops.spdmm_fused(*_t(a, yd), *desc, block_size=8, bn=16,
+                     m_pad=z2.shape[0])
+    assert tops.kernel_call_count() == 2
+    assert tops.cuda_launch_counts() == {}
+
+
+def test_refs_and_blockize_match_reference():
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(24, 16)).astype(np.float32)
+    a *= rng.uniform(size=a.shape) < 0.3
+    y = rng.normal(size=(16, 24)).astype(np.float32)
+    y *= rng.uniform(size=y.shape) < 0.4
+    ta, ty = tpack(a, 8), tpack(y, 8)
+    ja, jy = jpack(a, 8), jpack(y, 8)
+    np.testing.assert_allclose(tref.spdmm_ref(ta, torch.as_tensor(y)).numpy(),
+                               np.asarray(jref.spdmm_ref(ja, jnp.asarray(y))),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tref.spmm_ref(ta, ty).numpy(),
+                               np.asarray(jref.spmm_ref(ja, jy)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        tref.gemm_ref(torch.as_tensor(a), torch.as_tensor(y)).numpy(),
+        np.asarray(jref.gemm_ref(jnp.asarray(a), jnp.asarray(y))),
+        rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(
+        tops.blockize(torch.as_tensor(a), 8).numpy(),
+        np.asarray(jops.blockize(jnp.asarray(a), 8)))
