@@ -196,9 +196,11 @@ def drive(torch, tgnn, ops, engine_cls, name: str, model: str, g, hidden,
         log(f"  {phase}: wall {wall:.4f} s  launches "
             f"{ops.cuda_launch_counts()}  cache {stats}")
     launches = ops.cuda_launch_counts()
-    for kname, rep in report.kernels:
+    for (kname, rep), meta in zip(report.kernels, report.meta):
+        M, K, N = meta["M"], meta["K"], meta["N"]
         log(f"  kernel {kname:10s} STQ {rep.n_stq:3d} (SpDMM {rep.n_spdmm}, "
-            f"SpMM {rep.n_spmm})  DTQ {rep.n_dtq:3d}")
+            f"SpMM {rep.n_spmm})  DTQ {rep.n_dtq:3d}  M×K×N {M}×{K}×{N} "
+            f"(unpadded dense 2MKN {2.0 * M * K * N:.4g} FLOP)")
     if not (logits.shape == (g.stats.vertices, g.stats.classes)
             and bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{name}: logits {tuple(logits.shape)} not "
@@ -343,22 +345,23 @@ def adjacency_csr(torch, adj):
 
 
 def summarize(torch, mods, paths):
-    """One summary entry per kernel: its launches on the driven paths, its
-    worst error against the plain version over every recorded call, and
-    the times of its first recorded call (the main path's, or GIN-CO's
-    first aggregation for the SpMM kernel) beside the library call and
-    the bound."""
+    """One summary entry per kernel: its worst error against the plain
+    version over every recorded call, and the times of its first recorded
+    call on the first path that launched it (the main path, or GIN-CO's
+    first aggregation for the SpMM kernel) beside the library call and the
+    bound.  ``launches`` is that path's count (cold + warm run);
+    ``launches_by_path`` gives every path's."""
     log("== kernels against their plain versions")
-    csrs = [adjacency_csr(torch, g.adj) for g, _, _ in paths]
+    csrs = [adjacency_csr(torch, g.adj) for _, g, _, _ in paths]
     summary = []
     for name in KERNELS:
-        order = list(zip(paths, csrs))
-        if name == "spmm_fused":
-            order.reverse()
-        calls = [(g, csr, c) for (g, _, cs), csr in order for c in cs[name]]
+        order = [(p, csr) for p, csr in zip(paths, csrs)
+                 if p[2].get(name, 0) > 0]
+        calls = [(label, g, csr, c) for (label, g, _, cs), csr in order
+                 for c in cs[name]]
         if not calls:
             raise AssertionError(f"no recorded call of {name}")
-        g, csr, (args, kw) = calls[0]
+        label, g, csr, (args, kw) = calls[0]
         library = None
         if name == "gemm_batch_scatter":
             library = lambda a=args: torch.bmm(a[0], a[1])
@@ -368,10 +371,12 @@ def summarize(torch, mods, paths):
             if y.shape[0] >= csr.shape[1]:
                 library = lambda c=csr, yy=y[: csr.shape[1]]: \
                     torch.sparse.mm(c, yy)
-        entry = check_kernel(torch, mods, name, [c for _, _, c in calls],
+        entry = check_kernel(torch, mods, name, [c for *_, c in calls],
                              library)
-        entry["launches"] = sum(launches.get(name, 0)
-                                for _, launches, _ in paths)
+        by_path = {p_label: launches.get(name, 0)
+                   for p_label, _, launches, _ in paths}
+        entry.update(path=label, launches=by_path[label],
+                     launches_by_path=by_path)
         summary.append(entry)
         torch.cuda.empty_cache()
     return summary
@@ -426,10 +431,12 @@ def main() -> int:
     if co_launches.get("spmm_fused", 0) <= 0:
         raise AssertionError("GIN on CO launched no spmm_fused kernel")
 
-    summary = summarize(torch, mods, [(fl, fl_launches, fl_calls),
-                                      (co, co_launches, co_calls)])
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    summary = summarize(torch, mods,
+                        [("GCN-FL", fl, fl_launches, fl_calls),
+                         ("GIN-CO", co, co_launches, co_calls)])
+    keys = ("name", "route", "source", "replaces", "path", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in summary]}), flush=True)
     print(card)

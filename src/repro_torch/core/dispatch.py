@@ -219,15 +219,11 @@ def _spmm_dense_y_triples(tasks, part, stripes, offsets, R: int, C: int,
 
 def build_dispatch(part, stq, dtq, stripes: dict[int, BlockCSR],
                    *, block: int, eps: float = 0.0,
-                   fingerprint: str = "",
-                   faults: object = None) -> CompiledDispatch | None:
+                   fingerprint: str = "") -> CompiledDispatch | None:
     """Lower a planned kernel into a :class:`CompiledDispatch` on the
     stripes' device: O(nnz blocks) of vectorized numpy plus one upload, paid
     once per (structure, assignment, geometry).  ``None`` when the canvas
-    geometry cannot take the in-place layout.  ``faults`` is the optional
-    fault injector probed at the ``lower`` site."""
-    if faults is not None:
-        faults.probe("lower", detail=f"dispatch:{part.name}")
+    geometry cannot take the in-place layout."""
     slots = canvas_slots(part, block)
     if slots is None:
         return None

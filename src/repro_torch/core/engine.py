@@ -94,7 +94,6 @@ class DynasparseEngine:
         mesh: object = None,
         operand_sharding: str = "halo",
         per_device_models: "list[HardwareModel] | None" = None,
-        faults: object = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -104,9 +103,6 @@ class DynasparseEngine:
         if not batched:
             raise _later("batched=False (per-task execution)", "per-task")
         self.hw = hw
-        # optional fault injector (duck-typed: anything with
-        # .probe(site, detail)) consulted at plan / lower / pack / execute
-        self.faults = faults
         self.calibration = calibration
         self._hw_runtime: HardwareModel | None = None
         self.tile_m = tile_m
@@ -163,9 +159,7 @@ class DynasparseEngine:
     def plan(self, x, y, name: str = "kernel") -> KernelPlan:
         """Preprocessing phase: densities → task grid → Analyzer → simulated
         schedule.  Cached on the sparsity structure for ``SparseCOO`` x."""
-        if self.faults is not None:
-            self.faults.probe("plan", detail=name)
-        x = self._operand(x)
+        x =self._operand(x)
         y = as_tensor(y, self.device)
         M, K = x.shape
         N = y.shape[1]
@@ -240,8 +234,6 @@ class DynasparseEngine:
         K = x.shape[1]
 
         def _build() -> StructureEntry:
-            if self.faults is not None:
-                self.faults.probe("pack", detail=f"stripes:{nrt}")
             rows, cols, vals = host(x.rows), host(x.cols), host(x.vals)
             order = np.argsort(rows, kind="stable")
             rows, cols, vals = rows[order], cols[order], vals[order]
@@ -286,8 +278,7 @@ class DynasparseEngine:
             (plan.struct_key, digest),
             lambda: _dispatch.build_dispatch(
                 plan.part, plan.stq, plan.dtq, entry.stripes,
-                block=self.block, eps=self.eps, fingerprint=digest,
-                faults=self.faults))
+                block=self.block, eps=self.eps, fingerprint=digest))
 
     def compiled_operands(
             self, plan: KernelPlan,
@@ -309,9 +300,7 @@ class DynasparseEngine:
         Literal engines prefer the compiled dispatch (descriptors served
         from the cache); kernels the compiler declines take the eager
         batched drain."""
-        if self.faults is not None:
-            self.faults.probe("execute", detail=plan.part.name)
-        x = self._operand(x)
+        x =self._operand(x)
         y = as_tensor(y, self.device)
         if self.literal:
             pair = self.compiled_operands(plan, x)
