@@ -16,10 +16,20 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    run (COO ``index_add_`` + ``torch.matmul``, TF32 off);
 2. drives GIN on the Cora stand-in (CO) at full size the same way: its
    first aggregation is the path's SpMM kernel;
-3. holds every kernel against its plain PyTorch version on the operands the
-   two paths gave it (recorded in a third, uncounted run of each path) and
+3. compiles GCN-FL into one CUDA graph (``gnn.compile_model``), replays it
+   and profiles a replay: per call the dense ``gemm`` kernel twice and the
+   fused SpDMM twice;
+4. compiles GIN-CO: its ``l1-mlp1`` kernel takes the activation block-skip
+   route (device packer, run-time descriptors), also on a sparser input
+   of the same support under the same graph, and a budget one slot short
+   takes the dense ``gemm`` inside the route;
+5. drives GIN-CO through the per-task path (``batched=False``): the
+   ``gemm``, ``spdmm`` and SpMM kernels, one launch per task;
+6. runs ``gemm_batch`` once at the shape of GCN-FL's dense queue;
+7. holds every kernel against its plain PyTorch version on the operands the
+   paths gave it (recorded in an extra, uncounted run of each path) and
    times kernel, plain version and one library call with CUDA events;
-4. prints the kernel summary as one JSON line, the card's name and power
+8. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a card, or
@@ -28,11 +38,14 @@ outside a checkout, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -45,17 +58,29 @@ KERNEL_TOL = dict(rtol=2e-5, atol=2e-4)
 # literal (fused kernels) vs literal=False logits: f32 end to end
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
+CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "gemm_batch_scatter": dict(
-        module="gemm", source="src/repro_torch/kernels/csrc/"
-        "gemm_batch_scatter.cu", replaces="src/repro/kernels/gemm.py:94"),
+        module="gemm", source=CSRC + "gemm_batch_scatter.cu",
+        replaces="src/repro/kernels/gemm.py:94"),
     "spdmm_fused": dict(
-        module="spdmm", source="src/repro_torch/kernels/csrc/spdmm_fused.cu",
+        module="spdmm", source=CSRC + "spdmm_fused.cu",
         replaces="src/repro/kernels/spdmm.py:111"),
     "spmm_fused": dict(
-        module="spmm", source="src/repro_torch/kernels/csrc/spmm_fused.cu",
+        module="spmm", source=CSRC + "spmm_fused.cu",
         replaces="src/repro/kernels/spmm.py:56"),
+    "gemm": dict(
+        module="gemm", source=CSRC + "gemm.cu",
+        replaces="src/repro/kernels/gemm.py:40"),
+    "spdmm": dict(
+        module="spdmm", source=CSRC + "spdmm_fused.cu",
+        replaces="src/repro/kernels/spdmm.py:43"),
+    "gemm_batch": dict(
+        module="gemm", source=CSRC + "gemm_batch_scatter.cu",
+        replaces="src/repro/kernels/gemm.py:165"),
 }
+# kernels whose canvas z is updated in place (recorded as it was before)
+IN_PLACE = ("gemm_batch_scatter", "spdmm_fused", "spmm_fused")
 
 
 def log(*parts) -> None:
@@ -107,8 +132,10 @@ class Recorder:
             def rec(*args, _name=name, _fn=fn, **kw):
                 if _name == "gemm_batch_scatter":
                     saved = (args[:4] + (args[4].clone(),), dict(kw))
-                else:
+                elif _name in IN_PLACE:
                     saved = (args, {**kw, "z": kw["z"].clone()})
+                else:
+                    saved = (args, dict(kw))
                 self.calls[_name].append(saved)
                 return _fn(*args, **kw)
             setattr(mod, name, rec)
@@ -120,27 +147,42 @@ class Recorder:
 
 
 def runs_of(name: str, args, kw):
-    if name == "gemm_batch_scatter":
-        return None
+    """Exact run offsets of a fused call (made here when the call found its
+    runs on the device)."""
+    from repro_torch.kernels.formats import run_starts
     runs = kw.get("runs")
-    if runs is None:
-        from repro_torch.kernels.formats import run_starts
-        runs = run_starts(args[4], args[5])
-    return runs
+    return run_starts(args[4], args[5]) if runs is None else runs
 
 
 def work_of(name: str, args, kw) -> tuple[float, float]:
-    """(bytes, FLOPs) the call needs, from this call's own descriptors:
-    each input read once (the pool blocks and operand slices the entries
-    reference, the descriptors, the canvas blocks of runs that hold no
-    ``first`` flag), each output block written once."""
-    import numpy as np
-    if name == "gemm_batch_scatter":
-        x, y, _rows, _cols, _z = args
+    """(bytes, FLOPs) the call needs, from this call's own operands and
+    descriptors: each input read once (the pool blocks and operand slices
+    the entries reference, the descriptors, the canvas blocks of runs that
+    hold no ``first`` flag), each output written once."""
+    if name == "gemm":
+        x, y = args
+        m, k = x.shape
+        n = y.shape[1]
+        out = x.new_empty((), dtype=kw.get("out_dtype") or x.dtype)
+        nbytes = (x.element_size() * m * k + y.element_size() * k * n
+                  + out.element_size() * m * n)
+        return nbytes, 2.0 * m * n * k
+    if name in ("gemm_batch", "gemm_batch_scatter"):
+        x, y = args[:2]
         t, m, k = x.shape
         n = y.shape[2]
-        nbytes = 4 * (t * m * k + t * k * n + t * m * n) + 8 * t
+        nbytes = 4 * (t * m * k + t * k * n + t * m * n)
+        if name == "gemm_batch_scatter":
+            nbytes += 8 * t
         return nbytes, 2.0 * t * m * n * k
+    if name == "spdmm":
+        a, y = args
+        B, n = a.block_size, y.shape[1]
+        nnzb = a.stored_blocks
+        n_y = int(a.col_ids.unique().numel())
+        nbytes = 4 * (nnzb * B * B + 3 * nnzb + n_y * B * n
+                      + a.n_block_rows * B * n)
+        return nbytes, 2.0 * nnzb * B * B * n
     B = kw["block_size"]
     runs = runs_of(name, args, kw).cpu().numpy()
     n_runs = len(runs) - 1
@@ -167,6 +209,13 @@ def shape_of(name: str, args, kw) -> str:
         x, y, _r, _c, z = args
         return (f"x {tuple(x.shape)} y {tuple(y.shape)} "
                 f"z {tuple(z.shape)}")
+    if name in ("gemm", "gemm_batch"):
+        x, y = args
+        return f"x {tuple(x.shape)} {x.dtype} y {tuple(y.shape)}"
+    if name == "spdmm":
+        a, y = args
+        return (f"BlockCSR {a.shape} stored {a.stored_blocks} "
+                f"block {a.block_size} y {tuple(y.shape)}")
     n_runs = int(runs_of(name, args, kw).shape[0]) - 1
     return (f"pool {tuple(args[0].shape)} operand {tuple(args[1].shape)} "
             f"entries {int(args[2].shape[0])} runs {n_runs} "
@@ -201,20 +250,8 @@ def drive(torch, tgnn, ops, engine_cls, name: str, model: str, g, hidden,
         log(f"  kernel {kname:10s} STQ {rep.n_stq:3d} (SpDMM {rep.n_spdmm}, "
             f"SpMM {rep.n_spmm})  DTQ {rep.n_dtq:3d}  M×K×N {M}×{K}×{N} "
             f"(unpadded dense 2MKN {2.0 * M * K * N:.4g} FLOP)")
-    if not (logits.shape == (g.stats.vertices, g.stats.classes)
-            and bool(torch.isfinite(logits).all())):
-        raise AssertionError(f"{name}: logits {tuple(logits.shape)} not "
-                             "finite / wrong shape")
-    plain_engine = engine_cls(literal=False, device=dev)
-    ref, _ = tgnn.run_inference(model, plain_engine, g.adj, h, params,
-                                device=dev)
-    err = (logits - ref).abs()
-    bound = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * ref.abs()
-    log(f"  logits vs literal=False: max abs {err.max().item():.3e}, "
-        f"max |ref| {ref.abs().max().item():.3e}, tolerance {LOGIT_TOL}")
-    if bool((err > bound).any()):
-        raise AssertionError(f"{name}: literal logits disagree with the "
-                             "literal=False run")
+    ref = plain_logits(torch, tgnn, engine_cls, model, g, h, params, dev)
+    check_logits(torch, name, logits, ref, g)
     with Recorder(mods) as rec:
         again, _ = tgnn.run_inference(model, engine, g.adj, h, params,
                                       device=dev)
@@ -224,7 +261,226 @@ def drive(torch, tgnn, ops, engine_cls, name: str, model: str, g, hidden,
     log(f"  repeated run bitwise equal; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_warm(torch, tgnn, model, engine, g.adj, h, params, dev)
-    return launches, rec.calls
+    return dict(launches=launches, calls=rec.calls, engine=engine,
+                params=params, ref=ref)
+
+
+def plain_logits(torch, tgnn, engine_cls, model, g, h, params, dev):
+    """The port's own ``literal=False`` logits (COO ``index_add_`` and
+    ``torch.matmul``, TF32 off): the yardstick of every path."""
+    ref, _ = tgnn.run_inference(model, engine_cls(literal=False, device=dev),
+                                g.adj, h, params, device=dev)
+    return ref
+
+
+def check_logits(torch, name, logits, ref, g):
+    """Finite logits of the graph's shape, within LOGIT_TOL of ``ref``."""
+    if not (logits.shape == (g.stats.vertices, g.stats.classes)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)} not "
+                             "finite / wrong shape")
+    err = (logits - ref).abs()
+    bound = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * ref.abs()
+    log(f"  logits vs literal=False: max abs {err.max().item():.3e}, "
+        f"max |ref| {ref.abs().max().item():.3e}, tolerance {LOGIT_TOL}")
+    if bool((err > bound).any()):
+        raise AssertionError(f"{name}: logits disagree with the "
+                             "literal=False run")
+
+
+def synced_wall(torch, fn):
+    """(result, seconds) of ``fn()`` between two device synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_rows(prof):
+    """(device µs, count, name) of every device-side row of a profile."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():       # device-side rows only: no double count
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    return rows
+
+
+def drive_compiled(torch, tgnn, ops, name, model, g, dev, mods, eager):
+    """``compile_model`` on the eager path's engine (its caches are warm),
+    the capture (first call), three warm replays, one profiled replay and
+    an uncounted, uncaptured run of the replay body that records each
+    kernel call.  Returns the path's record and the compiled model."""
+    h = g.features_dense
+    log(f"== {name}: compile_model {model} on {g.stats.name}, then replays")
+    ops.reset_cuda_launch_counts()
+    (warm, cm), t_compile = synced_wall(torch, lambda: tgnn.compile_model(
+        model, eager["engine"], g.adj, h, eager["params"]))
+    if cm is None:
+        raise AssertionError(f"{name}: compile_model declined")
+    z1, t_capture = synced_wall(torch, lambda: cm(h))
+    walls, outs = [], []
+    for _ in range(3):
+        z, t = synced_wall(torch, lambda: cm(h))
+        walls.append(t)
+        outs.append(z)
+    launches = ops.cuda_launch_counts()
+    per_call = cm.capture_launches[(tuple(h.shape), str(h.dtype))]
+    log(f"  compile (eager warmup + lowering) {t_compile:.4f} s, first call "
+        f"(capture) {t_capture:.4f} s, warm replays "
+        + ", ".join(f"{1e3 * t:.3f}" for t in walls)
+        + f" ms (median {1e3 * statistics.median(walls):.3f} ms)")
+    log(f"  kernels {cm.n_kernels} (adjacency {cm.n_sparse}, block-skip "
+        f"{cm.n_act}); launches per call (recorded at capture) {per_call}; "
+        f"wrapper launches in this phase {launches}; calls {cm.calls}, "
+        f"traces {cm.traces}")
+    if cm.traces != 1:
+        raise AssertionError(f"{name}: {cm.traces} captures for one input")
+    if not all(torch.equal(z1, z) for z in outs):
+        raise AssertionError(f"{name}: replays are not bitwise equal")
+    check_logits(torch, name, z1, eager["ref"], g)
+    check_logits(torch, name + " warmup", warm, eager["ref"], g)
+    profile_replay(torch, cm, h, per_call)
+    with Recorder(mods) as rec:
+        cm.run(cm.payload, h)
+    torch.cuda.synchronize()
+    return dict(launches=launches, calls=rec.calls, per_call=per_call,
+                replay_ms=[1e3 * t for t in walls]), cm
+
+
+def profile_replay(torch, cm, h, per_call):
+    """One warm replay under ``torch.profiler``: device busy time and idle
+    share, and the launches per call confirmed by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_wall(torch, lambda: cm(h))
+    rows = device_rows(prof)
+    if not rows:
+        log("  profiler recorded no device time in the replay: idle share "
+            "and kernel names not measured")
+        return
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(f"  profiled replay: device busy {busy_ms:.3f} ms of "
+        f"{1e3 * wall:.3f} ms wall: idle share "
+        f"{1 - busy_ms / (1e3 * wall):.4f}")
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    seen = {kname: sum(c for _, c, key in rows if re.search(
+                rf"(?<![A-Za-z_]){kname}_kernel(?:<|I|\()", key))
+            for kname in per_call}
+    log(f"  launches by kernel name in the profiled replay {seen}, recorded "
+        f"at capture {per_call}")
+    if not any(seen.values()):
+        log("  the profile names none of the port's kernels: per-call "
+            "launches not confirmed by name")
+    elif seen != per_call:
+        raise AssertionError(f"the replay ran {seen}, the capture recorded "
+                             f"{per_call}")
+
+
+def act_kernel_names(cm):
+    """Names of the kernels that took the block-skip route, in call order
+    (dense X whose warmup plan sent tasks to the sparse queue)."""
+    return [meta["name"] for (_, rep), meta in zip(cm.report.kernels,
+                                                   cm.report.meta)
+            if not meta["x_is_adj"] and rep.n_stq > 0]
+
+
+def check_activation_route(torch, tgnn, ops, engine_cls, name, model, g,
+                           dev, eager, cm):
+    """GIN-CO's block-skip telemetry, a sparser input of the same support
+    under the same graph, and a forced overflow on l1-mlp1's operand."""
+    from repro_torch.core import dispatch as tdispatch
+
+    h = g.features_dense
+    acts = act_kernel_names(cm)
+    if cm.n_act < 1 or "l1-mlp1" not in acts or len(acts) != cm.n_act:
+        raise AssertionError(f"{name}: block-skip kernels {acts}, n_act "
+                             f"{cm.n_act}: l1-mlp1 must take the route")
+    for kname, d in zip(acts, cm.last_activation):
+        log(f"  {kname}: stored {int(d['stored'])} of {d['logical']} logical "
+            f"blocks, capacity {d['capacity']}, overflow "
+            f"{bool(d['overflow'])}")
+    d = cm.last_activation[acts.index("l1-mlp1")]
+    if bool(d["overflow"]) or not int(d["stored"]) < d["logical"]:
+        raise AssertionError(f"{name}: l1-mlp1 overflowed or skipped nothing")
+
+    keep = torch.as_tensor(np.random.default_rng(0).uniform(
+        size=tuple(h.shape)) < 0.7, device=dev)
+    h2 = h * keep
+    ref2 = plain_logits(torch, tgnn, engine_cls, model, g, h2,
+                        eager["params"], dev)
+    z2, wall = synced_wall(torch, lambda: cm(h2))
+    log(f"  sparser input (70 % of entries kept): replay {1e3 * wall:.3f} "
+        f"ms, traces {cm.traces}, l1-mlp1 stored "
+        f"{int(cm.last_activation[acts.index('l1-mlp1')]['stored'])}")
+    if cm.traces != 1 or any(bool(x["overflow"]) for x in cm.last_activation):
+        raise AssertionError(f"{name}: the sparser input was recaptured or "
+                             "overflowed")
+    check_logits(torch, name + " sparser input", z2, ref2, g)
+
+    # one dispatch of l1-mlp1's operand with a budget one slot short
+    engine, w = eager["engine"], eager["params"]["M1a"]
+    x = h + engine.matmul(g.adj, h, name="l1-agg")[0]
+    plan = engine.plan(x, w, name="l1-mlp1")
+    need = tdispatch.activation_capacity(x, plan.part, engine.block,
+                                         slack=1.0)
+    ad = engine.activation_dispatch_for(plan, x, capacity=need - 1)
+    z_o, diag = tdispatch.execute_activation(ad, x, w)
+    z_d = ops.gemm(x, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    log(f"  forced overflow on l1-mlp1's operand (capacity {need - 1}, need "
+        f"{need}): overflow {bool(diag['overflow'])}, equal to the gemm "
+        f"kernel bitwise {torch.equal(z_o, z_d)}")
+    if not (bool(diag["overflow"]) and torch.equal(z_o, z_d)):
+        raise AssertionError(f"{name}: the overflow fallback is not the "
+                             "dense gemm result")
+
+
+def drive_pertask(torch, tgnn, ops, engine_cls, name, model, g, dev, mods,
+                  eager):
+    """One ``batched=False`` inference, counted and recorded: every task is
+    its own ``gemm`` / ``spdmm`` / SpMM launch."""
+    h = g.features_dense
+    log(f"== {name}: {model} on {g.stats.name}, batched=False")
+    engine = engine_cls(literal=True, batched=False, device=dev)
+    ops.reset_cuda_launch_counts()
+    with Recorder(mods) as rec:
+        (logits, report), wall = synced_wall(torch, lambda: tgnn.run_inference(
+            model, engine, g.adj, h, eager["params"], device=dev))
+    launches = ops.cuda_launch_counts()
+    tasks = sum(r.n_stq + r.n_dtq for _, r in report.kernels)
+    log(f"  cold wall {wall:.4f} s, {tasks} tasks, launches {launches}")
+    check_logits(torch, name, logits, eager["ref"], g)
+    for k in ("gemm", "spdmm", "spmm_fused"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"{name} launched no {k} kernel")
+    return dict(launches=launches, calls=rec.calls)
+
+
+def drive_gemm_batch(torch, ops, dev, mods):
+    """One ``gemm_batch`` launch at the shape of GCN-FL's dense queue (8
+    tasks of 11264 x 500 by 500 x 128), seeded operands on the card."""
+    log("== gemm_batch at the dense-queue shape of GCN-FL")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((8, 11264, 500), generator=gen, device=dev)
+    y = torch.randn((8, 500, 128), generator=gen, device=dev)
+    ops.reset_cuda_launch_counts()
+    with Recorder(mods) as rec:
+        z, wall = synced_wall(torch, lambda: ops.gemm_batch(x, y))
+    launches = ops.cuda_launch_counts()
+    log(f"  wall {1e3 * wall:.3f} ms, launches {launches}")
+    if (launches.get("gemm_batch", 0) != 1 or z.shape != (8, 11264, 128)
+            or not bool(torch.isfinite(z).all())):
+        raise AssertionError("gemm_batch did not run once to a finite "
+                             "result")
+    return dict(launches=launches, calls=rec.calls)
 
 
 def profile_warm(torch, tgnn, model, engine, adj, h, params, dev):
@@ -232,7 +488,6 @@ def profile_warm(torch, tgnn, model, engine, adj, h, params, dev):
     engine kernel's plan and execute phases, and under ``torch.profiler``
     the device time by CUDA kernel name, whose sum against the run's wall
     gives the device's idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
@@ -266,13 +521,7 @@ def profile_warm(torch, tgnn, model, engine, adj, h, params, dev):
                     f"{1e3 * walls[2 * i + 1][1]:.2f} ms"
                     for i, n in enumerate(names))
         + f"; whole run {1e3 * wall:.2f} ms")
-    rows = []
-    for e in prof.key_averages():       # device-side rows only: no double count
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if e.device_type == DeviceType.CUDA and dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     if not rows:
         log("  profiler recorded no device time: idle share not measured")
@@ -290,15 +539,21 @@ def check_kernel(torch, mods, name, calls, library):
     kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
 
     def run(fn, args, kw):
+        # the comparison runs each call unpredicated: a predicated launch
+        # that did not run left nothing to compare
+        kw = {k: v for k, v in kw.items() if k != "pred"}
         if name == "gemm_batch_scatter":
-            return fn(*args[:4], args[4].clone())
-        return fn(*args, **{**kw, "z": kw["z"].clone()})
+            return fn(*args[:4], args[4].clone(), **kw)
+        if name in IN_PLACE:
+            return fn(*args, **{**kw, "z": kw["z"].clone()})
+        return fn(*args, **kw)
 
     worst = 0.0
     for i, (args, kw) in enumerate(calls):
         got = run(kernel, args, kw)
         want = run(plain, args, kw)
         torch.cuda.synchronize()
+        got, want = got.float(), want.float()
         err = (got - want).abs()
         limit = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * want.abs()
         rel = (err / want.abs().clamp_min(1e-30)).max().item()
@@ -311,12 +566,13 @@ def check_kernel(torch, mods, name, calls, library):
         worst = max(worst, err.max().item())
 
     args, kw = calls[0]
-    z = args[4].clone() if name == "gemm_batch_scatter" else kw["z"].clone()
+    kw = {k: v for k, v in kw.items() if k != "pred"}
     if name == "gemm_batch_scatter":
+        z = args[4].clone()
         k_fn = lambda: kernel(*args[:4], z)
         p_fn = lambda: plain(*args[:4], z)
     else:
-        kw_t = {**kw, "z": z}
+        kw_t = {**kw, "z": kw["z"].clone()} if name in IN_PLACE else kw
         k_fn = lambda: kernel(*args, **kw_t)
         p_fn = lambda: plain(*args, **kw_t)
     ms = device_ms(torch, k_fn)
@@ -344,37 +600,45 @@ def adjacency_csr(torch, adj):
     return coo.to_sparse_csr()
 
 
+def library_call(torch, name, g, args):
+    """One PyTorch call computing the same function as the timed kernel
+    call (never used by the port), or None."""
+    if name in ("gemm_batch_scatter", "gemm_batch"):
+        return lambda: torch.bmm(args[0], args[1])
+    if name == "gemm":
+        return lambda: torch.matmul(args[0], args[1])
+    if name == "spdmm":
+        # the row-stripe as an element-level CSR times the dense operand
+        a, y = args
+        csr = a.todense().float().to_sparse_csr()
+        return lambda: torch.sparse.mm(csr, y[: csr.shape[1]])
+    # the adjacency aggregation as one sparse-times-dense call
+    csr = adjacency_csr(torch, g.adj)
+    y = args[1] if name == "spdmm_fused" else g.features_dense
+    if y.shape[0] < csr.shape[1]:
+        return None
+    return lambda: torch.sparse.mm(csr, y[: csr.shape[1]])
+
+
 def summarize(torch, mods, paths):
     """One summary entry per kernel: its worst error against the plain
     version over every recorded call, and the times of its first recorded
-    call on the first path that launched it (the main path, or GIN-CO's
-    first aggregation for the SpMM kernel) beside the library call and the
-    bound.  ``launches`` is that path's count (cold + warm run);
+    call on the first path (in ``paths`` order) that launched it, beside
+    the library call and the bound.  ``launches`` is that path's count;
     ``launches_by_path`` gives every path's."""
     log("== kernels against their plain versions")
-    csrs = [adjacency_csr(torch, g.adj) for _, g, _, _ in paths]
     summary = []
     for name in KERNELS:
-        order = [(p, csr) for p, csr in zip(paths, csrs)
-                 if p[2].get(name, 0) > 0]
-        calls = [(label, g, csr, c) for (label, g, _, cs), csr in order
-                 for c in cs[name]]
+        calls = [(label, g, c) for label, g, rec in paths
+                 if rec["launches"].get(name, 0) > 0
+                 for c in rec["calls"][name]]
         if not calls:
             raise AssertionError(f"no recorded call of {name}")
-        label, g, csr, (args, kw) = calls[0]
-        library = None
-        if name == "gemm_batch_scatter":
-            library = lambda a=args: torch.bmm(a[0], a[1])
-        else:
-            # the adjacency aggregation as one sparse-times-dense call
-            y = args[1] if name == "spdmm_fused" else g.features_dense
-            if y.shape[0] >= csr.shape[1]:
-                library = lambda c=csr, yy=y[: csr.shape[1]]: \
-                    torch.sparse.mm(c, yy)
+        label, g, (args, _kw) = calls[0]
         entry = check_kernel(torch, mods, name, [c for *_, c in calls],
-                             library)
-        by_path = {p_label: launches.get(name, 0)
-                   for p_label, _, launches, _ in paths}
+                             library_call(torch, name, g, args))
+        by_path = {p_label: rec["launches"].get(name, 0)
+                   for p_label, _, rec in paths}
         entry.update(path=label, launches=by_path[label],
                      launches_by_path=by_path)
         summary.append(entry)
@@ -419,21 +683,44 @@ def main() -> int:
     t0 = time.perf_counter()
     fl = load_graph("FL", device=dev)
     log(f"FL stand-in generated in {time.perf_counter() - t0:.2f} s")
-    fl_launches, fl_calls = drive(torch, gnn, ops, DynasparseEngine,
-                                     "main path", "GCN", fl, 128, dev, mods)
+    fl_eager = drive(torch, gnn, ops, DynasparseEngine, "main path", "GCN",
+                     fl, 128, dev, mods)
     for k in ("gemm_batch_scatter", "spdmm_fused"):
-        if fl_launches.get(k, 0) <= 0:
+        if fl_eager["launches"].get(k, 0) <= 0:
             raise AssertionError(f"main path launched no {k} kernel")
 
     co = load_graph("CO", device=dev)
-    co_launches, co_calls = drive(torch, gnn, ops, DynasparseEngine,
-                                     "SpMM path", "GIN", co, 16, dev, mods)
-    if co_launches.get("spmm_fused", 0) <= 0:
+    co_eager = drive(torch, gnn, ops, DynasparseEngine, "SpMM path", "GIN",
+                     co, 16, dev, mods)
+    if co_eager["launches"].get("spmm_fused", 0) <= 0:
         raise AssertionError("GIN on CO launched no spmm_fused kernel")
 
+    fl_comp, cm = drive_compiled(torch, gnn, ops, "compiled GCN-FL", "GCN",
+                                 fl, dev, mods, fl_eager)
+    if fl_comp["per_call"] != {"gemm": 2, "spdmm_fused": 2}:
+        raise AssertionError(f"compiled GCN-FL launches per call "
+                             f"{fl_comp['per_call']}, expected gemm 2 and "
+                             "spdmm_fused 2")
+    del cm
+    co_comp, cm = drive_compiled(torch, gnn, ops, "compiled GIN-CO", "GIN",
+                                 co, dev, mods, co_eager)
+    for k in ("spmm_fused", "spdmm_fused", "gemm"):
+        if co_comp["per_call"].get(k, 0) <= 0:
+            raise AssertionError(f"compiled GIN-CO launches no {k} per call")
+    check_activation_route(torch, gnn, ops, DynasparseEngine,
+                           "compiled GIN-CO", "GIN", co, dev, co_eager, cm)
+    del cm
+    co_task = drive_pertask(torch, gnn, ops, DynasparseEngine,
+                            "per-task GIN-CO", "GIN", co, dev, mods,
+                            co_eager)
+    batch = drive_gemm_batch(torch, ops, dev, mods)
+
     summary = summarize(torch, mods,
-                        [("GCN-FL", fl, fl_launches, fl_calls),
-                         ("GIN-CO", co, co_launches, co_calls)])
+                        [("GCN-FL", fl, fl_eager), ("GIN-CO", co, co_eager),
+                         ("GCN-FL compiled", fl, fl_comp),
+                         ("GIN-CO compiled", co, co_comp),
+                         ("GIN-CO per-task", co, co_task),
+                         ("gemm_batch", None, batch)])
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -27,8 +27,15 @@ Semantics vs the eager batched path (`scheduler._execute_batched`):
   ``eps != 0`` Y blocks whose magnitudes are all ``<= eps`` are zeroed on
   the device before the kernel, turning their pairs into the same no-ops.
 
-The activation half (capacity-padded dense-X block-skip) comes with the
-whole-model compile slice of the port.
+The activation half (:class:`ActivationDispatch`,
+:func:`apply_activation_dispatch`) lowers an activation-side (dense X)
+kernel into capacity-slot descriptors that are independent of the
+activation's content: the device packer
+(:func:`~repro_torch.kernels.ops.pack_activation_stripes`) fills the slots
+at run time, the fused kernels find their runs on the device, and a batch
+that overflows its budget takes the dense ``gemm`` kernel — all with fixed
+shapes and no host read, so the whole route can live inside one captured
+CUDA graph (:func:`repro_torch.models.gnn.compile_model`).
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import host
+from repro_torch.device import as_tensor, host
 from repro_torch.kernels import ops
 from repro_torch.kernels.formats import (BlockCSR, block_nonzero_mask,
                                          run_starts)
@@ -312,14 +319,21 @@ def _gemm_y_panel(geom, y):
     return y_p
 
 
-def _gemm_scatter_panel(geom, arrays, x, y_p, z):
+def _gemm_scatter_panel(geom, arrays, x, y_p, z, *, pred=None):
     """Dense-queue section on a pre-built operand panel: gather the tasks'
     row/col stripes and scatter one batched GEMM into the canvas."""
     rows, cols = arrays["gemm_rows"], arrays["gemm_cols"]
     x_p = F.pad(x, (0, 0, 0, geom.m_pad - geom.M))
     xs = x_p.reshape(geom.nrt, geom.SM, geom.K)[rows.long()]
     ys = y_p.movedim(1, 0)[cols.long()]
-    return ops.gemm_batch_scatter(xs, ys, rows, cols, z)
+    return ops.gemm_batch_scatter(xs, ys, rows, cols, z, pred=pred)
+
+
+def _gemm_scatter(geom, arrays, x, y, z, *, pred=None):
+    """Dense-queue section on the raw dense operand (the activation
+    route's entry point)."""
+    return _gemm_scatter_panel(geom, arrays, x, _gemm_y_panel(geom, y), z,
+                               pred=pred)
 
 
 def apply_dispatch(geom: DispatchGeometry, arrays, x, y):
@@ -398,3 +412,265 @@ def execute_dispatch(d: CompiledDispatch, x, y, *, stats=None) -> torch.Tensor:
         else:
             stats.trace_builds += 1
     return apply_dispatch(d.geom, d.arrays, x, y)
+
+
+# ------------------------------------ activation-side capacity block-skip
+@dataclasses.dataclass(frozen=True)
+class ActivationGeometry(DispatchGeometry):
+    """Hashable static shape of a compiled ACTIVATION dispatch.
+
+    Extends :class:`DispatchGeometry` with the stored-block budget per
+    row-stripe: the descriptor arrays enumerate capacity slots, not
+    concrete stored blocks, so the key distinguishes two budgets but NOT
+    two sparsity patterns.  The budget is uniform (``cap``) or a per-stripe
+    vector (``caps``; stripes live at flat offsets ``cumsum(caps)``)."""
+    cap: int = 0
+    # per-stripe budgets; empty tuple = uniform ``cap`` for every stripe
+    caps: tuple = ()
+
+    @property
+    def R(self) -> int:
+        return self.SM // self.B
+
+    @property
+    def C(self) -> int:
+        return self.SN // self.B
+
+    @property
+    def cap_vec(self) -> np.ndarray:
+        """Per-stripe budget vector (length ``nrt``)."""
+        if self.caps:
+            return np.asarray(self.caps, dtype=np.int64)
+        return np.full(self.nrt, self.cap, dtype=np.int64)
+
+    @property
+    def total_slots(self) -> int:
+        return int(self.cap_vec.sum())
+
+
+@dataclasses.dataclass
+class ActivationDispatch:
+    """Capacity-parameterized instruction stream of one activation-side
+    (dense X) kernel.  ``arrays`` holds ONLY static int32 arrays — slot
+    ids, output col-stripes, base rows (the reference's descriptors) and
+    ``act_caps``, the budget vector on the device, which the packer needs
+    inside a captured program — valid for every input; the data-dependent
+    half (block payloads, per-slot block-row/col/first) is produced at run
+    time by the device packer and joined to these descriptors."""
+    geom: ActivationGeometry
+    arrays: dict[str, torch.Tensor]
+    fingerprint: str
+
+
+def _canvas_rc(part, block: int) -> tuple[int, int]:
+    SM, _ = canvas_slots(part, block)
+    return SM // block, -(-part.K // block)
+
+
+def _stripe_needs(x, part, block: int, *, eps: float = 0.0):
+    """Per-stripe slot needs of a warmup activation (stored blocks plus one
+    filler per empty block-row, canvas padding rows included); ``None`` for
+    canvas-misaligned geometry."""
+    slots = canvas_slots(part, block)
+    if slots is None:
+        return None
+    SM, _ = slots
+    B = block
+    S, R, C = part.n_row_tiles, SM // B, -(-part.K // B)
+    x = host(x)
+    xp = np.zeros((S * R * B, C * B), dtype=x.dtype)
+    xp[: x.shape[0], : x.shape[1]] = x
+    xb = xp.reshape(S, R, B, C, B)
+    mask = block_nonzero_mask(xb, eps, axis=(2, 4))
+    return np.maximum(mask.sum(axis=2), 1).sum(axis=1)     # (S,)
+
+
+def activation_capacity(x, part, block: int, *, eps: float = 0.0,
+                        slack: float = 1.5) -> int | None:
+    """Uniform stored-block budget per row-stripe from a warmup activation:
+    the largest stripe need times ``slack``, clamped to ``[1, R*C]``, so
+    later batches whose sparsity wiggles still fit without a new capture.
+    ``None`` when the canvas geometry cannot take the in-place layout."""
+    needs = _stripe_needs(x, part, block, eps=eps)
+    if needs is None:
+        return None
+    R, C = _canvas_rc(part, block)
+    return min(R * C, max(1, math.ceil(int(needs.max()) * slack)))
+
+
+def activation_budgets(x, part, block: int, *, eps: float = 0.0,
+                       slack: float = 1.5):
+    """Per-stripe stored-block budget VECTOR from a warmup activation: each
+    stripe budgeted at its own need × ``slack`` (clamped to ``[1, R*C]``),
+    so skewed activations do not pad every stripe to the densest one's
+    need.  int64 array of length ``part.n_row_tiles``, or ``None`` for
+    canvas-misaligned geometry."""
+    needs = _stripe_needs(x, part, block, eps=eps)
+    if needs is None:
+        return None
+    R, C = _canvas_rc(part, block)
+    return np.clip(np.ceil(needs * slack).astype(np.int64), 1, R * C)
+
+
+def build_activation_dispatch(part, stq, dtq, *, block: int, capacity,
+                              eps: float = 0.0, fingerprint: str = "",
+                              device="cpu") -> ActivationDispatch | None:
+    """Lower an activation-side plan into capacity-slot descriptor arrays
+    on ``device``.
+
+    ``capacity`` is a uniform int budget or a per-stripe vector;
+    descriptors address slots at the stripe's flat offset.  Entry order is
+    (task, slot) for SpDMM and (task, y-block-col, slot) for SpMM: within
+    one ordering unit the packer's slot metadata is row-major, so every
+    output block is visited in ONE consecutive run for ANY stored pattern,
+    and the real contributions arrive in the order the eager host pack
+    emits, so sums are bit-identical.  ``None`` for canvas geometries the
+    in-place layout cannot take."""
+    slots = canvas_slots(part, block)
+    if slots is None:
+        return None
+    SM, SN = slots
+    B = block
+    R, C = SM // B, SN // B
+    cap_arr = np.asarray(capacity, dtype=np.int64)
+    uniform = cap_arr.ndim == 0
+    if uniform:
+        cap_arr = np.full(part.n_row_tiles, int(cap_arr), dtype=np.int64)
+    assert cap_arr.shape == (part.n_row_tiles,), (cap_arr.shape, part)
+    offs = np.concatenate([np.zeros(1, np.int64), np.cumsum(cap_arr)])
+    geom = ActivationGeometry(
+        M=part.M, K=part.K, N=part.N, tm=part.tile_m, tn=part.tile_n,
+        SM=SM, SN=SN, B=B, nrt=part.n_row_tiles, nct=part.n_col_tiles,
+        cap=int(cap_arr[0]) if uniform else 0,
+        caps=() if uniform else tuple(int(c) for c in cap_arr),
+        eps=eps,
+        has_gemm=bool(dtq),
+        has_spdmm=any(t.primitive != "SpMM" for t in stq),
+        has_spmm=any(t.primitive == "SpMM" for t in stq))
+    up = lambda a: torch.as_tensor(np.asarray(a).astype(np.int32),
+                                   device=device)
+    arrays: dict[str, torch.Tensor] = {"act_caps": up(cap_arr)}
+
+    if dtq:
+        arrays["gemm_rows"] = up([t.i for t in dtq])
+        arrays["gemm_cols"] = up([t.j for t in dtq])
+
+    spdmm_tasks = sorted((t for t in stq if t.primitive != "SpMM"),
+                         key=lambda t: (t.i, t.j))
+    spmm_tasks = sorted((t for t in stq if t.primitive == "SpMM"),
+                        key=lambda t: (t.i, t.j))
+
+    if spdmm_tasks:
+        arrays["asp_a_ids"] = up(np.concatenate(
+            [offs[t.i] + np.arange(cap_arr[t.i], dtype=np.int64)
+             for t in spdmm_tasks]))
+        arrays["asp_out_cols"] = up(np.concatenate(
+            [np.full(cap_arr[t.i], t.j, dtype=np.int64)
+             for t in spdmm_tasks]))
+        arrays["asp_base_rows"] = up(np.concatenate(
+            [np.full(cap_arr[t.i], t.i * R, dtype=np.int64)
+             for t in spdmm_tasks]))
+
+    if spmm_tasks:
+        a_ids, y_cols, base_rows = [], [], []
+        for t in spmm_tasks:
+            nbj = -(-part.col_extent(t.j) // B)
+            cap_i = int(cap_arr[t.i])
+            a_ids.append(np.tile(
+                offs[t.i] + np.arange(cap_i, dtype=np.int64), nbj))
+            y_cols.append(np.repeat(t.j * C + np.arange(nbj, dtype=np.int64),
+                                    cap_i))
+            base_rows.append(np.full(nbj * cap_i, t.i * R, dtype=np.int64))
+        arrays["amm_a_ids"] = up(np.concatenate(a_ids))
+        # y block-col == output block-col for every triple of a task
+        arrays["amm_y_cols"] = up(np.concatenate(y_cols))
+        arrays["amm_base_rows"] = up(np.concatenate(base_rows))
+
+    return ActivationDispatch(geom=geom, arrays=arrays,
+                              fingerprint=fingerprint)
+
+
+def apply_activation_dispatch(geom: ActivationGeometry, arrays, x, y):
+    """Activation-side executor: device-pack X into capacity slots, join
+    the slot metadata to the static descriptors, and drain the plan's
+    queues on one canvas — or, when the batch overflows the budget, take
+    the dense ``gemm`` result.
+
+    Both branches are launched and each kernel is predicated on the
+    packer's overflow flag, read on the device: the skip route's kernels
+    run only without overflow, the dense ``gemm`` only with it, and
+    ``torch.where`` picks the branch that ran.  The reference's
+    ``lax.cond`` thus becomes straight-line code with no host read, which
+    a CUDA graph can capture; on the CPU (plain versions) both branches
+    compute.  The fused kernels find their runs on the device
+    (:func:`~repro_torch.kernels.formats.run_slots`) because the
+    descriptors ``base_rows + row_m[a_ids]`` exist only at run time.
+
+    Returns ``(z, diag)``: ``diag`` carries the block-skip telemetry —
+    ``stored`` (real blocks packed, a device scalar), ``capacity`` /
+    ``logical`` (the budget and the logical block count) and the
+    ``overflow`` flag (a device bool)."""
+    B, SN = geom.B, geom.SN
+    (pool, row_m, col_m, first_m, _nnzb, real,
+     overflow) = ops.pack_activation_stripes(
+        x, block=B, n_stripes=geom.nrt, slot_rows=geom.R,
+        n_block_cols=geom.ncb, capacity=geom.cap_vec, eps=geom.eps,
+        caps=arrays["act_caps"])
+    flag = overflow.to(torch.int32).reshape(1)
+    z_dense = ops.gemm(x, y, out_dtype=torch.float32, pred=(flag, 1))
+    skip = (flag, 0)
+    z = torch.zeros((geom.m_pad, geom.n_pad), dtype=torch.float32,
+                    device=y.device)
+    if geom.has_gemm:
+        z = _gemm_scatter(geom, arrays, x, y, z, pred=skip)
+    if geom.has_spdmm or geom.has_spmm:
+        y_f = _stripe_padded_y(geom, y)
+    if geom.has_spdmm:
+        a_ids = arrays["asp_a_ids"]
+        slot = a_ids.long()
+        z = ops.spdmm_fused(
+            pool, y_f, a_ids, col_m[slot],
+            arrays["asp_base_rows"] + row_m[slot], arrays["asp_out_cols"],
+            first_m[slot], block_size=B, bn=SN, m_pad=geom.m_pad, z=z,
+            pred=skip)
+    if geom.has_spmm:
+        y_blocks = _masked_y_blocks(geom, y_f)
+        a_ids = arrays["amm_a_ids"]
+        slot = a_ids.long()
+        y_ids = col_m[slot] * (geom.nct * geom.C) + arrays["amm_y_cols"]
+        z = ops.spmm_fused(
+            pool, y_blocks, a_ids, y_ids,
+            arrays["amm_base_rows"] + row_m[slot], arrays["amm_y_cols"],
+            first_m[slot], block_size=B, m_pad=geom.m_pad,
+            n_pad=geom.n_pad, z=z, pred=skip)
+    z = torch.where(overflow, z_dense, z[:geom.M, :geom.N])
+    # ``stored`` counts REAL blocks (empty-row fillers excluded) and
+    # ``logical`` the block positions of the LOGICAL extent, so
+    # 1 - stored/logical is the honest skip ratio
+    diag = {
+        "stored": real.sum(),
+        "capacity": geom.total_slots,
+        "logical": -(-geom.M // geom.B) * geom.ncb,
+        "overflow": overflow,
+    }
+    return z, diag
+
+
+def execute_activation(d: ActivationDispatch, x, y, *, stats=None):
+    """Run one activation-side kernel through the capacity block-skip
+    route; the same executor serves EVERY input sparsity within budget.
+    Returns ``(z, diag)``; ``stats`` receives the same executor-signature
+    accounting as :func:`execute_dispatch`."""
+    dev = d.arrays["act_caps"].device
+    x = as_tensor(x, dev)
+    y = as_tensor(y, dev)
+    key = _signature(d.geom, d.arrays, x, y)
+    with _TRACE_LOCK:
+        hit = key in _TRACE_SEEN
+        _TRACE_SEEN.add(key)
+    if stats is not None:
+        if hit:
+            stats.trace_cache_hits += 1
+        else:
+            stats.trace_builds += 1
+    return apply_activation_dispatch(d.geom, d.arrays, x, y)

@@ -17,12 +17,17 @@ which splits into two phases:
 - ``execute``: compute the result — with the fused kernels when
   ``literal=True`` (one launch per primitive; adjacency kernels through a
   cached :class:`~repro_torch.core.dispatch.CompiledDispatch`, activation
-  kernels through the eager batched drain), or through the plainest
+  kernels through the eager batched drain; ``batched=False`` takes the
+  per-task path, one kernel launch per task), or through the plainest
   equivalent path otherwise (COO ``index_add_`` and ``torch.matmul``).
 
+:meth:`DynasparseEngine.activation_dispatch_for` lowers an activation
+kernel into the capacity block-skip route that the whole-model compiler
+(:func:`repro_torch.models.gnn.compile_model`) replays.
+
 Not in this slice of the port (each raises ``NotImplementedError``): mesh
-engines, per-device models, ``calibration="auto"`` on a ``fallback=True``
-model, and ``batched=False``.
+engines, per-device models and ``calibration="auto"`` on a
+``fallback=True`` model.
 """
 from __future__ import annotations
 
@@ -100,8 +105,6 @@ class DynasparseEngine:
         if (mesh is not None or per_device_models is not None
                 or operand_sharding != "halo"):
             raise _later("mesh sharding", "multi-device")
-        if not batched:
-            raise _later("batched=False (per-task execution)", "per-task")
         self.hw = hw
         self.calibration = calibration
         self._hw_runtime: HardwareModel | None = None
@@ -280,6 +283,44 @@ class DynasparseEngine:
                 plan.part, plan.stq, plan.dtq, entry.stripes,
                 block=self.block, eps=self.eps, fingerprint=digest))
 
+    def activation_dispatch_for(
+            self, plan: KernelPlan, x, *, capacity=None,
+            slack: float = 1.5,
+            per_stripe: bool = True) -> "_dispatch.ActivationDispatch | None":
+        """The plan's :class:`~repro_torch.core.dispatch.ActivationDispatch`
+        — the capacity-padded block-skip route for a dense (activation-side)
+        X — or ``None`` when the kernel should stay dense: non-literal or
+        non-batched engines, sparse X (that is :meth:`dispatch_for`'s job),
+        plans whose Analyzer routed every task to the dense engine, or
+        canvas-misaligned geometry.
+
+        ``capacity`` fixes the stored-block budget (an int, or a per-stripe
+        vector); by default it is measured from ``x`` (the warmup
+        activation) with ``slack`` headroom, per stripe
+        (``dispatch.activation_budgets``) or, with ``per_stripe=False``, as
+        one uniform max-need budget.  Descriptors are content-INDEPENDENT:
+        cached on the plan digest, the budget and eps."""
+        if not (self.literal and self.batched):
+            return None
+        if isinstance(x, SparseCOO) or not plan.stq:
+            return None
+        if capacity is None:
+            sizer = (_dispatch.activation_budgets if per_stripe
+                     else _dispatch.activation_capacity)
+            capacity = sizer(x, plan.part, self.block, eps=self.eps,
+                             slack=slack)
+            if capacity is None:
+                return None
+        cap_key = (tuple(int(c) for c in np.asarray(capacity).ravel())
+                   if np.ndim(capacity) else int(capacity))
+        digest = _dispatch.plan_digest(plan, self.block)
+        return self.cache.activation_dispatch(
+            (digest, cap_key, self.eps),
+            lambda: _dispatch.build_activation_dispatch(
+                plan.part, plan.stq, plan.dtq, block=self.block,
+                capacity=capacity, eps=self.eps, fingerprint=digest,
+                device=self.device))
+
     def compiled_operands(
             self, plan: KernelPlan,
             x) -> "tuple[_dispatch.CompiledDispatch, torch.Tensor | None] | None":
@@ -299,7 +340,7 @@ class DynasparseEngine:
 
         Literal engines prefer the compiled dispatch (descriptors served
         from the cache); kernels the compiler declines take the eager
-        batched drain."""
+        batched drain (or the per-task path when ``batched=False``)."""
         x =self._operand(x)
         y = as_tensor(y, self.device)
         if self.literal:
@@ -313,7 +354,10 @@ class DynasparseEngine:
                 if plan.struct_key is not None:
                     key, entry = self._packed_structure(plan, x)
                     packed = entry.stripes
-                    xd = self._ensure_dense(key, entry, x) if plan.dtq else None
+                    # the densified operand is only needed by dense-engine
+                    # tasks (batched GEMM gather) or the per-task path
+                    xd = (self._ensure_dense(key, entry, x)
+                          if plan.dtq or not self.batched else None)
                 else:
                     xd = torch.as_tensor(x.todense(), device=self.device)
             else:

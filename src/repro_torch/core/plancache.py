@@ -15,12 +15,17 @@ Levels, held in ONE byte-accounted LRU store:
   task grid, STQ/DTQ assignment, and simulated ``ScheduleReport``.
 - **dispatch level** (structure key + plan digest): the plan lowered into a
   device-resident :class:`~repro_torch.core.dispatch.CompiledDispatch`.
+- **activation-dispatch level** (plan digest + capacity + eps): the
+  capacity-parameterized descriptor arrays of an activation-side (dense X)
+  kernel's block-skip route
+  (:class:`~repro_torch.core.dispatch.ActivationDispatch`) — content
+  independent, so one lowering serves every activation of that shape.
 
-Only kernels whose X operand is ``SparseCOO`` are cached; dense X
+Only kernels whose X operand is ``SparseCOO`` are planned once; dense X
 (activations) is planned fresh every call.  Keys and fingerprints equal the
 reference package's for the same operand, so the two caches can be compared
-entry by entry.  The activation, calibration and sharded levels come with
-later slices of the port.
+entry by entry.  The calibration and sharded levels come with later slices
+of the port.
 """
 from __future__ import annotations
 
@@ -110,11 +115,13 @@ class CacheStats:
     dispatch_hits: int = 0      # requests served from a cached dispatch
     trace_builds: int = 0       # first executor call per signature
     trace_cache_hits: int = 0   # executor calls on a signature seen before
-    # the reference's activation / calibration / snapshot counters, kept so
-    # the two packages' ``as_dict()`` have the same keys (their levels come
-    # with later slices of the port and stay 0 until then)
+    # activation-dispatch level: descriptor lowerings of the block-skip
+    # route, and reuses of a cached one (compiled replays credit these too)
     act_builds: int = 0
     act_hits: int = 0
+    # the reference's calibration / snapshot counters, kept so the two
+    # packages' ``as_dict()`` have the same keys (their levels come with
+    # later slices of the port and stay 0 until then)
     calib_builds: int = 0
     calib_hits: int = 0
     snapshot_errors: int = 0
@@ -171,6 +178,7 @@ class PlanCache:
 
     # entry-kind prefixes of the unified store
     _PLAN, _DENSITY, _STRUCT, _DISPATCH = "plan", "density", "struct", "dispatch"
+    _ACT = "actdispatch"
 
     def __init__(self, capacity: int = 256, max_bytes: int | None = None):
         self.capacity = capacity
@@ -292,6 +300,27 @@ class PlanCache:
             self._put(self._DISPATCH, key, d)
         return d
 
+    # ------------------------------------------- activation-dispatch level
+    def activation_dispatch(self, key: tuple, compute: Callable[[], object]):
+        """Get-or-compute an
+        :class:`~repro_torch.core.dispatch.ActivationDispatch`.  Keyed on
+        (plan digest, capacity, eps) — content-independent by construction,
+        so activation kernels of different requests (and different layers
+        with one geometry/assignment) share one descriptor lowering.
+        ``None`` (unlowerable geometry) is never cached."""
+        d = self._get(self._ACT, key)
+        if d is not None:
+            self.stats.act_hits += 1
+            return d
+        d = compute()
+        if d is not None:
+            self.stats.act_builds += 1
+            self._put(self._ACT, key, d)
+        return d
+
+    def activation_count(self) -> int:
+        """Number of cached activation-dispatch entries."""
+        return sum(1 for (kind, _k) in self._entries if kind == self._ACT)
 
     def clear(self) -> None:
         self._entries.clear()

@@ -11,8 +11,10 @@ Two roles:
 
 2. ``execute_plan``: literal functional execution of a plan — each queue is
    drained with its real fused kernel (``gemm_batch_scatter`` /
-   ``spdmm_fused`` / ``spmm_fused``) onto one in-place canvas.  The engine
-   uses it for activation-side (dense X) kernels.
+   ``spdmm_fused`` / ``spmm_fused``) onto one in-place canvas, or, with
+   ``batched=False`` and for canvas-misaligned tile geometry, task by task
+   (``gemm`` / ``spdmm`` / ``spmm``, one launch per task).  The engine uses
+   it for activation-side (dense X) kernels.
 """
 from __future__ import annotations
 
@@ -141,10 +143,6 @@ def simulate(stq: list[Task], dtq: list[Task], hw: HardwareModel) -> ScheduleRep
     )
 
 
-_LATER = ("comes with the per-task slice of the port, which also ports the "
-          "per-task kernels gemm / spdmm / spmm")
-
-
 def execute_plan(
     part: KernelPartition,
     stq: list[Task],
@@ -168,15 +166,65 @@ def execute_plan(
 
     ``packed`` optionally supplies pre-packed BlockCSR row-stripes of ``x``
     (index -> BlockCSR); missing stripes are packed on the host from ``x``
-    (a device-to-host copy per stripe, as in the reference).  ``x`` may be
-    ``None`` when ``packed`` covers every stripe the sparse queue touches
-    AND the dense queue is empty — the graph-scale mode where the operand is
-    never densified.
+    (a device-to-host copy per stripe, as in the reference).
+    ``batched=False`` keeps the one-launch-per-task path for equivalence
+    testing.  ``x`` may be ``None`` when ``packed`` covers every stripe the
+    sparse queue touches AND the dense queue is empty — the graph-scale
+    mode where the operand is never densified.
     """
-    if not batched:
-        raise NotImplementedError(f"execute_plan(batched=False) {_LATER}")
-    return _execute_batched(part, stq, dtq, x, y, block=block, packed=packed,
-                            eps=eps)
+    if batched:
+        return _execute_batched(part, stq, dtq, x, y, block=block,
+                                packed=packed, eps=eps)
+    return _execute_pertask(part, stq, dtq, x, y, block=block, eps=eps,
+                            packed=packed)
+
+
+def _execute_pertask(part, stq, dtq, x, y, *, block, eps=0.0, packed=None):
+    """One kernel launch per task — ``gemm`` for the dense queue, ``spdmm``
+    or ``spmm`` for the sparse queue on the task's BlockCSR row-stripe —
+    each tile written into the ``(M, N)`` result on the device.  Host
+    copies of ``x`` / ``y`` are made at most once, only when a stripe must
+    be packed."""
+    tm, tn = part.tile_m, part.tile_n
+    z = torch.zeros((part.M, part.N), dtype=torch.float32, device=y.device)
+    x_host = None
+    y_host = None
+
+    if dtq and x is None:
+        raise ValueError("execute_plan: dense-queue tasks need the "
+                         "densified x operand (got x=None)")
+    for task in dtq:  # dense engine
+        xs = x[task.i * tm:(task.i + 1) * tm, :]
+        ys = y[:, task.j * tn:(task.j + 1) * tn]
+        z[task.i * tm:task.i * tm + xs.shape[0],
+          task.j * tn:task.j * tn + ys.shape[1]] = ops.gemm(
+            xs, ys, out_dtype=torch.float32)
+
+    for task in stq:  # sparse engine: block-skip kernels
+        if packed is not None and task.i in packed:
+            x_bcsr = packed[task.i]
+        elif x is None:
+            raise ValueError(
+                f"execute_plan: row-stripe {task.i} is missing from `packed` "
+                "and no dense x was supplied to pack it from")
+        else:
+            if x_host is None:
+                x_host = host(x)
+            x_bcsr = pack_blockcsr(x_host[task.i * tm:(task.i + 1) * tm, :],
+                                   block, eps=eps, device=y.device)
+        mi = part.row_extent(task.i)
+        ys = y[:, task.j * tn:(task.j + 1) * tn]
+        if task.primitive == "SpMM":
+            if y_host is None:
+                y_host = host(y)
+            y_bcsr = pack_blockcsr(y_host[:, task.j * tn:(task.j + 1) * tn],
+                                   block, eps=eps, device=y.device)
+            tile = ops.spmm(x_bcsr, y_bcsr)
+        else:
+            tile = ops.spdmm(x_bcsr, ys)
+        z[task.i * tm:task.i * tm + mi,
+          task.j * tn:task.j * tn + ys.shape[1]] = tile
+    return z
 
 
 def _execute_batched(part, stq, dtq, x, y, *, block, packed=None, eps=0.0):
@@ -194,11 +242,14 @@ def _execute_batched(part, stq, dtq, x, y, *, block, packed=None, eps=0.0):
     nrt, nct = part.n_row_tiles, part.n_col_tiles
     B = block
 
+    # The canvas is addressed in units of B-blocks (sparse kernels) and
+    # 8-lane groups (GEMM tiles), so every interior slot boundary must be a
+    # multiple of lcm(B, 8); other geometries take the equivalent per-task
+    # path (which reuses the packed stripes, so x=None still works there).
     slots = _dispatch.canvas_slots(part, B)
     if slots is None:
-        raise NotImplementedError(
-            f"tile boundaries not lcm(block, 8)-aligned: the per-task "
-            f"fallback {_LATER}")
+        return _execute_pertask(part, stq, dtq, x, y, block=B, eps=eps,
+                                packed=packed)
     SM, SN = slots
     R = SM // B                      # block-rows per row-stripe slot
     C = SN // B                      # block-cols per col-stripe slot

@@ -38,7 +38,11 @@ def as_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
 
 
 def host(t) -> np.ndarray:
-    """numpy view of a tensor's contents (a device sync for CUDA tensors)."""
+    """numpy view of a tensor's contents (a device sync for CUDA tensors).
+    numpy has no bfloat16, so a bfloat16 tensor comes back widened to
+    float32, which is exact."""
     if isinstance(t, torch.Tensor):
+        if t.dtype == torch.bfloat16:
+            t = t.float()
         return t.detach().cpu().numpy()
     return np.asarray(t)

@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,10 +41,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: every pointer and the stream as void*, every int as int
 SIGNATURES = {
-    "gemm_batch_scatter_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gemm_tiled": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "gemm_batch_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gemm_batch_scatter_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P, _I, _P],
+    "spdmm_f32": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     "spdmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                        _I, _P],
-    "spmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+                        _I, _P, _I, _P],
+    "spmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
+                       _I, _P],
 }
 
 
@@ -153,6 +160,20 @@ def check_operand(name: str, t, dtype, ndim: int) -> None:
                          f"{ndim} dims")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def predicate(pred) -> tuple[int | None, int]:
+    """``(pointer, when)`` arguments of a predicated launch: ``pred`` is
+    ``None`` (always run) or ``(flag, when)`` with ``flag`` a one-element
+    int32 CUDA tensor; the kernel's thread blocks return at once unless
+    ``flag == when``.  Read on the device only, so a captured program takes
+    either branch without a host sync."""
+    if pred is None:
+        return None, 0
+    flag, when = pred
+    check_operand("pred", flag.reshape(-1), torch.int32, 1)
+    require(flag.numel() == 1, f"predicate flag of {flag.numel()} elements")
+    return flag.data_ptr(), int(when)
 
 
 def check(err: int, name: str) -> None:

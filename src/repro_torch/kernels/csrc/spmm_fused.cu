@@ -23,6 +23,12 @@
 // the canvas content, are zeroed by `first` (also mid-run) and are stored
 // once at the end.  No atomics, so results are bitwise reproducible; 64-bit
 // addressing throughout.
+//
+// Run offsets may be padded: a run whose offsets are equal holds no triple
+// and its warp returns at once (the compiled activation route launches one
+// slot per triple, since its runs are found on the device at run time).
+// `pred` (not null) predicates the launch on *pred == when (the route's
+// overflow flag).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,7 +46,9 @@ spmm_fused_kernel(const float* __restrict__ a_blocks,
                   const int* __restrict__ out_cols,
                   const int* __restrict__ first,
                   const int* __restrict__ run_starts,
-                  int n_runs, float* __restrict__ z, int ldz) {
+                  int n_runs, float* __restrict__ z, int ldz,
+                  const int* __restrict__ pred, int when) {
+  if (pred != nullptr && *pred != when) return;
   constexpr int BB = B * B;
   constexpr int NE = (BB + 31) / 32;
   __shared__ float sa[WARPS][BB];
@@ -51,6 +59,7 @@ spmm_fused_kernel(const float* __restrict__ a_blocks,
   if (run >= n_runs) return;  // whole warp leaves together
   const int s = run_starts[run];
   const int e = run_starts[run + 1];
+  if (s >= e) return;  // a padding run slot: the whole warp leaves
   const int64_t zr0 = (int64_t)out_rows[s] * B;
   const int64_t zc0 = (int64_t)out_cols[s] * B;
   float* wa = sa[warp];
@@ -95,31 +104,33 @@ template <int B>
 int launch(const void* a_blocks, const void* y_blocks, const void* a_ids,
            const void* y_ids, const void* out_rows, const void* out_cols,
            const void* first, const void* run_starts, int n_runs, void* z,
-           int ldz, cudaStream_t stream) {
+           int ldz, const void* pred, int when, cudaStream_t stream) {
   dim3 grid((n_runs + WARPS - 1) / WARPS);
   spmm_fused_kernel<B><<<grid, WARPS * 32, 0, stream>>>(
       (const float*)a_blocks, (const float*)y_blocks, (const int*)a_ids,
       (const int*)y_ids, (const int*)out_rows, (const int*)out_cols,
-      (const int*)first, (const int*)run_starts, n_runs, (float*)z, ldz);
+      (const int*)first, (const int*)run_starts, n_runs, (float*)z, ldz,
+      (const int*)pred, when);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // a_blocks (Pa, B, B), y_blocks (Py, B, B), z (m_pad, ldz): f32 row-major
-// contiguous.  Descriptors int32; run_starts (n_runs + 1,).
+// contiguous.  Descriptors int32; run_starts (n_runs + 1,) (padding slots
+// repeat the closing count).  pred: int32 device flag or null.
 extern "C" int spmm_fused_f32(const void* a_blocks, const void* y_blocks,
                               const void* a_ids, const void* y_ids,
                               const void* out_rows, const void* out_cols,
                               const void* first, const void* run_starts,
                               int n_runs, void* z, int block, int ldz,
-                              void* stream) {
+                              const void* pred, int when, void* stream) {
   if (n_runs == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
 #define SPMM_CASE(BB)                                                        \
   case BB:                                                                   \
     return launch<BB>(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols, \
-                      first, run_starts, n_runs, z, ldz, st);
+                      first, run_starts, n_runs, z, ldz, pred, when, st);
   switch (block) {
     SPMM_CASE(1)
     SPMM_CASE(2)

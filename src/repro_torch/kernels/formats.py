@@ -300,6 +300,17 @@ def spmm_triples(a: BlockCSR, y: BlockCSR):
     return a_ids, y_ids, out_rows, out_cols, first_visit_flags(out_rows, out_cols)
 
 
+def _key_changes(out_rows: torch.Tensor, out_cols: torch.Tensor):
+    """True at every entry whose ``(out_row, out_col)`` key differs from the
+    previous entry's (and at entry 0)."""
+    n = int(out_rows.shape[0])
+    change = torch.ones(n, dtype=torch.bool, device=out_rows.device)
+    if n > 1:
+        change[1:] = ((out_rows[1:] != out_rows[:-1])
+                      | (out_cols[1:] != out_cols[:-1]))
+    return change
+
+
 def run_starts(out_rows: torch.Tensor, out_cols: torch.Tensor) -> torch.Tensor:
     """Start offsets of the output-block runs of a sorted descriptor list,
     plus the total length as a closing sentinel: ``(n_runs + 1,)`` int32 on
@@ -307,11 +318,21 @@ def run_starts(out_rows: torch.Tensor, out_cols: torch.Tensor) -> torch.Tensor:
     entries with one ``(out_row, out_col)`` key — found from key changes,
     never from the ``first`` flags (a ``first`` may reset mid-run).  One
     host sync for the run count."""
-    n = int(out_rows.shape[0])
-    change = torch.ones(n, dtype=torch.bool, device=out_rows.device)
-    if n > 1:
-        change[1:] = ((out_rows[1:] != out_rows[:-1])
-                      | (out_cols[1:] != out_cols[:-1]))
-    starts = torch.nonzero(change).flatten()
-    end = torch.full((1,), n, dtype=starts.dtype, device=starts.device)
+    starts = torch.nonzero(_key_changes(out_rows, out_cols)).flatten()
+    end = torch.full((1,), int(out_rows.shape[0]), dtype=starts.dtype,
+                     device=starts.device)
     return torch.cat([starts, end]).to(torch.int32)
+
+
+def run_slots(out_rows: torch.Tensor, out_cols: torch.Tensor) -> torch.Tensor:
+    """Run offsets of a sorted descriptor list with a FIXED shape and no
+    host read: ``(E + 1,)`` int32, the start of run ``k`` at ``k`` for every
+    run, then the entry count ``E`` repeated.  A slot whose offsets are
+    equal holds no entry; the fused kernels return at once from such slots,
+    so a launch over all ``E`` slots covers every run whatever the data.
+    This is the form for descriptors made on the device at run time (the
+    compiled activation route), where the run count is not known on the
+    host without a sync."""
+    run_id = torch.cumsum(_key_changes(out_rows, out_cols), 0) - 1
+    slots = torch.arange(int(out_rows.shape[0]) + 1, device=out_rows.device)
+    return torch.searchsorted(run_id, slots).to(torch.int32)

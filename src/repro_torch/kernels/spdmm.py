@@ -1,39 +1,50 @@
-"""Fused multi-task SpDMM (block-sparse pool x dense) on an in-place canvas.
+"""Block-sparse x dense products: the fused multi-task SpDMM on an in-place
+canvas (``spdmm_fused``) and the single-BlockCSR SpDMM (``spdmm``).
 
-``spdmm_fused`` launches the hand-written CUDA kernel
-(``csrc/spdmm_fused.cu``) for CUDA tensors and runs ``spdmm_fused_plain``
-for CPU tensors.  The TPU kernel aliases the canvas to its output; here the
-kernel updates the canvas ``z`` IN PLACE and the wrapper returns it.
+Both launch their hand-written CUDA kernels (``csrc/spdmm_fused.cu``) for
+CUDA tensors and run their ``_plain`` versions for CPU tensors.  The TPU
+fused kernel aliases the canvas to its output; here the kernel updates the
+canvas ``z`` IN PLACE and the wrapper returns it.
 
-Semantics (both versions): entries are walked in order within each
-output-block run (a maximal stretch of entries with one ``(out_row,
-out_col)`` key).  A run's accumulator starts from the canvas content; an
-entry with ``first`` set zeroes it — also in the middle of a run — before
-adding ``A_pool[a_ids[t]] @ Y[y_rows[t]*B:+B, out_cols[t]*bn:+bn]``.  Blocks
-no entry covers are untouched.  Each output block must form ONE run: two
-runs of one block would race on the card.
+Semantics of ``spdmm_fused`` (both versions): entries are walked in order
+within each output-block run (a maximal stretch of entries with one
+``(out_row, out_col)`` key).  A run's accumulator starts from the canvas
+content; an entry with ``first`` set zeroes it — also in the middle of a
+run — before adding ``A_pool[a_ids[t]] @ Y[y_rows[t]*B:+B,
+out_cols[t]*bn:+bn]``.  Blocks no entry covers are untouched.  Each output
+block must form ONE run: two runs of one block would race on the card.
+
+The plain versions form every entry's block product with
+:func:`repro_torch.kernels.gemm.ordered_matmul` and fold them run by run
+(:func:`fold_runs`), so a tile computed by ``spdmm`` and by
+``spdmm_fused`` is bitwise the same on the CPU, as the two kernels' tiles
+are on the card.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.formats import run_starts
+from repro_torch.kernels.formats import BlockCSR, run_slots, run_starts
+from repro_torch.kernels.gemm import ordered_matmul
 
 _DESCRIPTORS = ("a_ids", "y_rows", "out_rows", "out_cols", "first")
 
 
 def fold_runs(prod, first, out_rows, out_cols, runs, z, bm: int, bn: int):
-    """Plain-version core shared by the fused sparse kernels: fold the
-    per-entry products ``prod`` ``(E, bm, bn)`` into the ``bm x bn`` canvas
-    blocks of ``z`` run by run.  Each run keeps only its last ``first``
-    epoch (a ``first`` restarts the sum) and adds onto the canvas when that
-    epoch opened without a ``first``.  Updates ``z`` in place."""
+    """Plain-version core shared by the sparse kernels: fold the per-entry
+    products ``prod`` ``(E, bm, bn)`` into the ``bm x bn`` canvas blocks of
+    ``z`` run by run.  Each run keeps only its last ``first`` epoch (a
+    ``first`` restarts the sum) and adds onto the canvas when that epoch
+    opened without a ``first``.  Padding run slots (equal offsets) are
+    skipped.  Updates ``z`` in place."""
     E = int(prod.shape[0])
     if E == 0:
         return z
     runs = runs.long()
     starts, ends = runs[:-1], runs[1:]
+    real = ends > starts
+    starts, ends = starts[real], ends[real]
     opens = first != 0
     opens[starts] = True
     epoch = torch.cumsum(opens.long(), 0) - 1
@@ -50,6 +61,7 @@ def fold_runs(prod, first, out_rows, out_cols, runs, z, bm: int, bn: int):
     return z
 
 
+# ------------------------------------------------------------ spdmm_fused
 def _validate(a_blocks, y, desc, B, bn, z, runs):
     E = desc[0].shape[0]
     _build.require(all(d.shape == (E,) for d in desc),
@@ -68,19 +80,22 @@ def _validate(a_blocks, y, desc, B, bn, z, runs):
 
 def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
                 block_size: int, bn: int, z: torch.Tensor,
-                runs: torch.Tensor | None = None) -> torch.Tensor:
+                runs: torch.Tensor | None = None, pred=None) -> torch.Tensor:
     """Fused SpDMM into the canvas ``z`` ``(m_pad, n_pad)``, in place.
 
     ``a_blocks`` ``(P, B, B)`` is the stored-block pool; ``y`` ``(K_pad,
     n_pad)`` the dense operand laid out in ``bn``-wide col-stripes; the five
-    int32 descriptor arrays are sorted by output block.  ``runs`` are the
-    run offsets of :func:`repro_torch.kernels.formats.run_starts` (computed
-    here when not given).  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (or raise)."""
+    int32 descriptor arrays are sorted by output block.  ``runs`` are run
+    offsets: exact ones (:func:`~repro_torch.kernels.formats.run_starts`,
+    made once for static descriptors) or, when not given, the fixed-shape
+    :func:`~repro_torch.kernels.formats.run_slots` made here without a host
+    read.  ``pred`` predicates the launch as in
+    :func:`repro_torch.kernels.gemm.gemm`.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (or raise)."""
     B = block_size
     desc = (a_ids, y_rows, out_rows, out_cols, first)
     if runs is None:
-        runs = run_starts(out_rows, out_cols)
+        runs = run_slots(out_rows, out_cols)
     _validate(a_blocks, y, desc, B, bn, z, runs)
     if z.device.type == "cpu":
         return spdmm_fused_plain(a_blocks, y, *desc, block_size=B, bn=bn,
@@ -94,11 +109,11 @@ def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
     n_runs = int(runs.shape[0]) - 1
     if n_runs == 0:
         return z
-    lib = _build.library()
-    err = lib.spdmm_fused_f32(
+    pred_ptr, when = _build.predicate(pred)
+    err = _build.library().spdmm_fused_f32(
         a_blocks.data_ptr(), y.data_ptr(), *(d.data_ptr() for d in desc),
         runs.data_ptr(), n_runs, z.data_ptr(), B, bn, y.shape[1], z.shape[1],
-        torch.cuda.current_stream(z.device).cuda_stream)
+        pred_ptr, when, torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(err, "spdmm_fused")
     _build.count_launch("spdmm_fused")
     return z
@@ -106,16 +121,79 @@ def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
 
 def spdmm_fused_plain(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first,
                       *, block_size: int, bn: int, z: torch.Tensor,
-                      runs: torch.Tensor | None = None) -> torch.Tensor:
+                      runs: torch.Tensor | None = None,
+                      pred=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`spdmm_fused` (same in-place
-    contract): gather every entry's A block and Y slice, one batched
-    product, then :func:`fold_runs`.  Its summation order differs from the
-    kernel's, so the two agree within a float32 tolerance."""
+    contract; ``pred`` is ignored): gather every entry's A block and Y
+    slice, form the products in k order, then :func:`fold_runs`.  Its
+    summation order differs from the kernel's, so the two agree within a
+    float32 tolerance."""
     B = block_size
     if runs is None:
         runs = run_starts(out_rows, out_cols)
     k_pad, n_pad = y.shape
     yb = y.view(k_pad // B, B, n_pad // bn, bn)
     ys = yb[y_rows.long(), :, out_cols.long(), :]
-    prod = torch.bmm(a_blocks[a_ids.long()].float(), ys.float())
+    prod = ordered_matmul(a_blocks[a_ids.long()], ys)
     return fold_runs(prod, first, out_rows, out_cols, runs, z, B, bn)
+
+
+# ------------------------------------------------------------------ spdmm
+def _block_row_runs(a: BlockCSR) -> torch.Tensor:
+    """Exact block-row runs of a BlockCSR (one host sync: the per-task path
+    is eager)."""
+    return run_starts(a.row_ids, torch.zeros_like(a.row_ids))
+
+
+def spdmm(a: BlockCSR, y: torch.Tensor) -> torch.Tensor:
+    """``a @ y`` for a BlockCSR ``a`` and a dense float32 ``y`` ``(K_pad,
+    N)`` with ``K_pad = a.n_block_cols * B``; returns the float32 ``(m_pad,
+    N)`` product, ``m_pad = a.n_block_rows * B`` (the caller slices).  Every
+    block-row holds a stored block, so every output row is written.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    B = a.block_size
+    k_pad, n = y.shape
+    _build.require(k_pad == a.n_block_cols * B,
+                   f"operand {tuple(y.shape)} for {a.shape} at block {B}")
+    if a.blocks.device != y.device:
+        raise ValueError(f"operands on {a.blocks.device} and {y.device}")
+    if y.device.type == "cpu":
+        return spdmm_plain(a, y)
+    for name, t, dt, nd in (("blocks", a.blocks, torch.float32, 3),
+                            ("y", y, torch.float32, 2),
+                            ("row_ids", a.row_ids, torch.int32, 1),
+                            ("col_ids", a.col_ids, torch.int32, 1),
+                            ("first", a.first, torch.int32, 1)):
+        _build.check_operand(name, t, dt, nd)
+    z = torch.zeros((a.n_block_rows * B, n), dtype=torch.float32,
+                    device=y.device)
+    runs = _block_row_runs(a)
+    n_runs = int(runs.shape[0]) - 1
+    if n_runs == 0 or n == 0:
+        return z
+    err = _build.library().spdmm_f32(
+        a.blocks.data_ptr(), y.data_ptr(), a.row_ids.data_ptr(),
+        a.col_ids.data_ptr(), a.first.data_ptr(), runs.data_ptr(), n_runs,
+        z.data_ptr(), B, n, torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check(err, "spdmm")
+    _build.count_launch("spdmm")
+    return z
+
+
+def spdmm_plain(a: BlockCSR, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spdmm`: the BlockCSR's own entry
+    list (``a_ids = t``, ``y_rows = col_ids``, ``out_rows = row_ids``) over
+    the whole width of ``y`` through :func:`spdmm_fused_plain`."""
+    B = a.block_size
+    n = y.shape[1]
+    z = torch.zeros((a.n_block_rows * B, n), dtype=torch.float32,
+                    device=y.device)
+    if n == 0 or a.stored_blocks == 0:
+        return z
+    ids = torch.arange(a.stored_blocks, dtype=torch.int32,
+                       device=a.row_ids.device)
+    return spdmm_fused_plain(
+        a.blocks, y, ids, a.col_ids, a.row_ids,
+        torch.zeros_like(a.row_ids), a.first, block_size=B, bn=n, z=z,
+        runs=_block_row_runs(a))

@@ -7,13 +7,19 @@ kernel aliases the canvas to its output; here the kernel updates the canvas
 :mod:`repro_torch.kernels.spdmm`, on ``B x B`` output blocks: each triple
 adds ``A_pool[a_ids[t]] @ Y_pool[y_ids[t]]``.  Sentinel zero blocks at the
 end of each pool back the padding triples.
+
+``spmm`` multiplies two BlockCSR operands through the same kernel, as the
+reference's ``spmm`` reaches the same ``pallas_call`` (``_spmm_call``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.formats import run_starts
+from repro_torch.kernels.formats import (BlockCSR, run_slots, run_starts,
+                                         spmm_triples)
+from repro_torch.kernels.gemm import ordered_matmul
 from repro_torch.kernels.spdmm import fold_runs
 
 _DESCRIPTORS = ("a_ids", "y_ids", "out_rows", "out_cols", "first")
@@ -35,17 +41,17 @@ def _validate(a_blocks, y_blocks, desc, B, z, runs):
 
 def spmm_fused(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols, first,
                *, block_size: int, z: torch.Tensor,
-               runs: torch.Tensor | None = None) -> torch.Tensor:
+               runs: torch.Tensor | None = None, pred=None) -> torch.Tensor:
     """Fused SpMM into the canvas ``z`` ``(m_pad, n_pad)``, in place.
 
     ``a_blocks`` / ``y_blocks`` are ``(P, B, B)`` pools; the five int32
-    descriptor arrays are sorted by output block; ``runs`` as in
-    :func:`repro_torch.kernels.spdmm.spdmm_fused`.  CPU tensors run the
+    descriptor arrays are sorted by output block; ``runs`` and ``pred`` as
+    in :func:`repro_torch.kernels.spdmm.spdmm_fused`.  CPU tensors run the
     plain version; CUDA tensors launch the kernel (or raise)."""
     B = block_size
     desc = (a_ids, y_ids, out_rows, out_cols, first)
     if runs is None:
-        runs = run_starts(out_rows, out_cols)
+        runs = run_slots(out_rows, out_cols)
     _validate(a_blocks, y_blocks, desc, B, z, runs)
     if z.device.type == "cpu":
         return spmm_fused_plain(a_blocks, y_blocks, *desc, block_size=B, z=z,
@@ -59,11 +65,12 @@ def spmm_fused(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols, first,
     n_runs = int(runs.shape[0]) - 1
     if n_runs == 0:
         return z
-    lib = _build.library()
-    err = lib.spmm_fused_f32(
+    pred_ptr, when = _build.predicate(pred)
+    err = _build.library().spmm_fused_f32(
         a_blocks.data_ptr(), y_blocks.data_ptr(),
         *(d.data_ptr() for d in desc), runs.data_ptr(), n_runs, z.data_ptr(),
-        B, z.shape[1], torch.cuda.current_stream(z.device).cuda_stream)
+        B, z.shape[1], pred_ptr, when,
+        torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(err, "spmm_fused")
     _build.count_launch("spmm_fused")
     return z
@@ -71,13 +78,37 @@ def spmm_fused(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols, first,
 
 def spmm_fused_plain(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols,
                      first, *, block_size: int, z: torch.Tensor,
-                     runs: torch.Tensor | None = None) -> torch.Tensor:
+                     runs: torch.Tensor | None = None,
+                     pred=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`spmm_fused` (same in-place
-    contract): gather both blocks of every triple, one batched product,
-    then :func:`repro_torch.kernels.spdmm.fold_runs`."""
+    contract; ``pred`` is ignored): gather both blocks of every triple,
+    form the products in k order, then
+    :func:`repro_torch.kernels.spdmm.fold_runs`."""
     B = block_size
     if runs is None:
         runs = run_starts(out_rows, out_cols)
-    prod = torch.bmm(a_blocks[a_ids.long()].float(),
-                     y_blocks[y_ids.long()].float())
+    prod = ordered_matmul(a_blocks[a_ids.long()], y_blocks[y_ids.long()])
     return fold_runs(prod, first, out_rows, out_cols, runs, z, B, B)
+
+
+def spmm(a: BlockCSR, y: BlockCSR) -> torch.Tensor:
+    """``a @ y`` with both operands BlockCSR (float32 blocks): the host
+    pairs the stored blocks (:func:`~repro_torch.kernels.formats.spmm_triples`,
+    one sentinel pair for every output block that receives nothing) and one
+    :func:`spmm_fused` launch walks the triples.  Returns the dense float32
+    ``(n_block_rows(a)*B, n_block_cols(y)*B)`` product (the caller slices)."""
+    B = a.block_size
+    dev = a.blocks.device
+    a_ids, y_ids, out_rows, out_cols, first = spmm_triples(a, y)
+    change = np.ones(len(out_rows), dtype=bool)
+    change[1:] = ((out_rows[1:] != out_rows[:-1])
+                  | (out_cols[1:] != out_cols[:-1]))
+    runs = np.append(np.flatnonzero(change), len(out_rows)).astype(np.int32)
+    up = lambda v: torch.as_tensor(v, device=dev)
+    zero = torch.zeros((1, B, B), dtype=torch.float32, device=dev)
+    z = torch.zeros((a.n_block_rows * B, y.n_block_cols * B),
+                    dtype=torch.float32, device=dev)
+    return spmm_fused(torch.cat([a.blocks.float(), zero]),
+                      torch.cat([y.blocks.float(), zero]),
+                      up(a_ids), up(y_ids), up(out_rows), up(out_cols),
+                      up(first), block_size=B, z=z, runs=up(runs))

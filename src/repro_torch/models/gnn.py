@@ -13,17 +13,26 @@ pins aggregation to the raw features.
 Parameters are plain dicts of float32 tensors, initialized from the same
 numpy stream as the reference (:func:`init_params`) or carried over from it
 (:func:`params_from_jax`).
+
+:func:`compile_model` fuses a whole model's kernel sequence into one
+program: on the card, one CUDA graph per input signature.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
+import itertools
 from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch.core.engine import DynasparseEngine
+from repro_torch.core import dispatch as _dispatch
+from repro_torch.core import sparsity
+from repro_torch.core.engine import DynasparseEngine, EngineReport
 from repro_torch.core.primitives import SparseCOO
-from repro_torch.device import resolve_device
+from repro_torch.device import as_tensor, resolve_device
+from repro_torch.kernels import _build, ops
 
 MM = Callable[..., torch.Tensor]   # mm(x, y, name=...) -> z
 
@@ -133,6 +142,220 @@ def reference_mm(x, y, name="kernel"):
     if isinstance(y, SparseCOO):
         y = torch.as_tensor(y.todense(), device=dev)
     return torch.matmul(x.float(), y.float())
+
+
+@dataclasses.dataclass
+class _Program:
+    """One captured replay: the CUDA graph, its static input buffer and the
+    static outputs the graph writes on every replay."""
+    graph: "torch.cuda.CUDAGraph"
+    h: torch.Tensor
+    logits: torch.Tensor
+    diags: list
+
+
+@dataclasses.dataclass
+class CompiledModel:
+    """A whole model's kernel sequence as ONE program per input signature.
+
+    After one eager warmup pass has planned, packed and lowered every
+    kernel, a steady-state call is a single replay: no Python per-kernel
+    dispatch, no descriptor work and no host read.  On a CUDA engine the
+    program is a CUDA graph captured at the first call of each input
+    signature ``(shape, dtype)`` (the reference's ``jax.jit(replay)``): the
+    call copies ``h`` into the graph's static input buffer, replays the
+    graph and returns a copy of its static output.  A capture that fails
+    raises; nothing replays eagerly in its place.  On the CPU, which the
+    caller names explicitly, each call runs the same Python body uncaptured.
+
+    ``report`` is the warmup pass's :class:`EngineReport` (plan-time
+    simulations, identical for every later call — :meth:`fresh_report`
+    hands out copies).  Each call credits ``stats`` as the reference does:
+    a trace build or hit, ``plan_hits`` for its sparse kernels and
+    ``act_hits`` for its block-skip kernels.  ``capture_launches`` records,
+    per signature, the kernel launches recorded while capturing: a replay
+    runs no Python wrapper, so it is the count of launches per call.
+    """
+    model: str
+    run: Callable                 # replay body: run(payload, h)
+                                  #   -> (logits, activation diags)
+    payload: list                 # per-kernel descriptor/pool tensors
+    report: EngineReport          # warmup report template
+    input_sketch: np.ndarray      # col-density sketch of the warmup features
+    sketch_tile: int
+    n_kernels: int
+    n_sparse: int
+    n_act: int = 0                # kernels on the capacity block-skip route
+    stats: object | None = None   # CacheStats receiving call accounting
+    device: torch.device = torch.device("cpu")
+    calls: int = 0
+    traces: int = 0               # distinct input signatures (captures)
+    # per-activation-kernel telemetry of the LAST call: stored / capacity /
+    # logical block counts and the overflow flag (device scalars)
+    last_activation: list = dataclasses.field(default_factory=list)
+    capture_launches: dict = dataclasses.field(default_factory=dict)
+    _programs: dict = dataclasses.field(default_factory=dict)
+
+    def drifted(self, h, threshold: float, *, max_rows: int = 256,
+                eps: float = 0.0) -> bool:
+        """Has the input's column density drifted past ``threshold`` from
+        the features this program was compiled against?  The program cannot
+        sketch intermediate activations, so the input sketch is the
+        invalidation signal: on drift the caller re-runs the eager path and
+        recompiles."""
+        sk = sparsity.sketch_col_density(as_tensor(h, self.device),
+                                         self.sketch_tile,
+                                         max_rows=max_rows, eps=eps)
+        return sparsity.density_drift(sk, self.input_sketch) > threshold
+
+    def fresh_report(self) -> EngineReport:
+        return EngineReport(kernels=list(self.report.kernels),
+                            meta=list(self.report.meta))
+
+    def _capture(self, h: torch.Tensor) -> _Program:
+        """Capture the replay body for ``h``'s signature.  One uncaptured
+        run on a side stream comes first, as CUDA graph capture asks: it
+        makes the lazy one-time work (loading the kernel library, the
+        allocator's first blocks) happen outside the capture."""
+        static_h = h.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.run(self.payload, static_h)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        before = collections.Counter(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, diags = self.run(self.payload, static_h)
+        self.capture_launches[(tuple(h.shape), str(h.dtype))] = dict(
+            collections.Counter(_build.LAUNCHES) - before)
+        return _Program(graph=graph, h=static_h, logits=logits, diags=diags)
+
+    def __call__(self, h) -> torch.Tensor:
+        h = as_tensor(h, self.device)
+        sig = (tuple(h.shape), str(h.dtype))
+        new = sig not in self._programs
+        if new:
+            self._programs[sig] = (self._capture(h)
+                                   if self.device.type == "cuda" else None)
+        self.calls += 1
+        self.traces += int(new)
+        if self.stats is not None:
+            if new:
+                self.stats.trace_builds += 1
+            else:
+                self.stats.trace_cache_hits += 1
+            self.stats.plan_hits += self.n_sparse
+            self.stats.act_hits += self.n_act
+        prog = self._programs[sig]
+        if prog is None:
+            logits, self.last_activation = self.run(self.payload, h)
+            return logits
+        prog.h.copy_(h)
+        prog.graph.replay()
+        self.last_activation = [
+            {k: v.clone() if isinstance(v, torch.Tensor) else v
+             for k, v in d.items()} for d in prog.diags]
+        return prog.logits.clone()
+
+
+def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
+                  *, transport=None, activation_skip: bool = True,
+                  activation_slack: float = 1.5,
+                  activation_per_stripe: bool = True):
+    """Fuse all layer kernels of (model, graph, feature shape) into one
+    program; returns ``(warmup logits, CompiledModel | None)``.
+
+    The warmup is ONE ordinary eager pass through ``engine.matmul``: it
+    plans, packs and lowers every adjacency kernel into the plan cache,
+    while this function records each kernel's route.  The replay body then
+    runs the model with every adjacency kernel as its compiled-dispatch
+    body (:func:`~repro_torch.core.dispatch.apply_dispatch`).
+
+    Activation-side (dense X) kernels choose their route from the warmup
+    plan: when its Analyzer routed tasks to the sparse engine, the kernel
+    takes the capacity block-skip route
+    (:func:`~repro_torch.core.dispatch.apply_activation_dispatch`, budget
+    ``activation_slack`` × the warmup need, per stripe when
+    ``activation_per_stripe``; a batch over budget takes the dense ``gemm``
+    inside the same program).  Otherwise it stays one dense ``gemm``
+    kernel.  ``activation_skip=False`` forces the dense route everywhere.
+
+    ``None`` (second element) when any adjacency kernel has no compiled
+    dispatch (non-literal or non-batched engines, canvas-misaligned
+    geometry); the caller keeps the eager path.  ``transport`` optionally
+    wraps the abstract ``mm`` (the serving layer's column-stacking) and
+    must run only device operations.
+    """
+    transport = transport if transport is not None else (lambda mm: mm)
+    h = as_tensor(h, engine.device)
+    # ("sparse", geom) | ("act", geom) | ("gemm", None) per kernel
+    records: list[tuple[str, object]] = []
+    payload: list = []
+    compilable = [True]
+    n0 = len(engine.report.kernels)
+
+    def recording(x, y, name="kernel"):
+        z, _ = engine.matmul(x, y, name=name)
+        if isinstance(x, SparseCOO):
+            pair = engine.compiled_operands(engine.last_plan, x)
+            if pair is None:
+                compilable[0] = False
+                records.append(("gemm", None))
+                payload.append(None)
+            else:
+                d, xd = pair
+                records.append(("sparse", d.geom))
+                payload.append({"arrays": dict(d.arrays), "xd": xd})
+        else:
+            ad = (engine.activation_dispatch_for(
+                      engine.last_plan, x, slack=activation_slack,
+                      per_stripe=activation_per_stripe)
+                  if activation_skip else None)
+            if ad is None:
+                records.append(("gemm", None))
+                payload.append(None)
+            else:
+                records.append(("act", ad.geom))
+                payload.append({"arrays": dict(ad.arrays)})
+        return z
+
+    logits = APPLY[model](transport(recording), adj, h, params)
+    if not compilable[0]:
+        return logits, None
+
+    def replay(payload_, hh):
+        ctr = itertools.count()
+        act_diags = []
+
+        def mm(x, y, name="kernel"):
+            i = next(ctr)
+            kind, geom = records[i]
+            if kind == "gemm":
+                return ops.gemm(x, y, out_dtype=torch.float32)
+            p = payload_[i]
+            if kind == "act":
+                z, diag = _dispatch.apply_activation_dispatch(
+                    geom, p["arrays"], x, y)
+                act_diags.append(diag)
+                return z
+            return _dispatch.apply_dispatch(geom, p["arrays"], p["xd"], y)
+
+        out = APPLY[model](transport(mm), adj, hh, params)
+        return out, act_diags
+
+    tn = engine.tile_n or min(128, int(h.shape[1]))
+    sketch = sparsity.sketch_col_density(h, tn, max_rows=engine.sketch_rows,
+                                         eps=engine.eps)
+    report = EngineReport(kernels=list(engine.report.kernels[n0:]),
+                          meta=list(engine.report.meta[n0:]))
+    return logits, CompiledModel(
+        model=model, run=replay, payload=payload, report=report,
+        input_sketch=np.asarray(sketch), sketch_tile=tn,
+        n_kernels=len(records),
+        n_sparse=sum(1 for k, _ in records if k == "sparse"),
+        n_act=sum(1 for k, _ in records if k == "act"),
+        stats=engine.cache.stats, device=engine.device)
 
 
 def run_inference(model: str, engine: DynasparseEngine, adj, h, params, *,

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: ragged tiles, every block size the kernels are built for, canvas
 blocks no entry covers, ``first`` resets in the middle of a run, runs that
-add onto the canvas, and bitwise repeatability.  Every case needs a card and
+add onto the canvas, and bitwise repeatability; the predicated overflow
+route on both branches, run-time descriptors under one CUDA graph, and the
+compiled and per-task paths against the CPU.  Every case needs a card and
 skips without one; this file imports no JAX, so it runs on a machine that
 has only the port's dependencies::
 
@@ -175,3 +177,308 @@ def test_literal_engine_on_card_matches_cpu(cuda, model):
     assert launches.get("spdmm_fused", 0) > 0, launches
     np.testing.assert_allclose(out[str(cuda)].cpu().numpy(),
                                out["cpu"].numpy(), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------ kernels of the 2nd slice
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 500, 128), (64, 7, 3),
+                                   (130, 128, 70), (257, 33, 129)])
+@pytest.mark.parametrize("dtype,out", [(torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.float32),
+                                       (torch.bfloat16, torch.bfloat16)])
+def test_gemm_kernel_matches_plain(cuda, m, k, n, dtype, out):
+    rng = np.random.default_rng(m * k + n)
+    x, y = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                            device=cuda).to(dtype) for s in ((m, k), (k, n)))
+    tops.reset_cuda_launch_counts()
+    got = tgemm.gemm(x, y, out_dtype=out)
+    assert tops.cuda_launch_counts() == {"gemm": 1}
+    want = tgemm.gemm_plain(x, y, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out and got.shape == (m, n)
+    tol = dict(rtol=RTOL, atol=ATOL) if out == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-2)           # one bf16 rounding apart
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.gpu
+def test_gemm_tile_equals_batched_scatter_bitwise(cuda):
+    """The dense kernel and the batched scatter kernel sum each element in
+    the same order: a task's tile is bitwise the dense product's rows."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(96, 300)).astype(np.float32),
+                        device=cuda)
+    y = torch.as_tensor(rng.normal(size=(300, 40)).astype(np.float32),
+                        device=cuda)
+    full = tgemm.gemm(x, y)
+    z = torch.zeros((96, 40), device=cuda)
+    rows = torch.arange(3, dtype=torch.int32, device=cuda)
+    cols = torch.zeros(3, dtype=torch.int32, device=cuda)
+    tgemm.gemm_batch_scatter(x.reshape(3, 32, 300).contiguous(),
+                             y.expand(3, 300, 40).contiguous(), rows, cols, z)
+    assert torch.equal(full, z)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,m,k,n", [(8, 100, 500, 128), (3, 5, 7, 9),
+                                     (1, 64, 64, 64)])
+def test_gemm_batch_kernel_matches_plain(cuda, T, m, k, n):
+    rng = np.random.default_rng(T + m)
+    x = torch.as_tensor(rng.normal(size=(T, m, k)).astype(np.float32),
+                        device=cuda)
+    y = torch.as_tensor(rng.normal(size=(T, k, n)).astype(np.float32),
+                        device=cuda)
+    tops.reset_cuda_launch_counts()
+    got = tgemm.gemm_batch(x, y)
+    assert tops.cuda_launch_counts() == {"gemm_batch": 1}
+    want = tgemm.gemm_batch_plain(x, y)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+def _block_sparse(rng, m, k, block_density, block=8):
+    nrb, ncb = -(-m // block), -(-k // block)
+    mask = (rng.uniform(size=(nrb, ncb)) < block_density).astype(np.float32)
+    full = rng.normal(size=(nrb * block, ncb * block))
+    return (full * np.kron(mask, np.ones((block, block))))[:m, :k].astype(
+        np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,m,k,n,cap", [(8, 40, 70, 36, 0),
+                                         (8, 64, 64, 200, 5),
+                                         (16, 50, 70, 36, 3),
+                                         (4, 9, 13, 5, 0)])
+def test_spdmm_kernel_matches_plain_and_fused(cuda, B, m, k, n, cap):
+    from repro_torch.kernels.formats import pack_blockcsr
+    rng = np.random.default_rng(B + m + n)
+    a = pack_blockcsr(_block_sparse(rng, m, k, 0.4, block=B), B,
+                      device=cuda)
+    if cap:
+        a = pack_blockcsr(a.todense(), B, capacity=a.stored_blocks + cap)
+    y = torch.as_tensor(rng.normal(size=(a.n_block_cols * B, n)).astype(
+        np.float32), device=cuda)
+    tops.reset_cuda_launch_counts()
+    got = tspdmm.spdmm(a, y)
+    assert tops.cuda_launch_counts() == {"spdmm": 1}
+    want = tspdmm.spdmm_plain(a, y)
+    # the same entries through the fused kernel: bitwise the same tile
+    ids = torch.arange(a.stored_blocks, dtype=torch.int32, device=cuda)
+    fused = tspdmm.spdmm_fused(
+        a.blocks, y, ids, a.col_ids, a.row_ids, torch.zeros_like(ids),
+        a.first, block_size=B, bn=n, z=torch.zeros_like(got))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, fused)
+
+
+@pytest.mark.gpu
+def test_ops_spmm_and_spdmm_match_dense(cuda):
+    from repro_torch.kernels.formats import pack_blockcsr
+    rng = np.random.default_rng(3)
+    ad = _block_sparse(rng, 20, 28, 0.5)
+    yd = _block_sparse(rng, 28, 12, 0.5)
+    a, y = pack_blockcsr(ad, 8, device=cuda), pack_blockcsr(yd, 8,
+                                                            device=cuda)
+    tops.reset_cuda_launch_counts()
+    got = tops.spmm(a, y).cpu().numpy()
+    got2 = tops.spdmm(a, torch.as_tensor(yd, device=cuda)).cpu().numpy()
+    assert tops.cuda_launch_counts() == {"spmm_fused": 1, "spdmm": 1}
+    np.testing.assert_allclose(got, ad @ yd, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got2, ad @ yd, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------- activation route, capture, whole paths
+def _act_case(dev, rng, M=64, K=48, N=16, bd=0.35, tm=16, tn=8):
+    from repro_torch.core import DynasparseEngine
+    x = torch.as_tensor(_block_sparse(rng, M, K, bd), device=dev)
+    y = torch.as_tensor(rng.normal(size=(K, N)).astype(np.float32),
+                        device=dev)
+    eng = DynasparseEngine(tile_m=tm, tile_n=tn, literal=True, device=dev)
+    return eng, eng.plan(x, y), x, y
+
+
+@pytest.mark.gpu
+def test_predicated_overflow_route_both_branches(cuda):
+    """Exact budget: the skip kernels run and equal the eager batched and
+    per-task paths bitwise; one slot short: only the dense gemm runs and
+    the route's result is its result bitwise."""
+    from repro_torch.core import dispatch as td
+    from repro_torch.core.scheduler import execute_plan
+    eng, plan, x, y = _act_case(cuda, np.random.default_rng(17))
+    assert plan.stq
+    need = td.activation_capacity(x, plan.part, eng.block, slack=1.0)
+    ad = eng.activation_dispatch_for(plan, x, capacity=need)
+    z, diag = td.execute_activation(ad, x, y)
+    assert not bool(diag["overflow"])
+    z_b = execute_plan(plan.part, plan.stq, plan.dtq, x, y, batched=True)
+    z_p = execute_plan(plan.part, plan.stq, plan.dtq, x, y, batched=False)
+    assert torch.equal(z, z_b) and torch.equal(z, z_p)
+    ad2 = eng.activation_dispatch_for(plan, x, capacity=need - 1)
+    z_o, diag2 = td.execute_activation(ad2, x, y)
+    assert bool(diag2["overflow"])
+    assert torch.equal(z_o, tops.gemm(x, y, out_dtype=torch.float32))
+
+
+def _keyed_runs(rng, E, n_runs, n_row_blocks, n_col_blocks):
+    """E entries sorted by output block, split into ``n_runs`` runs of
+    random lengths over distinct output blocks, ``first`` at each start."""
+    keys = np.sort(rng.choice(n_row_blocks * n_col_blocks, n_runs,
+                              replace=False))
+    cuts = np.sort(rng.choice(np.arange(1, E), n_runs - 1, replace=False))
+    run_of = np.zeros(E, np.int64)
+    run_of[cuts] = 1
+    run_of = np.cumsum(run_of)
+    first = np.zeros(E, np.int32)
+    first[np.concatenate([[0], cuts])] = 1
+    return ((keys[run_of] // n_col_blocks).astype(np.int32),
+            (keys[run_of] % n_col_blocks).astype(np.int32), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["spdmm_fused", "spmm_fused"])
+def test_fused_kernels_find_varying_run_counts_under_one_capture(cuda,
+                                                                 kernel):
+    """The fused kernels launched with device-found run offsets inside one
+    CUDA graph: replays with 1, 7 and 40 runs over the same 40 entries
+    equal the uncaptured kernel bitwise and the plain version within
+    tolerance."""
+    rng = np.random.default_rng(23)
+    B, bn, E, nrb, ncb = 8, 16, 40, 9, 5
+    pool = torch.as_tensor(rng.normal(size=(7, B, B)).astype(np.float32),
+                           device=cuda)
+    if kernel == "spdmm_fused":
+        y = torch.as_tensor(rng.normal(size=(4 * B, ncb * bn)).astype(
+            np.float32), device=cuda)
+        ids_hi, fn, plain = 4, tspdmm.spdmm_fused, tspdmm.spdmm_fused_plain
+        kw = dict(block_size=B, bn=bn)
+        z0 = rng.normal(size=(nrb * B, ncb * bn)).astype(np.float32)
+    else:
+        y = torch.as_tensor(rng.normal(size=(6, B, B)).astype(np.float32),
+                            device=cuda)
+        ids_hi, fn, plain = 6, tspmm.spmm_fused, tspmm.spmm_fused_plain
+        kw = dict(block_size=B)
+        z0 = rng.normal(size=(nrb * B, ncb * B)).astype(np.float32)
+    desc = [torch.zeros(E, dtype=torch.int32, device=cuda) for _ in range(5)]
+    z = torch.as_tensor(z0, device=cuda)
+
+    def fill(n_runs):
+        rows, cols, first = _keyed_runs(rng, E, n_runs, nrb, ncb)
+        ids = (rng.integers(0, 7, E), rng.integers(0, ids_hi, E))
+        for d, v in zip(desc, (*ids, rows, cols, first)):
+            d.copy_(torch.as_tensor(v.astype(np.int32), device=cuda))
+        z.copy_(torch.as_tensor(z0, device=cuda))
+
+    fill(1)
+    fn(pool, y, *desc, z=z, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(pool, y, *desc, z=z, **kw)
+    for n_runs in (1, 7, 40):
+        fill(n_runs)
+        graph.replay()
+        got = z.clone()
+        args = [t.clone() for t in desc]
+        want = fn(pool, y, *args, z=torch.as_tensor(z0, device=cuda), **kw)
+        ref = plain(pool, y, *args, z=torch.as_tensor(z0, device=cuda), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), n_runs
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_activation_route_varies_under_one_capture(cuda):
+    """One CUDA graph of the activation route replays inputs of different
+    block sparsity (different run lengths and stored counts) and matches
+    the uncaptured route and the eager batched path bitwise each time."""
+    from repro_torch.core import dispatch as td
+    from repro_torch.core.scheduler import execute_plan
+    rng = np.random.default_rng(19)
+    eng, plan, x0, y = _act_case(cuda, rng, bd=0.30)
+    ad = eng.activation_dispatch_for(plan, x0, slack=1.0)
+    static_x = x0.clone()
+    td.apply_activation_dispatch(ad.geom, ad.arrays, static_x, y)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        z_s, diag_s = td.apply_activation_dispatch(ad.geom, ad.arrays,
+                                                   static_x, y)
+    stored = set()
+    for keep in (1.0, 0.6, 0.2):
+        blocks = rng.uniform(size=(8, 6)) < keep       # 8 x 8 blocks
+        xi = x0 * torch.as_tensor(np.kron(blocks, np.ones((8, 8))),
+                                  dtype=torch.float32, device=cuda)
+        static_x.copy_(xi)
+        graph.replay()
+        want, _ = td.apply_activation_dispatch(ad.geom, ad.arrays, xi, y)
+        z_b = execute_plan(plan.part, plan.stq, plan.dtq, xi, y)
+        assert not bool(diag_s["overflow"])
+        assert torch.equal(z_s, want) and torch.equal(z_s, z_b)
+        stored.add(int(diag_s["stored"]))
+    assert len(stored) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["GCN", "GIN"])
+def test_compiled_model_on_card_matches_cpu(cuda, model):
+    """compile_model on the card captures one graph, whose replays are
+    bitwise repeatable, bitwise the eager warmup pass's logits, and give
+    the CPU program's logits."""
+    from repro_torch.core import DynasparseEngine
+    from repro_torch.data.graphs import load_graph
+    from repro_torch.models import gnn
+
+    out = {}
+    for dev in ("cpu", cuda):
+        g = load_graph("CO", scale=0.05, device=dev)
+        p = gnn.init_params(model, g.features_dense.shape[1], 16,
+                            g.stats.classes, device=dev)
+        eng = DynasparseEngine(tile_m=64, tile_n=16, literal=True,
+                               device=dev)
+        warm, cm = gnn.compile_model(model, eng, g.adj, g.features_dense,
+                                     p)
+        z1 = cm(g.features_dense)
+        z2 = cm(g.features_dense)
+        assert cm.traces == 1 and cm.calls == 2
+        assert torch.equal(z1, z2) and torch.equal(z1, warm)
+        out[str(dev)] = z1
+    assert cm.n_act >= 1 or model == "GCN"
+    assert sum(cm.capture_launches[next(iter(cm.capture_launches))].values())
+    np.testing.assert_allclose(out[str(cuda)].cpu().numpy(),
+                               out["cpu"].numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_pertask_path_on_card_equals_batched(cuda):
+    """batched=False launches gemm / spdmm / spmm per task and equals the
+    batched drain bit for bit on a plan mixing all three primitives."""
+    from repro_torch.core import DynasparseEngine, SparseCOO
+    from repro_torch.core.scheduler import execute_plan
+    rng = np.random.default_rng(1)
+    xd = rng.normal(size=(90, 64)).astype(np.float32)
+    xd[:32] *= (rng.uniform(size=(32, 64)) < 0.01)
+    xd[32:64] *= (rng.uniform(size=(32, 64)) < 0.3)
+    yd = rng.normal(size=(64, 44)).astype(np.float32)
+    yd[:, :24] *= (rng.uniform(size=(64, 24)) < 0.05)
+    r, c = np.nonzero(xd)
+    adj = SparseCOO(xd.shape, torch.as_tensor(r.astype(np.int32),
+                                              device=cuda),
+                    torch.as_tensor(c.astype(np.int32), device=cuda),
+                    torch.as_tensor(xd[r, c], device=cuda), tag="adjacency")
+    x, y = torch.as_tensor(xd, device=cuda), torch.as_tensor(yd, device=cuda)
+    eng = DynasparseEngine(tile_m=32, tile_n=24, literal=True, device=cuda)
+    plan = eng.plan(adj, y)
+    assert {t.primitive for t in plan.stq + plan.dtq} == {"GEMM", "SpDMM",
+                                                          "SpMM"}
+    tops.reset_cuda_launch_counts()
+    z_p = execute_plan(plan.part, plan.stq, plan.dtq, x, y, batched=False)
+    launches = tops.cuda_launch_counts()
+    assert set(launches) == {"gemm", "spdmm", "spmm_fused"}, launches
+    z_b = execute_plan(plan.part, plan.stq, plan.dtq, x, y, batched=True)
+    z_c = eng.execute(plan, adj, y)
+    assert torch.equal(z_p, z_b) and torch.equal(z_p, z_c)
+    np.testing.assert_allclose(z_p.cpu().numpy(), xd @ yd, rtol=1e-4,
+                               atol=1e-4)
