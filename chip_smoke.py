@@ -28,7 +28,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 6. runs ``gemm_batch`` once at the shape of GCN-FL's dense queue;
 7. holds every kernel against its plain PyTorch version on the operands the
    paths gave it (recorded in an extra, uncounted run of each path) and
-   times kernel, plain version and one library call with CUDA events;
+   times kernel, plain version and one library call with CUDA events; the
+   fused SpDMM is also timed on compiled GIN-CO's ``l1-mlp1`` block-skip
+   launch (its long runs), beside ``torch.sparse.mm`` of that activation;
 8. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
@@ -81,6 +83,14 @@ KERNELS = {
 }
 # kernels whose canvas z is updated in place (recorded as it was before)
 IN_PLACE = ("gemm_batch_scatter", "spdmm_fused", "spmm_fused")
+# CUDA kernel of a wrapper, where its name differs (both SpDMM entry points
+# launch the one run walk)
+SYMBOLS = {"spdmm_fused": "spdmm_walk", "spdmm": "spdmm_walk"}
+# extra fields of a kernel's summary: the SpDMM pair's times in a CUDA
+# graph and their bound when every stored block is multiplied in full, and
+# spdmm_fused's long-run call
+EXTRA = ("graph_ms", "library_graph_ms", "block_bound_ms",
+         "compiled_l1_mlp1")
 
 
 def log(*parts) -> None:
@@ -107,6 +117,34 @@ def device_ms(torch, fn, reps: int = 5, inner: int = 3) -> float:
         start.record()
         for _ in range(inner):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps: int = 5, inner: int = 10) -> float:
+    """Median device time of ``fn`` with no host time between calls:
+    ``inner`` calls captured in one CUDA graph (after a warm-up call on a
+    side stream), the replay timed with CUDA events.  For short kernels,
+    whose back-to-back eager calls leave the card waiting on Python."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
@@ -154,11 +192,41 @@ def runs_of(name: str, args, kw):
     return run_starts(args[4], args[5]) if runs is None else runs
 
 
+def nonzeros_walked(name: str, args) -> int:
+    """Non-zero A elements the sparse call multiplies: of every stored
+    block (``spdmm``), or of the pool block of every entry
+    (``spdmm_fused``)."""
+    if name == "spdmm":
+        return int((args[0].blocks != 0).sum())
+    per_block = (args[0] != 0).sum(dim=(1, 2))
+    return int(per_block[args[2].long()].sum())
+
+
+def block_flops(name: str, args, kw) -> float:
+    """The FLOPs of multiplying every stored B x B block in full: the
+    bound of a walk that does not skip zero columns."""
+    if name == "spdmm":
+        a, y = args
+        return 2.0 * a.stored_blocks * a.block_size ** 2 * y.shape[1]
+    return 2.0 * int(args[2].shape[0]) * kw["block_size"] ** 2 * kw["bn"]
+
+
+def run_stats(runs) -> dict:
+    """Runs, median and max entries per run, and empty slots of a run
+    offset array."""
+    lens = np.diff(runs.long().cpu().numpy())
+    real = lens[lens > 0]
+    return dict(runs=int(real.size), median=float(np.median(real)),
+                max=int(real.max()), empty_slots=int((lens == 0).sum()))
+
+
 def work_of(name: str, args, kw) -> tuple[float, float]:
     """(bytes, FLOPs) the call needs, from this call's own operands and
     descriptors: each input read once (the pool blocks and operand slices
     the entries reference, the descriptors, the canvas blocks of runs that
-    hold no ``first`` flag), each output written once."""
+    hold no ``first`` flag), each output written once.  The FLOPs of the
+    sparse kernels are the least work of the same function: 2 x width x
+    the non-zero A elements walked (:func:`nonzeros_walked`)."""
     if name == "gemm":
         x, y = args
         m, k = x.shape
@@ -182,7 +250,7 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         n_y = int(a.col_ids.unique().numel())
         nbytes = 4 * (nnzb * B * B + 3 * nnzb + n_y * B * n
                       + a.n_block_rows * B * n)
-        return nbytes, 2.0 * nnzb * B * B * n
+        return nbytes, 2.0 * n * nonzeros_walked(name, args)
     B = kw["block_size"]
     runs = runs_of(name, args, kw).cpu().numpy()
     n_runs = len(runs) - 1
@@ -197,7 +265,7 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         n_y = int(y_keys.unique().numel())
         nbytes = 4 * (n_a * B * B + n_y * B * bn + 5 * n_entries + n_runs
                       + 1 + (n_runs + no_first) * B * bn)
-        return nbytes, 2.0 * n_entries * B * B * bn
+        return nbytes, 2.0 * bn * nonzeros_walked(name, args)
     n_y = int(args[3].unique().numel())
     nbytes = 4 * ((n_a + n_y) * B * B + 5 * n_entries + n_runs + 1
                   + (n_runs + no_first) * B * B)
@@ -372,7 +440,8 @@ def profile_replay(torch, cm, h, per_call):
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
     seen = {kname: sum(c for _, c, key in rows if re.search(
-                rf"(?<![A-Za-z_]){kname}_kernel(?:<|I|\()", key))
+                rf"(?<![A-Za-z_]){SYMBOLS.get(kname, kname)}_kernel(?:<|I|\()",
+                key))
             for kname in per_call}
     log(f"  launches by kernel name in the profiled replay {seen}, recorded "
         f"at capture {per_call}")
@@ -578,20 +647,98 @@ def check_kernel(torch, mods, name, calls, library):
     ms = device_ms(torch, k_fn)
     plain_ms = device_ms(torch, p_fn)
     library_ms = device_ms(torch, library) if library is not None else None
-    nbytes, flops = work_of(name, args, kw)
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
-    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound = bound_of(name, args, kw)
     log(f"  {name} timed on call 0: kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  library "
-        f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}  bound "
-        f"{bound_ms:.4f} ms ({nbytes:.4g} B, {flops:.4g} FLOP)")
-    return {"name": name, "route": "cuda",
-            "source": KERNELS[name]["source"],
-            "replaces": KERNELS[name]["replaces"],
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+        f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}  "
+        + bound["text"])
+    entry = {"name": name, "route": "cuda",
+             "source": KERNELS[name]["source"],
+             "replaces": KERNELS[name]["replaces"],
+             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+             "library_ms": library_ms}
+    if name in ("spdmm", "spdmm_fused"):
+        runs = (mods["spdmm"]._block_row_runs(args[0]) if name == "spdmm"
+                else runs_of(name, args, kw))
+        entry.update(graph_ms=graph_ms(torch, k_fn),
+                     library_graph_ms=(None if library is None
+                                       else graph_ms(torch, library)),
+                     block_bound_ms=bound["block_bound_ms"])
+        log(f"  {name} call 0 runs: {run_stats(runs)}; in a CUDA graph: "
+            f"kernel {entry['graph_ms']:.4f} ms, library "
+            f"{entry['library_graph_ms']} ms")
+    return entry
+
+
+def bound_of(name: str, args, kw) -> dict:
+    """The least time of the call on the card (:func:`work_of`), and for
+    the sparse kernels also the bound of multiplying every stored block in
+    full, for comparison."""
+    nbytes, flops = work_of(name, args, kw)
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
+    out = dict(bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    out["text"] = (f"bound {out['bound_ms']:.4f} ms ({nbytes:.4g} B, "
+                   f"{flops:.4g} FLOP)")
+    if name in ("spdmm", "spdmm_fused"):
+        bf = block_flops(name, args, kw)
+        out["block_bound_ms"] = 1e3 * max(t_bytes, bf / PEAK_FP32_FLOPS)
+        out["text"] += (f"; multiplying every stored block: {bf:.4g} FLOP, "
+                        f"bound {out['block_bound_ms']:.4f} ms")
+    return out
+
+
+def time_skip_call(torch, mods, calls):
+    """The compiled GIN-CO ``l1-mlp1`` block-skip launch of ``spdmm_fused``
+    (the first recorded call of the activation route, the one with a
+    predicate): the kernel on its recorded arguments, unpredicated, beside
+    ``torch.sparse.mm`` of the activation as CSR and ``torch.matmul`` of
+    the dense activation.  The run statistics are those of the route's
+    E + 1 run slots."""
+    from repro_torch.kernels.formats import run_slots
+    spdmm = mods["spdmm"]
+    args, kw = next(c for c in calls if c[1].get("pred") is not None)
+    pool, y, a_ids, y_rows, out_rows, out_cols, _first = args
+    B, bn = kw["block_size"], kw["bn"]
+    slots = run_slots(out_rows, out_cols)
+    z = kw["z"].clone()
+    launch = lambda: spdmm.spdmm_fused(*args, block_size=B, bn=bn, z=z)
+    ms, ms_graph = device_ms(torch, launch), graph_ms(torch, launch)
+    # the activation the entries hold, as a dense matrix and as a CSR
+    keep = out_cols == 0
+    nrb, ncb = z.shape[0] // B, y.shape[0] // B
+    dense4 = torch.zeros((nrb, ncb, B, B), device=y.device)
+    dense4.index_put_((out_rows[keep].long(), y_rows[keep].long()),
+                      pool[a_ids[keep].long()], accumulate=True)
+    dense = dense4.permute(0, 2, 1, 3).reshape(nrb * B, ncb * B)
+    csr = dense.to_sparse_csr()
+    library = lambda: torch.sparse.mm(csr, y)
+    library_ms, library_graph = device_ms(torch, library), graph_ms(torch,
+                                                                    library)
+    dense_ms = device_ms(torch, lambda: torch.matmul(dense, y))
+    got = spdmm.spdmm_fused(*args, block_size=B, bn=bn,
+                            z=torch.zeros_like(z))
+    err = (got - torch.sparse.mm(csr, y)).abs().max().item()
+    bound = bound_of("spdmm_fused", args, kw)
+    stats = run_stats(slots)
+    log(f"  spdmm_fused, compiled GIN-CO l1-mlp1 launch: "
+        f"{shape_of('spdmm_fused', args, kw)}, activation nnz "
+        f"{csr.values().numel()}; kernel {ms:.4f} ms ({ms_graph:.4f} in a "
+        f"CUDA graph); library {library_ms:.4f} ms ({library_graph:.4f}) "
+        f"(torch.sparse.mm, CSR), dense matmul "
+        f"{dense_ms:.4f} ms; max abs vs torch.sparse.mm {err:.3e}; "
+        + bound["text"])
+    log(f"  spdmm_fused l1-mlp1 runs: {stats}")
+    if err > KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * got.abs().max().item():
+        raise AssertionError("the l1-mlp1 launch disagrees with "
+                             "torch.sparse.mm of its activation")
+    return {"path": "GIN-CO compiled", "call": "l1-mlp1", "ms": ms,
+            "graph_ms": ms_graph, "library_ms": library_ms,
+            "library_graph_ms": library_graph,
+            "dense_matmul_ms": dense_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "block_bound_ms": bound["block_bound_ms"], **stats}
 
 
 def adjacency_csr(torch, adj):
@@ -641,6 +788,10 @@ def summarize(torch, mods, paths):
                    for p_label, _, rec in paths}
         entry.update(path=label, launches=by_path[label],
                      launches_by_path=by_path)
+        if name == "spdmm_fused":
+            entry["compiled_l1_mlp1"] = time_skip_call(
+                torch, mods, next(rec["calls"][name] for p_label, _, rec
+                                  in paths if p_label == "GIN-CO compiled"))
         summary.append(entry)
         torch.cuda.empty_cache()
     return summary
@@ -725,6 +876,7 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                  | {k: e[k] for k in EXTRA if k in e}
                                   for e in summary]}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,9 +45,9 @@ SIGNATURES = {
     "gemm_batch_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gemm_batch_scatter_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P, _I, _P],
-    "spdmm_f32": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
-    "spdmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                        _I, _P, _I, _P],
+    "spdmm_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    "spdmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                        _P, _I, _P],
     "spmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
                        _I, _P],
 }

@@ -1,8 +1,9 @@
 """Block-sparse x dense products: the fused multi-task SpDMM on an in-place
 canvas (``spdmm_fused``) and the single-BlockCSR SpDMM (``spdmm``).
 
-Both launch their hand-written CUDA kernels (``csrc/spdmm_fused.cu``) for
-CUDA tensors and run their ``_plain`` versions for CPU tensors.  The TPU
+Both launch one hand-written CUDA kernel, the run walk of
+``csrc/spdmm_fused.cu``, for CUDA tensors and run their ``_plain`` versions
+for CPU tensors.  The TPU
 fused kernel aliases the canvas to its output; here the kernel updates the
 canvas ``z`` IN PLACE and the wrapper returns it.
 
@@ -73,7 +74,8 @@ def _validate(a_blocks, y, desc, B, bn, z, runs):
                    f"operand {y.shape} for block {B}, bn {bn}")
     _build.require(z.shape[1] == n_pad and z.shape[0] % B == 0,
                    f"canvas {z.shape} for operand {y.shape}")
-    devs = {t.device for t in (a_blocks, y, z, runs, *desc)}
+    devs = {t.device for t in (a_blocks, y, z, *desc)
+            + (() if runs is None else (runs,))}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
 
@@ -86,34 +88,35 @@ def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
     ``a_blocks`` ``(P, B, B)`` is the stored-block pool; ``y`` ``(K_pad,
     n_pad)`` the dense operand laid out in ``bn``-wide col-stripes; the five
     int32 descriptor arrays are sorted by output block.  ``runs`` are run
-    offsets: exact ones (:func:`~repro_torch.kernels.formats.run_starts`,
-    made once for static descriptors) or, when not given, the fixed-shape
+    offsets for the plain version: exact ones
+    (:func:`~repro_torch.kernels.formats.run_starts`, made once for static
+    descriptors) or, when not given, the fixed-shape
     :func:`~repro_torch.kernels.formats.run_slots` made here without a host
-    read.  ``pred`` predicates the launch as in
-    :func:`repro_torch.kernels.gemm.gemm`.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (or raise)."""
+    read.  The kernel finds the same runs itself, from the key changes of
+    ``out_rows`` / ``out_cols``, and needs no offsets.  ``pred`` predicates
+    the launch as in :func:`repro_torch.kernels.gemm.gemm`.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel (or raise)."""
     B = block_size
     desc = (a_ids, y_rows, out_rows, out_cols, first)
-    if runs is None:
-        runs = run_slots(out_rows, out_cols)
     _validate(a_blocks, y, desc, B, bn, z, runs)
     if z.device.type == "cpu":
+        if runs is None:
+            runs = run_slots(out_rows, out_cols)
         return spdmm_fused_plain(a_blocks, y, *desc, block_size=B, bn=bn,
                                  z=z, runs=runs)
     _build.check_operand("a_blocks", a_blocks, torch.float32, 3)
     _build.check_operand("y", y, torch.float32, 2)
     _build.check_operand("z", z, torch.float32, 2)
-    _build.check_operand("runs", runs, torch.int32, 1)
     for name, d in zip(_DESCRIPTORS, desc):
         _build.check_operand(name, d, torch.int32, 1)
-    n_runs = int(runs.shape[0]) - 1
-    if n_runs == 0:
+    n_entries = int(a_ids.shape[0])
+    if n_entries == 0:
         return z
     pred_ptr, when = _build.predicate(pred)
     err = _build.library().spdmm_fused_f32(
         a_blocks.data_ptr(), y.data_ptr(), *(d.data_ptr() for d in desc),
-        runs.data_ptr(), n_runs, z.data_ptr(), B, bn, y.shape[1], z.shape[1],
-        pred_ptr, when, torch.cuda.current_stream(z.device).cuda_stream)
+        n_entries, z.data_ptr(), B, bn, y.shape[1], z.shape[1], pred_ptr,
+        when, torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(err, "spdmm_fused")
     _build.count_launch("spdmm_fused")
     return z
@@ -140,8 +143,8 @@ def spdmm_fused_plain(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first,
 
 # ------------------------------------------------------------------ spdmm
 def _block_row_runs(a: BlockCSR) -> torch.Tensor:
-    """Exact block-row runs of a BlockCSR (one host sync: the per-task path
-    is eager)."""
+    """Exact block-row runs of a BlockCSR, for the plain version (one host
+    sync)."""
     return run_starts(a.row_ids, torch.zeros_like(a.row_ids))
 
 
@@ -168,13 +171,11 @@ def spdmm(a: BlockCSR, y: torch.Tensor) -> torch.Tensor:
         _build.check_operand(name, t, dt, nd)
     z = torch.zeros((a.n_block_rows * B, n), dtype=torch.float32,
                     device=y.device)
-    runs = _block_row_runs(a)
-    n_runs = int(runs.shape[0]) - 1
-    if n_runs == 0 or n == 0:
+    if a.stored_blocks == 0 or n == 0:
         return z
     err = _build.library().spdmm_f32(
         a.blocks.data_ptr(), y.data_ptr(), a.row_ids.data_ptr(),
-        a.col_ids.data_ptr(), a.first.data_ptr(), runs.data_ptr(), n_runs,
+        a.col_ids.data_ptr(), a.first.data_ptr(), a.stored_blocks,
         z.data_ptr(), B, n, torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(err, "spdmm")
     _build.count_launch("spdmm")

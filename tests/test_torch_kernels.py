@@ -16,7 +16,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.formats import pack_blockcsr as tpack
 from test_torch_kernels_cuda import (ATOL, RTOL, _gemm_case, _spdmm_case,
-                                     _spmm_case, _t)
+                                     _spmm_case, _t, _walk_case)
 
 
 @pytest.mark.parametrize("k", [20, 32, 300])
@@ -51,6 +51,52 @@ def test_spdmm_fused_plain_matches_pallas(seed):
         covered[r * 8:(r + 1) * 8, c * 16:(c + 1) * 16] = True
     assert (~covered).any()
     np.testing.assert_array_equal(got.numpy()[~covered], z[~covered])
+
+
+# the run walk's cases at interpret-mode size: (block, bn, entries of the
+# long run, its `first` positions as fractions, zero-column and filler
+# shares)
+WALKS = {
+    "long-run": (2, 8, 200, (0,), 0.0, 0.0),
+    "zero-columns": (4, 8, 40, (0, 2 / 3), 0.6, 0.3),
+    "first-mid-run": (8, 16, 60, (1 / 3,), 0.3, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", list(WALKS))
+def test_spdmm_fused_plain_matches_pallas_walks(case):
+    """The semantics the CUDA run walk is held to, against the Pallas
+    kernel: a long run, blocks with all-zero columns and all-zero fillers,
+    a ``first`` in the middle of a run (the canvas and the entries before
+    it are discarded), short runs of every ``first`` pattern."""
+    B, bn, n, resets, zero_cols, fillers = WALKS[case]
+    rng = np.random.default_rng(len(case))
+    a, y, desc, z = _walk_case(rng, B, bn, n, nrb=3, K_blocks=12, P=24,
+                               zero_cols=zero_cols, fillers=fillers,
+                               resets=resets)
+    want = np.asarray(jops.spdmm_fused(
+        jnp.asarray(a), jnp.asarray(y), *desc, block_size=B, bn=bn,
+        m_pad=z.shape[0], interpret=True, z=jnp.asarray(z)))
+    got = tops.spdmm_fused(*_t(a, y), *desc, block_size=B, bn=bn,
+                           m_pad=z.shape[0], z=torch.as_tensor(z.copy()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["long-run", "zero-columns"])
+def test_spdmm_plain_matches_pallas_walks(case):
+    """``spdmm`` against the Pallas ``spdmm`` on two block-rows of up to
+    150 stored blocks, dense or with all-zero columns inside the blocks."""
+    B, n, ncb = 4, 8, 150
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2 * B - 1, ncb * B)).astype(np.float32)
+    if case == "zero-columns":
+        x *= rng.uniform(size=(1, ncb * B)) >= 0.6
+    y = rng.normal(size=(ncb * B, n)).astype(np.float32)
+    want = jops.spdmm(jpack(x, B), jnp.asarray(y), bn=n, interpret=True)
+    got = tops.spdmm(tpack(x, B), torch.as_tensor(y))
+    assert tpack(x, B).stored_blocks > ncb       # rows of >75 blocks
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

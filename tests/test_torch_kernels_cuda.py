@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: ragged tiles, every block size the kernels are built for, canvas
 blocks no entry covers, ``first`` resets in the middle of a run, runs that
-add onto the canvas, and bitwise repeatability; the predicated overflow
+add onto the canvas, and bitwise repeatability; the SpDMM run walk on runs
+of thousands of entries, all-zero columns and filler blocks at every width,
+and bitwise equal to the dense ``gemm`` kernel; the predicated overflow
 route on both branches, run-time descriptors under one CUDA graph, and the
 compiled and per-task paths against the CPU.  Every case needs a card and
 skips without one; this file imports no JAX, so it runs on a machine that
@@ -84,6 +86,51 @@ def _spmm_case(rng, B=8, nrb=4, ncb=3, Pa=7, Py=5):
 
 def _t(*arrays, device="cpu"):
     return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def _walk_case(rng, B, bn, long_run, *, nrb=6, ncs=2, K_blocks=40, P=64,
+               zero_cols=0.5, fillers=0.2, dyadic=False, resets=(0, 2 / 3)):
+    """A fused SpDMM case that exercises the run walk: one run of
+    ``long_run`` entries on output block (0, 0) with a ``first`` at each
+    fraction ``resets`` of its length (by default at its start and in its
+    middle), then short runs (1-40 entries) of
+    every ``first`` pattern on the other blocks.  Every pool block has
+    each column all-zero with probability ``zero_cols``, and a share
+    ``fillers`` of the blocks is all zero (the packer's fillers).  With
+    ``dyadic`` every value is a small multiple of 1/4 (A) or 1/8 (Y, the
+    canvas), so every partial sum is exact in float32 and two summation
+    orders agree exactly."""
+    def values(size, scale):
+        if dyadic:
+            return (rng.integers(-4, 5, size=size) / scale).astype(np.float32)
+        return rng.normal(size=size).astype(np.float32)
+
+    a = values((P, B, B), 4)
+    a *= (rng.uniform(size=(P, 1, B)) >= zero_cols)
+    a *= (rng.uniform(size=(P, 1, 1)) >= fillers)
+    y = values((K_blocks * B, ncs * bn), 8)
+    z = values((nrb * B, ncs * bn), 8)
+    first = np.zeros(long_run, np.int32)
+    first[[int(f * long_run) for f in resets]] = 1
+    orow, ocol = [0] * long_run, [0] * long_run
+    firsts = [first]
+    for r in range(1, nrb):
+        for c in range(ncs):
+            n = int(rng.integers(1, 41))
+            f = np.zeros(n, np.int32)
+            kind = (r * ncs + c) % 3        # reset at start, none, mid-run
+            if kind == 0:
+                f[0] = 1
+            elif kind == 2:
+                f[int(rng.integers(0, n))] = 1
+            orow += [r] * n
+            ocol += [c] * n
+            firsts.append(f)
+    E = len(orow)
+    as32 = lambda v: np.asarray(v, np.int32)
+    desc = (as32(rng.integers(0, P, E)), as32(rng.integers(0, K_blocks, E)),
+            as32(orow), as32(ocol), np.concatenate(firsts))
+    return a, y, desc, z
 
 
 @pytest.mark.gpu
@@ -273,6 +320,100 @@ def test_spdmm_kernel_matches_plain_and_fused(cuda, B, m, k, n, cap):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
     assert torch.equal(got, fused)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("bn", [1, 7, 8, 16, 128, 200])
+def test_spdmm_fused_walk_matches_plain(cuda, B, bn):
+    """The pipelined run walk: a run of 2,100 entries with a ``first`` in
+    its middle, short runs of every ``first`` pattern, all-zero columns and
+    all-zero filler blocks, every block size and width.  Exact run offsets
+    and padded run slots give the same result bitwise, it repeats bitwise,
+    and it equals the plain version (dyadic values: every partial sum is
+    exact, so any wrong or missing term shows)."""
+    from repro_torch.kernels.formats import run_slots, run_starts
+    rng = np.random.default_rng(100 * B + bn)
+    a, y, desc, z = _walk_case(rng, B, bn, 2100, dyadic=True)
+    args = _t(a, y, *desc, device=cuda)
+    kw = dict(block_size=B, bn=bn)
+    canvas = lambda: torch.as_tensor(z, device=cuda)
+    tops.reset_cuda_launch_counts()
+    got = tspdmm.spdmm_fused(*args, z=canvas(),
+                             runs=run_starts(args[4], args[5]), **kw)
+    slots = tspdmm.spdmm_fused(*args, z=canvas(), **kw)
+    again = tspdmm.spdmm_fused(*args, z=canvas(), **kw)
+    assert tops.cuda_launch_counts() == {"spdmm_fused": 3}
+    assert int(run_slots(args[4], args[5]).shape[0]) == desc[0].shape[0] + 1
+    want = tspdmm.spdmm_fused_plain(*args, z=canvas(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, slots) and torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [8, 16, 128])
+def test_spdmm_fused_many_runs_padded_slots_and_predicate(cuda, bn):
+    """More runs than thread blocks on the card (the thread blocks stride
+    over them), with the fixed E + 1 run slots of the device-made
+    descriptors, normal values, and the overflow predicate both ways: the
+    launch that matches the flag equals the plain version, the other
+    leaves the canvas untouched."""
+    from repro_torch.kernels.formats import run_slots
+    rng = np.random.default_rng(bn)
+    B, nrb, ncs = 8, 1500, 2
+    a = rng.normal(size=(97, B, B)).astype(np.float32)
+    a *= rng.uniform(size=(97, 1, B)) >= 0.6
+    y = rng.normal(size=(50 * B, ncs * bn)).astype(np.float32)
+    desc = _runs(rng, nrb, ncs, 97, 50, cover=0.9)
+    z = rng.normal(size=(nrb * B, ncs * bn)).astype(np.float32)
+    args = _t(a, y, *desc, device=cuda)
+    slots = run_slots(args[4], args[5])
+    assert int(slots.shape[0]) == desc[0].shape[0] + 1
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kw = dict(block_size=B, bn=bn, runs=slots)
+    got = tspdmm.spdmm_fused(*args, z=torch.as_tensor(z, device=cuda),
+                             pred=(flag, 0), **kw)
+    idle = tspdmm.spdmm_fused(*args, z=torch.as_tensor(z, device=cuda),
+                              pred=(flag, 1), **kw)
+    want = tspdmm.spdmm_fused_plain(*args, z=torch.as_tensor(z, device=cuda),
+                                    **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(idle, torch.as_tensor(z, device=cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n", [(8, 16), (8, 128), (16, 40), (4, 7)])
+def test_spdmm_equals_dense_gemm_bitwise(cuda, B, n):
+    """The k-order invariant: a dense matrix whose blocks have zeroed
+    columns (and whole zero blocks), packed as a BlockCSR with rows of
+    ~200 stored blocks, times a dense operand through ``spdmm`` is bitwise
+    the dense ``gemm`` kernel's product, which sums every k from 0 with
+    fmaf: the sparse walk keeps that order and leaves out only zeros."""
+    from repro_torch.kernels.formats import pack_blockcsr
+    rng = np.random.default_rng(B * n)
+    nrb, ncb = 6, 300
+    m, k = nrb * B - 3, ncb * B
+    x = rng.normal(size=(nrb * B, k)).astype(np.float32)
+    x *= np.repeat(rng.uniform(size=(nrb, k)) >= 0.6, B, axis=0)
+    x *= np.kron(rng.uniform(size=(nrb, ncb)) >= 0.3, np.ones((B, B)))
+    x = np.ascontiguousarray(x[:m])
+    y = rng.normal(size=(k, n)).astype(np.float32)
+    a = pack_blockcsr(x, B, device=cuda)
+    assert a.stored_blocks > 150 * nrb
+    xs, ys = (torch.as_tensor(v, device=cuda) for v in (x, y))
+    tops.reset_cuda_launch_counts()
+    got = tops.spdmm(a, ys)
+    want = tops.gemm(xs, ys, out_dtype=torch.float32)
+    assert tops.cuda_launch_counts() == {"spdmm": 1, "gemm": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # against float64: K = 2,400 float32 terms
+    np.testing.assert_allclose(got.cpu().numpy(), x.astype(np.float64) @ y,
+                               rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.gpu
