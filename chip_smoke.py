@@ -55,6 +55,9 @@ ROOT = Path(__file__).resolve().parent
 # cores, and HBM3 bandwidth.  The kernels run FP32 FMA on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# cycles from one FP32 fmaf to the next that depends on it (Hopper's FFMA
+# latency): the floor of a sum that must keep its order
+FMA_LATENCY_CYCLES = 4
 # kernel vs plain version: f32, the summation order differs
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-4)
 # literal (fused kernels) vs literal=False logits: f32 end to end
@@ -87,10 +90,10 @@ IN_PLACE = ("gemm_batch_scatter", "spdmm_fused", "spmm_fused")
 # launch the one run walk)
 SYMBOLS = {"spdmm_fused": "spdmm_walk", "spdmm": "spdmm_walk"}
 # extra fields of a kernel's summary: the SpDMM pair's times in a CUDA
-# graph and their bound when every stored block is multiplied in full, and
-# spdmm_fused's long-run call
-EXTRA = ("graph_ms", "library_graph_ms", "block_bound_ms",
-         "compiled_l1_mlp1")
+# graph, their bound when every stored block is multiplied in full, their
+# longest fmaf chain, and spdmm_fused's long-run call
+EXTRA = ("graph_ms", "library_graph_ms", "block_bound_ms", "chain",
+         "chain_ms", "compiled_l1_mlp1")
 
 
 def log(*parts) -> None:
@@ -103,6 +106,34 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def chain_of(items, runs) -> dict:
+    """The longest dependent fmaf chain of an order-keeping SpDMM walk: the
+    most non-zero A columns any one run holds (``items`` per entry, ``runs``
+    the run offsets), and its least time at FMA_LATENCY_CYCLES a term and
+    the card's highest SM clock."""
+    incl = items.long().cumsum(0)
+    r = runs.long()
+    starts, ends = r[:-1], r[1:]
+    real = ends > starts
+    per_run = incl[ends[real] - 1] - (incl - items.long())[starts[real]]
+    chain = int(per_run.max()) if per_run.numel() else 0
+    return dict(chain=chain, chain_ms=1e3 * chain * FMA_LATENCY_CYCLES
+                / max_sm_clock_hz())
+
+
+def columns_of(blocks):
+    """Non-zero columns of each B x B block."""
+    return (blocks != 0).any(dim=1).sum(dim=1)
 
 
 def device_ms(torch, fn, reps: int = 5, inner: int = 3) -> float:
@@ -659,14 +690,21 @@ def check_kernel(torch, mods, name, calls, library):
              "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
              "library_ms": library_ms}
     if name in ("spdmm", "spdmm_fused"):
-        runs = (mods["spdmm"]._block_row_runs(args[0]) if name == "spdmm"
-                else runs_of(name, args, kw))
+        if name == "spdmm":
+            runs = mods["spdmm"]._block_row_runs(args[0])
+            items = columns_of(args[0].blocks)
+        else:
+            runs = runs_of(name, args, kw)
+            items = columns_of(args[0])[args[2].long()]
+        entry.update(chain_of(items, runs))
         entry.update(graph_ms=graph_ms(torch, k_fn),
                      library_graph_ms=(None if library is None
                                        else graph_ms(torch, library)),
                      block_bound_ms=bound["block_bound_ms"])
-        log(f"  {name} call 0 runs: {run_stats(runs)}; in a CUDA graph: "
-            f"kernel {entry['graph_ms']:.4f} ms, library "
+        log(f"  {name} call 0 runs: {run_stats(runs)}; longest fmaf chain "
+            f"{entry['chain']} ({entry['chain_ms']:.4f} ms at "
+            f"{FMA_LATENCY_CYCLES} cycles a term); in a CUDA graph: kernel "
+            f"{entry['graph_ms']:.4f} ms, library "
             f"{entry['library_graph_ms']} ms")
     return entry
 
@@ -721,7 +759,7 @@ def time_skip_call(torch, mods, calls):
                             z=torch.zeros_like(z))
     err = (got - torch.sparse.mm(csr, y)).abs().max().item()
     bound = bound_of("spdmm_fused", args, kw)
-    stats = run_stats(slots)
+    stats = run_stats(slots) | chain_of(columns_of(pool)[a_ids.long()], slots)
     log(f"  spdmm_fused, compiled GIN-CO l1-mlp1 launch: "
         f"{shape_of('spdmm_fused', args, kw)}, activation nnz "
         f"{csr.values().numel()}; kernel {ms:.4f} ms ({ms_graph:.4f} in a "

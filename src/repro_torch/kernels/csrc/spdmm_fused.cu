@@ -221,8 +221,10 @@ __device__ int run_start_at(const Walk& p, int x, int* flag) {
   return E;
 }
 
+// Six thread blocks an SM (at most 85 registers a thread): narrow widths,
+// whose shared memory allows six, run six; a tighter bound spills.
 template <int B, int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
     spdmm_walk_kernel(const Walk p) {
   if (p.pred != nullptr && *p.pred != p.when) return;
   constexpr int G = B / R;  // row groups
