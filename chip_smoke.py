@@ -55,9 +55,6 @@ ROOT = Path(__file__).resolve().parent
 # cores, and HBM3 bandwidth.  The kernels run FP32 FMA on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# cycles from one FP32 fmaf to the next that depends on it (Hopper's FFMA
-# latency): the floor of a sum that must keep its order
-FMA_LATENCY_CYCLES = 4
 # kernel vs plain version: f32, the summation order differs
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-4)
 # literal (fused kernels) vs literal=False logits: f32 end to end
@@ -86,14 +83,9 @@ KERNELS = {
 }
 # kernels whose canvas z is updated in place (recorded as it was before)
 IN_PLACE = ("gemm_batch_scatter", "spdmm_fused", "spmm_fused")
-# CUDA kernel of a wrapper, where its name differs (both SpDMM entry points
-# launch the one run walk)
-SYMBOLS = {"spdmm_fused": "spdmm_walk", "spdmm": "spdmm_walk"}
-# extra fields of a kernel's summary: the SpDMM pair's times in a CUDA
-# graph, their bound when every stored block is multiplied in full, their
-# longest fmaf chain, and spdmm_fused's long-run call
-EXTRA = ("graph_ms", "library_graph_ms", "block_bound_ms", "chain",
-         "chain_ms", "compiled_l1_mlp1")
+# extra fields of a kernel's summary, all measured in this run: the SpDMM
+# pair's times in a CUDA graph, and spdmm_fused's long-run call
+EXTRA = ("graph_ms", "library_graph_ms", "compiled_l1_mlp1")
 
 
 def log(*parts) -> None:
@@ -108,27 +100,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def max_sm_clock_hz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return 1e6 * float(out.stdout.strip().splitlines()[0])
-
-
-def chain_of(items, runs) -> dict:
+def chain_of(items, runs) -> int:
     """The longest dependent fmaf chain of an order-keeping SpDMM walk: the
     most non-zero A columns any one run holds (``items`` per entry, ``runs``
-    the run offsets), and its least time at FMA_LATENCY_CYCLES a term and
-    the card's highest SM clock."""
+    the run offsets)."""
     incl = items.long().cumsum(0)
     r = runs.long()
     starts, ends = r[:-1], r[1:]
     real = ends > starts
     per_run = incl[ends[real] - 1] - (incl - items.long())[starts[real]]
-    chain = int(per_run.max()) if per_run.numel() else 0
-    return dict(chain=chain, chain_ms=1e3 * chain * FMA_LATENCY_CYCLES
-                / max_sm_clock_hz())
+    return int(per_run.max()) if per_run.numel() else 0
 
 
 def columns_of(blocks):
@@ -216,9 +197,12 @@ class Recorder:
 
 
 def runs_of(name: str, args, kw):
-    """Exact run offsets of a fused call (made here when the call found its
-    runs on the device)."""
+    """Exact run offsets of a fused call (made here: the SpDMM kernel
+    finds its runs itself)."""
     from repro_torch.kernels.formats import run_starts
+    if name == "spdmm":
+        a = args[0]
+        return run_starts(a.row_ids, a.row_ids.new_zeros(a.row_ids.shape))
     runs = kw.get("runs")
     return run_starts(args[4], args[5]) if runs is None else runs
 
@@ -471,7 +455,7 @@ def profile_replay(torch, cm, h, per_call):
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
     seen = {kname: sum(c for _, c, key in rows if re.search(
-                rf"(?<![A-Za-z_]){SYMBOLS.get(kname, kname)}_kernel(?:<|I|\()",
+                rf"(?<![A-Za-z_]){kname}_kernel(?:<|I|\()",
                 key))
             for kname in per_call}
     log(f"  launches by kernel name in the profiled replay {seen}, recorded "
@@ -690,20 +674,16 @@ def check_kernel(torch, mods, name, calls, library):
              "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
              "library_ms": library_ms}
     if name in ("spdmm", "spdmm_fused"):
+        runs = runs_of(name, args, kw)
         if name == "spdmm":
-            runs = mods["spdmm"]._block_row_runs(args[0])
             items = columns_of(args[0].blocks)
         else:
-            runs = runs_of(name, args, kw)
             items = columns_of(args[0])[args[2].long()]
-        entry.update(chain_of(items, runs))
         entry.update(graph_ms=graph_ms(torch, k_fn),
                      library_graph_ms=(None if library is None
-                                       else graph_ms(torch, library)),
-                     block_bound_ms=bound["block_bound_ms"])
+                                       else graph_ms(torch, library)))
         log(f"  {name} call 0 runs: {run_stats(runs)}; longest fmaf chain "
-            f"{entry['chain']} ({entry['chain_ms']:.4f} ms at "
-            f"{FMA_LATENCY_CYCLES} cycles a term); in a CUDA graph: kernel "
+            f"{chain_of(items, runs)}; in a CUDA graph: kernel "
             f"{entry['graph_ms']:.4f} ms, library "
             f"{entry['library_graph_ms']} ms")
     return entry
@@ -759,7 +739,8 @@ def time_skip_call(torch, mods, calls):
                             z=torch.zeros_like(z))
     err = (got - torch.sparse.mm(csr, y)).abs().max().item()
     bound = bound_of("spdmm_fused", args, kw)
-    stats = run_stats(slots) | chain_of(columns_of(pool)[a_ids.long()], slots)
+    stats = run_stats(slots) | dict(
+        chain=chain_of(columns_of(pool)[a_ids.long()], slots))
     log(f"  spdmm_fused, compiled GIN-CO l1-mlp1 launch: "
         f"{shape_of('spdmm_fused', args, kw)}, activation nnz "
         f"{csr.values().numel()}; kernel {ms:.4f} ms ({ms_graph:.4f} in a "
@@ -775,8 +756,7 @@ def time_skip_call(torch, mods, calls):
             "graph_ms": ms_graph, "library_ms": library_ms,
             "library_graph_ms": library_graph,
             "dense_matmul_ms": dense_ms, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"],
-            "block_bound_ms": bound["block_bound_ms"], **stats}
+            "bound_by": bound["bound_by"]}
 
 
 def adjacency_csr(torch, adj):

@@ -105,9 +105,10 @@ class CompiledDispatch:
     """Device-resident instruction stream of one planned kernel.
 
     ``arrays`` holds the descriptor index arrays (int32), the pooled
-    stored-block payloads (float32) and the run offsets of each fused list
-    (``sp_runs`` / ``mm_runs``).  ``fingerprint`` content-addresses the
-    (structure, task assignment, geometry) this dispatch lowers."""
+    stored-block payloads (float32) and the run offsets of the fused SpMM
+    list (``mm_runs``; the SpDMM kernel finds its runs itself).
+    ``fingerprint`` content-addresses the (structure, task assignment,
+    geometry) this dispatch lowers."""
     geom: DispatchGeometry
     arrays: dict[str, torch.Tensor]
     fingerprint: str
@@ -265,8 +266,6 @@ def build_dispatch(part, stq, dtq, stripes: dict[int, BlockCSR],
         arrays["sp_out_rows"] = up(out_rows)
         arrays["sp_out_cols"] = up(out_cols)
         arrays["sp_first"] = up(first)
-        arrays["sp_runs"] = run_starts(arrays["sp_out_rows"],
-                                       arrays["sp_out_cols"])
 
     if spmm_tasks:
         offsets, pool = _stripe_pool(spmm_tasks, stripes)
@@ -366,7 +365,7 @@ def apply_prepared(geom: DispatchGeometry, arrays, x, y_f, y_p):
         z = ops.spdmm_fused(
             arrays["sp_pool"], y_f, arrays["sp_a_ids"], arrays["sp_y_rows"],
             arrays["sp_out_rows"], arrays["sp_out_cols"], arrays["sp_first"],
-            block_size=B, bn=SN, m_pad=M_pad, z=z, runs=arrays["sp_runs"])
+            block_size=B, bn=SN, m_pad=M_pad, z=z)
 
     if geom.has_spmm:
         y_blocks = _masked_y_blocks(geom, y_f)
@@ -602,8 +601,9 @@ def apply_activation_dispatch(geom: ActivationGeometry, arrays, x, y):
     ``torch.where`` picks the branch that ran.  The reference's
     ``lax.cond`` thus becomes straight-line code with no host read, which
     a CUDA graph can capture; on the CPU (plain versions) both branches
-    compute.  The fused kernels find their runs on the device
-    (:func:`~repro_torch.kernels.formats.run_slots`) because the
+    compute.  The fused kernels find their runs on the device (the SpDMM
+    walk from key changes, the SpMM kernel from
+    :func:`~repro_torch.kernels.formats.run_slots`) because the
     descriptors ``base_rows + row_m[a_ids]`` exist only at run time.
 
     Returns ``(z, diag)``: ``diag`` carries the block-skip telemetry —

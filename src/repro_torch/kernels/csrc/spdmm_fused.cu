@@ -1,6 +1,7 @@
 // Block-sparse x dense products: the fused multi-task SpDMM on an in-place
-// canvas, and the single-BlockCSR SpDMM.  Both launch one kernel, the run
-// walk below, so a tile computed by either is bitwise the same.
+// canvas, and the single-BlockCSR SpDMM.  Each entry point launches its own
+// kernel (spdmm_fused_kernel, spdmm_kernel), both the run walk below, so a
+// tile computed by either is bitwise the same.
 //
 // spdmm_fused replaces the Pallas kernel `repro/kernels/spdmm.py::spdmm_fused`
 // (`_spdmm_fused_kernel` / `_spdmm_fused_inplace_kernel`: grid (n_entries,),
@@ -17,17 +18,20 @@
 // list of a single BlockCSR (a_ids = t, y_rows = col_ids, out_rows =
 // row_ids, out_cols = 0) over the whole width of Y.
 //
-// What bounds them on an H100.  The summation order is fixed (below), so a
-// run cannot be split across thread blocks, and no tensor core applies
-// (B = 8 is below every MMA shape, and TF32 would round differently).  Two
-// floors remain.  The bytes: the stored pool, read once (a GCN aggregation
-// over the Flickr stand-in stores ~0.9M 8x8 blocks, 231 MB, 0.07 ms at
-// 3.35 TB/s), the Y rows of the non-zero A columns only (~1.1 of a block's
-// 8 there) and the canvas.  And the dependent fmaf chain of the longest run:
-// one fmaf per non-zero A column per element, ~16k for the 1,984 dense 8x8
-// blocks of the longest run of GIN's first MLP kernel on Cora, ~36 us at
-// 4 cycles each and 1.75 GHz.  The element-level FLOPs are small beside
-// both.
+// What bounds them on an H100 (chip_smoke.py; PERF.md section 6).  The
+// summation order is fixed (below), so a run cannot be split across thread
+// blocks, and no tensor core applies (B = 8 is below every MMA shape, and
+// TF32 would round differently).  The least time of a call is its bytes:
+// the stored pool read once, the Y rows of the non-zero A columns only
+// (~1.1 of a block's 8 in a GCN aggregation over the Flickr stand-in) and
+// the canvas, 0.10 ms for that aggregation at 3.35 TB/s.  The dependent
+// fmaf chain is short even on the longest run: GIN's first MLP kernel on
+// Cora has a run of 1,984 entries, mostly all-zero filler blocks, with 938
+// non-zero columns in all, so 938 dependent fmaf an element.  What bounds
+// the walk as built is its steps: a step takes at most 32 entries of one
+// run and costs three barriers and a one-warp scan besides its copies, so
+// a call takes about its busiest thread block's steps times a step's
+// latency (that longest run: 62 steps, ~1.5 us each, measured).
 //
 // Design.  A thread block walks runs (maximal stretches of entries with one
 // (out_row, out_col) key, found from key changes) times a chunk of up to 128
@@ -74,6 +78,11 @@
 // *pred == when (the route's overflow flag).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 namespace {
 
@@ -221,11 +230,9 @@ __device__ int run_start_at(const Walk& p, int x, int* flag) {
   return E;
 }
 
-// Six thread blocks an SM (at most 85 registers a thread): narrow widths,
-// whose shared memory allows six, run six; a tighter bound spills.
+// The run walk of one thread block (its share of the entries).
 template <int B, int R>
-__global__ void __launch_bounds__(kThreads, 6)
-    spdmm_walk_kernel(const Walk p) {
+__device__ __forceinline__ void walk_share(const Walk p) {
   if (p.pred != nullptr && *p.pred != p.when) return;
   constexpr int G = B / R;  // row groups
   // the window, the descriptor ring, the rounds of (entry, column) pairs
@@ -529,39 +536,85 @@ __global__ void __launch_bounds__(kThreads, 6)
   }
 }
 
-int g_sms = 0;  // streaming multiprocessors of the current device
+// One kernel per entry point, the same walk, so a profile tells their
+// launches apart.  Six thread blocks an SM (at most 85 registers a
+// thread): narrow widths, whose shared memory allows six, run six; a
+// tighter bound spills.
+template <int B, int R>
+__global__ void __launch_bounds__(kThreads, 6)
+    spdmm_fused_kernel(const Walk p) {
+  walk_share<B, R>(p);
+}
 
 template <int B, int R>
-int launch(Walk p, cudaStream_t stream) {
-  auto kernel = spdmm_walk_kernel<B, R>;
-  const size_t smem = Layout(B, p).total;
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (g_sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+__global__ void __launch_bounds__(kThreads, 6) spdmm_kernel(const Walk p) {
+  walk_share<B, R>(p);
+}
+
+// Thread blocks of `kernel` resident at once on the current device with
+// `smem` bytes of shared memory each.  The occupancy query and the
+// shared-memory attribute are made once per kernel, device and size: the
+// per-task path launches many short calls, whose host time they would
+// otherwise lengthen.  The attribute only grows, so every size a kernel
+// was launched with stays allowed.
+std::mutex g_fit_mu;
+std::map<int, int> g_sms;                               // device -> SMs
+std::map<std::pair<const void*, int>, size_t> g_smem;   // attribute set
+std::map<std::tuple<const void*, int, size_t>, long long> g_resident;
+
+int resident_blocks(const void* kernel, size_t smem, long long* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(g_fit_mu);
+  const auto key = std::make_tuple(kernel, dev, smem);
+  auto it = g_resident.find(key);
+  if (it == g_resident.end()) {
+    auto sms = g_sms.find(dev);
+    if (sms == g_sms.end()) {
+      int n = 0;
+      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return (int)err;
+      sms = g_sms.emplace(dev, n).first;
+    }
+    size_t& allowed = g_smem[std::make_pair(kernel, dev)];
+    if (smem > 48 * 1024 && smem > allowed) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      allowed = smem;
+    }
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    it = g_resident.emplace(key, (long long)(per_sm > 0 ? per_sm : 1) *
+                                     sms->second).first;
+  }
+  *out = it->second;
+  return 0;
+}
+
+template <int B, int R>
+int launch(Walk p, bool fused, cudaStream_t stream) {
+  const void* kernel = fused ? (const void*)spdmm_fused_kernel<B, R>
+                             : (const void*)spdmm_kernel<B, R>;
+  const size_t smem = Layout(B, p).total;
+  long long resident = 0;
+  const int err = resident_blocks(kernel, smem, &resident);
+  if (err != 0) return err;
   // thread blocks resident at once, shared among the column chunks; each
   // takes an equal share of the entries, of kMinEntries at least
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * g_sms;
   long long parts = resident / p.n_chunks;
   const long long want = (p.n_entries + kMinEntries - 1) / kMinEntries;
   if (parts > want) parts = want;
   if (parts < 1) parts = 1;
   p.parts = (int)parts;
-  kernel<<<(int)(parts * p.n_chunks), kThreads, smem, stream>>>(p);
+  const dim3 grid((unsigned)(parts * p.n_chunks));
+  if (fused)
+    spdmm_fused_kernel<B, R><<<grid, kThreads, smem, stream>>>(p);
+  else
+    spdmm_kernel<B, R><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -572,9 +625,9 @@ int pow2_at_least(int x) {
 }
 
 template <int B, int R>
-int launch_r(const Walk& p, cudaStream_t stream) {
+int launch_r(const Walk& p, bool fused, cudaStream_t stream) {
   if constexpr (R <= B) {
-    return launch<B, R>(p, stream);
+    return launch<B, R>(p, fused, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -584,23 +637,23 @@ int launch_r(const Walk& p, cudaStream_t stream) {
 // groups of R = B / G rows each.  Threads past C * G take no part in the
 // product, only in the copies.
 template <int B>
-int launch_b(const Walk& p, cudaStream_t stream) {
+int launch_b(const Walk& p, bool fused, cudaStream_t stream) {
   int groups = kThreads / p.lanes;
   if (groups < 1) groups = 1;
   if (groups > B) groups = B;
   switch (B / groups) {
-    case 1: return launch_r<B, 1>(p, stream);
-    case 2: return launch_r<B, 2>(p, stream);
-    case 4: return launch_r<B, 4>(p, stream);
-    case 8: return launch_r<B, 8>(p, stream);
-    case 16: return launch_r<B, 16>(p, stream);
-    case 32: return launch_r<B, 32>(p, stream);
+    case 1: return launch_r<B, 1>(p, fused, stream);
+    case 2: return launch_r<B, 2>(p, fused, stream);
+    case 4: return launch_r<B, 4>(p, fused, stream);
+    case 8: return launch_r<B, 8>(p, fused, stream);
+    case 16: return launch_r<B, 16>(p, fused, stream);
+    case 32: return launch_r<B, 32>(p, fused, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Column lanes, chunks and stage sizes for width bn, then the launch.
-int walk(Walk p, int block, cudaStream_t stream) {
+int walk(Walk p, int block, bool fused, cudaStream_t stream) {
   p.lanes = pow2_at_least(p.bn < kThreads ? p.bn : kThreads);
   p.n_chunks = (p.bn + p.lanes - 1) / p.lanes;
   const int window = window_of(block);
@@ -610,12 +663,12 @@ int walk(Walk p, int block, cudaStream_t stream) {
   if (items < 2 * block) items = 2 * block;
   p.items = items;
   switch (block) {
-    case 1: return launch_b<1>(p, stream);
-    case 2: return launch_b<2>(p, stream);
-    case 4: return launch_b<4>(p, stream);
-    case 8: return launch_b<8>(p, stream);
-    case 16: return launch_b<16>(p, stream);
-    case 32: return launch_b<32>(p, stream);
+    case 1: return launch_b<1>(p, fused, stream);
+    case 2: return launch_b<2>(p, fused, stream);
+    case 4: return launch_b<4>(p, fused, stream);
+    case 8: return launch_b<8>(p, fused, stream);
+    case 16: return launch_b<16>(p, fused, stream);
+    case 32: return launch_b<32>(p, fused, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -647,7 +700,7 @@ extern "C" int spdmm_fused_f32(const void* a_blocks, const void* y,
   p.bn = bn;
   p.ldy = ldy;
   p.ldz = ldz;
-  return walk(p, block, (cudaStream_t)stream);
+  return walk(p, block, true, (cudaStream_t)stream);
 }
 
 // blocks (nnzb, B, B), y (Kp, n), z (m_pad, n): f32 row-major contiguous;
@@ -668,5 +721,5 @@ extern "C" int spdmm_f32(const void* blocks, const void* y,
   p.bn = n;
   p.ldy = n;
   p.ldz = n;
-  return walk(p, block, (cudaStream_t)stream);
+  return walk(p, block, false, (cudaStream_t)stream);
 }

@@ -135,8 +135,7 @@ def spdmm(a: BlockCSR, y, *, out_dtype=torch.float32):
 
 
 def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
-                block_size: int, bn: int, m_pad: int, z=None, runs=None,
-                pred=None):
+                block_size: int, bn: int, m_pad: int, z=None, pred=None):
     """Fused multi-task SpDMM over a concatenated stored-block pool; see
     :func:`repro_torch.kernels.spdmm.spdmm_fused`.  ``y`` must already be
     laid out with ``bn``-padded col-stripes.  ``z`` is the canvas, updated in
@@ -151,7 +150,7 @@ def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
         _f32(a_blocks), _f32(y), _i32(a_ids, dev),
         _i32(y_rows, dev), _i32(out_rows, dev), _i32(out_cols, dev),
         _i32(first, dev),
-        block_size=block_size, bn=bn, z=z, runs=runs, pred=pred)
+        block_size=block_size, bn=bn, z=z, pred=pred)
 
 
 def spmm(a: BlockCSR, y: BlockCSR, *, out_dtype=torch.float32):

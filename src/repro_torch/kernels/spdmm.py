@@ -1,9 +1,9 @@
 """Block-sparse x dense products: the fused multi-task SpDMM on an in-place
 canvas (``spdmm_fused``) and the single-BlockCSR SpDMM (``spdmm``).
 
-Both launch one hand-written CUDA kernel, the run walk of
-``csrc/spdmm_fused.cu``, for CUDA tensors and run their ``_plain`` versions
-for CPU tensors.  The TPU
+Each launches its hand-written CUDA kernel (``spdmm_fused_kernel``,
+``spdmm_kernel``: one run walk, ``csrc/spdmm_fused.cu``) for CUDA tensors
+and runs its ``_plain`` version for CPU tensors.  The TPU
 fused kernel aliases the canvas to its output; here the kernel updates the
 canvas ``z`` IN PLACE and the wrapper returns it.
 
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.formats import BlockCSR, run_slots, run_starts
+from repro_torch.kernels.formats import BlockCSR, run_starts
 from repro_torch.kernels.gemm import ordered_matmul
 
 _DESCRIPTORS = ("a_ids", "y_rows", "out_rows", "out_cols", "first")
@@ -63,7 +63,7 @@ def fold_runs(prod, first, out_rows, out_cols, runs, z, bm: int, bn: int):
 
 
 # ------------------------------------------------------------ spdmm_fused
-def _validate(a_blocks, y, desc, B, bn, z, runs):
+def _validate(a_blocks, y, desc, B, bn, z):
     E = desc[0].shape[0]
     _build.require(all(d.shape == (E,) for d in desc),
                    f"descriptor shapes {[d.shape for d in desc]}")
@@ -74,36 +74,31 @@ def _validate(a_blocks, y, desc, B, bn, z, runs):
                    f"operand {y.shape} for block {B}, bn {bn}")
     _build.require(z.shape[1] == n_pad and z.shape[0] % B == 0,
                    f"canvas {z.shape} for operand {y.shape}")
-    devs = {t.device for t in (a_blocks, y, z, *desc)
-            + (() if runs is None else (runs,))}
+    devs = {t.device for t in (a_blocks, y, z, *desc)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
 
 
 def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
                 block_size: int, bn: int, z: torch.Tensor,
-                runs: torch.Tensor | None = None, pred=None) -> torch.Tensor:
+                pred=None) -> torch.Tensor:
     """Fused SpDMM into the canvas ``z`` ``(m_pad, n_pad)``, in place.
 
     ``a_blocks`` ``(P, B, B)`` is the stored-block pool; ``y`` ``(K_pad,
     n_pad)`` the dense operand laid out in ``bn``-wide col-stripes; the five
-    int32 descriptor arrays are sorted by output block.  ``runs`` are run
-    offsets for the plain version: exact ones
-    (:func:`~repro_torch.kernels.formats.run_starts`, made once for static
-    descriptors) or, when not given, the fixed-shape
-    :func:`~repro_torch.kernels.formats.run_slots` made here without a host
-    read.  The kernel finds the same runs itself, from the key changes of
-    ``out_rows`` / ``out_cols``, and needs no offsets.  ``pred`` predicates
+    int32 descriptor arrays are sorted by output block.  The kernel finds
+    the runs itself, from the key changes of ``out_rows`` / ``out_cols``,
+    so it takes no run offsets and its launch does not depend on the data
+    (the compiled activation route makes its descriptors on the device).
+    ``pred`` predicates
     the launch as in :func:`repro_torch.kernels.gemm.gemm`.  CPU tensors
     run the plain version; CUDA tensors launch the kernel (or raise)."""
     B = block_size
     desc = (a_ids, y_rows, out_rows, out_cols, first)
-    _validate(a_blocks, y, desc, B, bn, z, runs)
+    _validate(a_blocks, y, desc, B, bn, z)
     if z.device.type == "cpu":
-        if runs is None:
-            runs = run_slots(out_rows, out_cols)
         return spdmm_fused_plain(a_blocks, y, *desc, block_size=B, bn=bn,
-                                 z=z, runs=runs)
+                                 z=z)
     _build.check_operand("a_blocks", a_blocks, torch.float32, 3)
     _build.check_operand("y", y, torch.float32, 2)
     _build.check_operand("z", z, torch.float32, 2)
@@ -124,16 +119,16 @@ def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
 
 def spdmm_fused_plain(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first,
                       *, block_size: int, bn: int, z: torch.Tensor,
-                      runs: torch.Tensor | None = None,
                       pred=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`spdmm_fused` (same in-place
-    contract; ``pred`` is ignored): gather every entry's A block and Y
-    slice, form the products in k order, then :func:`fold_runs`.  Its
+    contract; ``pred`` is ignored): find the runs
+    (:func:`~repro_torch.kernels.formats.run_starts`, one host read), gather
+    every entry's A block and Y slice, form the products in k order, then
+    :func:`fold_runs`.  Its
     summation order differs from the kernel's, so the two agree within a
     float32 tolerance."""
     B = block_size
-    if runs is None:
-        runs = run_starts(out_rows, out_cols)
+    runs = run_starts(out_rows, out_cols)
     k_pad, n_pad = y.shape
     yb = y.view(k_pad // B, B, n_pad // bn, bn)
     ys = yb[y_rows.long(), :, out_cols.long(), :]
@@ -142,12 +137,6 @@ def spdmm_fused_plain(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first,
 
 
 # ------------------------------------------------------------------ spdmm
-def _block_row_runs(a: BlockCSR) -> torch.Tensor:
-    """Exact block-row runs of a BlockCSR, for the plain version (one host
-    sync)."""
-    return run_starts(a.row_ids, torch.zeros_like(a.row_ids))
-
-
 def spdmm(a: BlockCSR, y: torch.Tensor) -> torch.Tensor:
     """``a @ y`` for a BlockCSR ``a`` and a dense float32 ``y`` ``(K_pad,
     N)`` with ``K_pad = a.n_block_cols * B``; returns the float32 ``(m_pad,
@@ -196,5 +185,4 @@ def spdmm_plain(a: BlockCSR, y: torch.Tensor) -> torch.Tensor:
                        device=a.row_ids.device)
     return spdmm_fused_plain(
         a.blocks, y, ids, a.col_ids, a.row_ids,
-        torch.zeros_like(a.row_ids), a.first, block_size=B, bn=n, z=z,
-        runs=_block_row_runs(a))
+        torch.zeros_like(a.row_ids), a.first, block_size=B, bn=n, z=z)

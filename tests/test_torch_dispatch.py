@@ -13,7 +13,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import DynasparseEngine as TEngine, SparseCOO as TCOO
 from repro_torch.core import dispatch as td
 from repro_torch.core.scheduler import execute_plan
-from repro_torch.kernels import ops as tops
+from repro_torch.kernels import formats as tf, ops as tops
 
 DESCRIPTORS = ("gemm_rows", "gemm_cols", "sp_a_ids", "sp_y_rows",
                "sp_out_rows", "sp_out_cols", "sp_first", "mm_a_ids",
@@ -55,7 +55,7 @@ def test_descriptor_arrays_equal_reference(mixed):
     tdisp = te.dispatch_for(tplan, tx)
     assert jdisp.geom.__dict__ == tdisp.geom.__dict__
     assert jdisp.fingerprint == tdisp.fingerprint
-    assert set(jdisp.arrays) | {"sp_runs", "mm_runs"} == set(tdisp.arrays)
+    assert set(jdisp.arrays) | {"mm_runs"} == set(tdisp.arrays)
     for k in DESCRIPTORS:
         t = tdisp.arrays[k]
         assert t.dtype == torch.int32, k
@@ -75,7 +75,10 @@ def test_each_output_block_is_one_run(mixed, prefix):
     a = te.dispatch_for(tplan, tx).arrays
     orow = a[f"{prefix}_out_rows"].numpy().astype(np.int64)
     ocol = a[f"{prefix}_out_cols"].numpy().astype(np.int64)
-    runs = a[f"{prefix}_runs"].numpy()
+    runs = tf.run_starts(a[f"{prefix}_out_rows"],
+                         a[f"{prefix}_out_cols"]).numpy()
+    if f"{prefix}_runs" in a:
+        np.testing.assert_array_equal(a[f"{prefix}_runs"].numpy(), runs)
     keys = orow * (ocol.max() + 1) + ocol
     starts = runs[:-1]
     assert runs[-1] == len(keys) and np.all(np.diff(runs) > 0)

@@ -328,26 +328,21 @@ def test_spdmm_kernel_matches_plain_and_fused(cuda, B, m, k, n, cap):
 def test_spdmm_fused_walk_matches_plain(cuda, B, bn):
     """The pipelined run walk: a run of 2,100 entries with a ``first`` in
     its middle, short runs of every ``first`` pattern, all-zero columns and
-    all-zero filler blocks, every block size and width.  Exact run offsets
-    and padded run slots give the same result bitwise, it repeats bitwise,
-    and it equals the plain version (dyadic values: every partial sum is
-    exact, so any wrong or missing term shows)."""
-    from repro_torch.kernels.formats import run_slots, run_starts
+    all-zero filler blocks, every block size and width.  It repeats
+    bitwise and equals the plain version (dyadic values: every partial sum
+    is exact, so any wrong or missing term shows)."""
     rng = np.random.default_rng(100 * B + bn)
     a, y, desc, z = _walk_case(rng, B, bn, 2100, dyadic=True)
     args = _t(a, y, *desc, device=cuda)
     kw = dict(block_size=B, bn=bn)
     canvas = lambda: torch.as_tensor(z, device=cuda)
     tops.reset_cuda_launch_counts()
-    got = tspdmm.spdmm_fused(*args, z=canvas(),
-                             runs=run_starts(args[4], args[5]), **kw)
-    slots = tspdmm.spdmm_fused(*args, z=canvas(), **kw)
+    got = tspdmm.spdmm_fused(*args, z=canvas(), **kw)
     again = tspdmm.spdmm_fused(*args, z=canvas(), **kw)
-    assert tops.cuda_launch_counts() == {"spdmm_fused": 3}
-    assert int(run_slots(args[4], args[5]).shape[0]) == desc[0].shape[0] + 1
+    assert tops.cuda_launch_counts() == {"spdmm_fused": 2}
     want = tspdmm.spdmm_fused_plain(*args, z=canvas(), **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, slots) and torch.equal(got, again)
+    assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
 
@@ -355,12 +350,11 @@ def test_spdmm_fused_walk_matches_plain(cuda, B, bn):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bn", [8, 16, 128])
 def test_spdmm_fused_many_runs_padded_slots_and_predicate(cuda, bn):
-    """More runs than thread blocks on the card (the thread blocks stride
-    over them), with the fixed E + 1 run slots of the device-made
-    descriptors, normal values, and the overflow predicate both ways: the
+    """More runs than thread blocks on the card (each thread block walks
+    the runs that start in its share of the entries), runs of one to four
+    entries, normal values, and the overflow predicate both ways: the
     launch that matches the flag equals the plain version, the other
     leaves the canvas untouched."""
-    from repro_torch.kernels.formats import run_slots
     rng = np.random.default_rng(bn)
     B, nrb, ncs = 8, 1500, 2
     a = rng.normal(size=(97, B, B)).astype(np.float32)
@@ -369,10 +363,8 @@ def test_spdmm_fused_many_runs_padded_slots_and_predicate(cuda, bn):
     desc = _runs(rng, nrb, ncs, 97, 50, cover=0.9)
     z = rng.normal(size=(nrb * B, ncs * bn)).astype(np.float32)
     args = _t(a, y, *desc, device=cuda)
-    slots = run_slots(args[4], args[5])
-    assert int(slots.shape[0]) == desc[0].shape[0] + 1
     flag = torch.zeros(1, dtype=torch.int32, device=cuda)
-    kw = dict(block_size=B, bn=bn, runs=slots)
+    kw = dict(block_size=B, bn=bn)
     got = tspdmm.spdmm_fused(*args, z=torch.as_tensor(z, device=cuda),
                              pred=(flag, 0), **kw)
     idle = tspdmm.spdmm_fused(*args, z=torch.as_tensor(z, device=cuda),
