@@ -29,8 +29,10 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 7. holds every kernel against its plain PyTorch version on the operands the
    paths gave it (recorded in an extra, uncounted run of each path) and
    times kernel, plain version and one library call with CUDA events; the
-   fused SpDMM is also timed on compiled GIN-CO's ``l1-mlp1`` block-skip
-   launch (its long runs), beside ``torch.sparse.mm`` of that activation;
+   sparse kernels ``spdmm``, ``spdmm_fused`` and ``spmm_fused`` also in a
+   CUDA graph, and the fused SpDMM on compiled GIN-CO's ``l1-mlp1``
+   block-skip launch (its long runs), beside ``torch.sparse.mm`` of that
+   activation;
 8. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
@@ -83,8 +85,8 @@ KERNELS = {
 }
 # kernels whose canvas z is updated in place (recorded as it was before)
 IN_PLACE = ("gemm_batch_scatter", "spdmm_fused", "spmm_fused")
-# extra fields of a kernel's summary, all measured in this run: the SpDMM
-# pair's times in a CUDA graph, and spdmm_fused's long-run call
+# extra fields of a kernel's summary, all measured in this run: the sparse
+# kernels' times in a CUDA graph, and spdmm_fused's long-run call
 EXTRA = ("graph_ms", "library_graph_ms", "compiled_l1_mlp1")
 
 
@@ -197,14 +199,13 @@ class Recorder:
 
 
 def runs_of(name: str, args, kw):
-    """Exact run offsets of a fused call (made here: the SpDMM kernel
-    finds its runs itself)."""
+    """Exact run offsets of a sparse call (made here: the kernels find
+    their runs themselves)."""
     from repro_torch.kernels.formats import run_starts
     if name == "spdmm":
         a = args[0]
         return run_starts(a.row_ids, a.row_ids.new_zeros(a.row_ids.shape))
-    runs = kw.get("runs")
-    return run_starts(args[4], args[5]) if runs is None else runs
+    return run_starts(args[4], args[5])
 
 
 def nonzeros_walked(name: str, args) -> int:
@@ -217,22 +218,38 @@ def nonzeros_walked(name: str, args) -> int:
     return int(per_block[args[2].long()].sum())
 
 
+def spmm_items(args) -> dict:
+    """Item counts of a fused SpMM call: its triples, the non-zero A
+    columns of every triple (the Y rows an A-column-driven walk would
+    fetch), the live items among them (whose Y row is non-zero too: the Y
+    rows and A columns the kernel fetches), and the least FLOPs of the
+    function: 2 x the sum over triples and k of the non-zero elements of A
+    column k times those of Y row k."""
+    a_pool, y_pool, a_ids, y_ids = args[:4]
+    col_nnz = (a_pool != 0).sum(dim=1)[a_ids.long()]   # (E, B): column k
+    row_nnz = (y_pool != 0).sum(dim=2)[y_ids.long()]   # (E, B): row k
+    return dict(triples=int(a_ids.shape[0]),
+                a_columns=int((col_nnz > 0).sum()),
+                live_items=int(((col_nnz > 0) & (row_nnz > 0)).sum()),
+                flops=2.0 * float((col_nnz * row_nnz).sum()))
+
+
 def block_flops(name: str, args, kw) -> float:
     """The FLOPs of multiplying every stored B x B block in full: the
     bound of a walk that does not skip zero columns."""
     if name == "spdmm":
         a, y = args
         return 2.0 * a.stored_blocks * a.block_size ** 2 * y.shape[1]
-    return 2.0 * int(args[2].shape[0]) * kw["block_size"] ** 2 * kw["bn"]
+    B = kw["block_size"]
+    width = kw["bn"] if name == "spdmm_fused" else B
+    return 2.0 * int(args[2].shape[0]) * B ** 2 * width
 
 
 def run_stats(runs) -> dict:
-    """Runs, median and max entries per run, and empty slots of a run
-    offset array."""
+    """Runs, and median and max entries per run, of a run offset array."""
     lens = np.diff(runs.long().cpu().numpy())
-    real = lens[lens > 0]
-    return dict(runs=int(real.size), median=float(np.median(real)),
-                max=int(real.max()), empty_slots=int((lens == 0).sum()))
+    return dict(runs=int(lens.size), median=float(np.median(lens)),
+                max=int(lens.max()))
 
 
 def work_of(name: str, args, kw) -> tuple[float, float]:
@@ -240,8 +257,10 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
     descriptors: each input read once (the pool blocks and operand slices
     the entries reference, the descriptors, the canvas blocks of runs that
     hold no ``first`` flag), each output written once.  The FLOPs of the
-    sparse kernels are the least work of the same function: 2 x width x
-    the non-zero A elements walked (:func:`nonzeros_walked`)."""
+    sparse kernels are the least work of the same function: for the SpDMM
+    pair 2 x width x the non-zero A elements walked
+    (:func:`nonzeros_walked`), for ``spmm_fused`` the element-level
+    products of every triple (:func:`spmm_items`)."""
     if name == "gemm":
         x, y = args
         m, k = x.shape
@@ -278,13 +297,13 @@ def work_of(name: str, args, kw) -> tuple[float, float]:
         ncs = args[1].shape[1] // bn
         y_keys = args[3].long() * ncs + args[5].long()
         n_y = int(y_keys.unique().numel())
-        nbytes = 4 * (n_a * B * B + n_y * B * bn + 5 * n_entries + n_runs
-                      + 1 + (n_runs + no_first) * B * bn)
+        nbytes = 4 * (n_a * B * B + n_y * B * bn + 5 * n_entries
+                      + (n_runs + no_first) * B * bn)
         return nbytes, 2.0 * bn * nonzeros_walked(name, args)
     n_y = int(args[3].unique().numel())
-    nbytes = 4 * ((n_a + n_y) * B * B + 5 * n_entries + n_runs + 1
+    nbytes = 4 * ((n_a + n_y) * B * B + 5 * n_entries
                   + (n_runs + no_first) * B * B)
-    return nbytes, 2.0 * n_entries * B ** 3
+    return nbytes, spmm_items(args)["flops"]
 
 
 def shape_of(name: str, args, kw) -> str:
@@ -454,6 +473,14 @@ def profile_replay(torch, cm, h, per_call):
         f"{1 - busy_ms / (1e3 * wall):.4f}")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    port = {}
+    for dev_us, _, key in rows:
+        m = re.match(r"(?:void )?\(anonymous namespace\)::"
+                     r"((?:gemm|spdmm|spmm)\w*_kernel)", key)
+        if m:
+            port[m.group(1)] = port.get(m.group(1), 0.0) + dev_us / 1e3
+    log("  the port's kernels in the profiled replay (device ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(port.items())))
     seen = {kname: sum(c for _, c, key in rows if re.search(
                 rf"(?<![A-Za-z_]){kname}_kernel(?:<|I|\()",
                 key))
@@ -673,18 +700,22 @@ def check_kernel(torch, mods, name, calls, library):
              "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
              "library_ms": library_ms}
-    if name in ("spdmm", "spdmm_fused"):
+    if name in ("spdmm", "spdmm_fused", "spmm_fused"):
         runs = runs_of(name, args, kw)
-        if name == "spdmm":
-            items = columns_of(args[0].blocks)
-        else:
-            items = columns_of(args[0])[args[2].long()]
         entry.update(graph_ms=graph_ms(torch, k_fn),
                      library_graph_ms=(None if library is None
                                        else graph_ms(torch, library)))
-        log(f"  {name} call 0 runs: {run_stats(runs)}; longest fmaf chain "
-            f"{chain_of(items, runs)}; in a CUDA graph: kernel "
-            f"{entry['graph_ms']:.4f} ms, library "
+        if name == "spmm_fused":
+            items = spmm_items(args)
+            detail = (f"triples {items['triples']}, non-zero A columns "
+                      f"{items['a_columns']}, live items "
+                      f"{items['live_items']}")
+        else:
+            cols = (columns_of(args[0].blocks) if name == "spdmm"
+                    else columns_of(args[0])[args[2].long()])
+            detail = f"longest fmaf chain {chain_of(cols, runs)}"
+        log(f"  {name} call 0 runs: {run_stats(runs)}; {detail}; in a CUDA "
+            f"graph: kernel {entry['graph_ms']:.4f} ms, library "
             f"{entry['library_graph_ms']} ms")
     return entry
 
@@ -699,7 +730,7 @@ def bound_of(name: str, args, kw) -> dict:
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     out["text"] = (f"bound {out['bound_ms']:.4f} ms ({nbytes:.4g} B, "
                    f"{flops:.4g} FLOP)")
-    if name in ("spdmm", "spdmm_fused"):
+    if name in ("spdmm", "spdmm_fused", "spmm_fused"):
         bf = block_flops(name, args, kw)
         out["block_bound_ms"] = 1e3 * max(t_bytes, bf / PEAK_FP32_FLOPS)
         out["text"] += (f"; multiplying every stored block: {bf:.4g} FLOP, "
@@ -712,14 +743,12 @@ def time_skip_call(torch, mods, calls):
     (the first recorded call of the activation route, the one with a
     predicate): the kernel on its recorded arguments, unpredicated, beside
     ``torch.sparse.mm`` of the activation as CSR and ``torch.matmul`` of
-    the dense activation.  The run statistics are those of the route's
-    E + 1 run slots."""
-    from repro_torch.kernels.formats import run_slots
+    the dense activation."""
     spdmm = mods["spdmm"]
     args, kw = next(c for c in calls if c[1].get("pred") is not None)
     pool, y, a_ids, y_rows, out_rows, out_cols, _first = args
     B, bn = kw["block_size"], kw["bn"]
-    slots = run_slots(out_rows, out_cols)
+    runs = runs_of("spdmm_fused", args, kw)
     z = kw["z"].clone()
     launch = lambda: spdmm.spdmm_fused(*args, block_size=B, bn=bn, z=z)
     ms, ms_graph = device_ms(torch, launch), graph_ms(torch, launch)
@@ -739,8 +768,8 @@ def time_skip_call(torch, mods, calls):
                             z=torch.zeros_like(z))
     err = (got - torch.sparse.mm(csr, y)).abs().max().item()
     bound = bound_of("spdmm_fused", args, kw)
-    stats = run_stats(slots) | dict(
-        chain=chain_of(columns_of(pool)[a_ids.long()], slots))
+    stats = run_stats(runs) | dict(
+        chain=chain_of(columns_of(pool)[a_ids.long()], runs))
     log(f"  spdmm_fused, compiled GIN-CO l1-mlp1 launch: "
         f"{shape_of('spdmm_fused', args, kw)}, activation nnz "
         f"{csr.values().numel()}; kernel {ms:.4f} ms ({ms_graph:.4f} in a "

@@ -50,8 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import as_tensor, host
 from repro_torch.kernels import ops
-from repro_torch.kernels.formats import (BlockCSR, block_nonzero_mask,
-                                         run_starts)
+from repro_torch.kernels.formats import BlockCSR, block_nonzero_mask
 
 
 def canvas_slots(part, block: int) -> tuple[int, int] | None:
@@ -104,11 +103,10 @@ class DispatchGeometry:
 class CompiledDispatch:
     """Device-resident instruction stream of one planned kernel.
 
-    ``arrays`` holds the descriptor index arrays (int32), the pooled
-    stored-block payloads (float32) and the run offsets of the fused SpMM
-    list (``mm_runs``; the SpDMM kernel finds its runs itself).
-    ``fingerprint`` content-addresses the (structure, task assignment,
-    geometry) this dispatch lowers."""
+    ``arrays`` holds the descriptor index arrays (int32) and the pooled
+    stored-block payloads (float32); the fused kernels find their runs
+    themselves.  ``fingerprint`` content-addresses the (structure, task
+    assignment, geometry) this dispatch lowers."""
     geom: DispatchGeometry
     arrays: dict[str, torch.Tensor]
     fingerprint: str
@@ -278,8 +276,6 @@ def build_dispatch(part, stq, dtq, stripes: dict[int, BlockCSR],
         arrays["mm_out_rows"] = up(out_rows)
         arrays["mm_out_cols"] = up(out_cols)
         arrays["mm_first"] = up(first)
-        arrays["mm_runs"] = run_starts(arrays["mm_out_rows"],
-                                       arrays["mm_out_cols"])
 
     return CompiledDispatch(geom=geom, arrays=arrays, fingerprint=fingerprint)
 
@@ -373,7 +369,7 @@ def apply_prepared(geom: DispatchGeometry, arrays, x, y_f, y_p):
             arrays["mm_pool"], y_blocks, arrays["mm_a_ids"],
             arrays["mm_y_ids"], arrays["mm_out_rows"], arrays["mm_out_cols"],
             arrays["mm_first"], block_size=B, m_pad=M_pad, n_pad=N_pad,
-            z=z, runs=arrays["mm_runs"])
+            z=z)
 
     return z[:geom.M, :geom.N]
 
@@ -601,10 +597,9 @@ def apply_activation_dispatch(geom: ActivationGeometry, arrays, x, y):
     ``torch.where`` picks the branch that ran.  The reference's
     ``lax.cond`` thus becomes straight-line code with no host read, which
     a CUDA graph can capture; on the CPU (plain versions) both branches
-    compute.  The fused kernels find their runs on the device (the SpDMM
-    walk from key changes, the SpMM kernel from
-    :func:`~repro_torch.kernels.formats.run_slots`) because the
-    descriptors ``base_rows + row_m[a_ids]`` exist only at run time.
+    compute.  The fused kernels find their runs on the device, from the
+    key changes of the descriptors, because the descriptors
+    ``base_rows + row_m[a_ids]`` exist only at run time.
 
     Returns ``(z, diag)``: ``diag`` carries the block-skip telemetry —
     ``stored`` (real blocks packed, a device scalar), ``capacity`` /

@@ -48,8 +48,8 @@ SIGNATURES = {
     "spdmm_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     "spdmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                         _P, _I, _P],
-    "spmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P,
-                       _I, _P],
+    "spmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I,
+                       _I, _I, _P, _P, _P],
 }
 
 

@@ -322,17 +322,3 @@ def run_starts(out_rows: torch.Tensor, out_cols: torch.Tensor) -> torch.Tensor:
     end = torch.full((1,), int(out_rows.shape[0]), dtype=starts.dtype,
                      device=starts.device)
     return torch.cat([starts, end]).to(torch.int32)
-
-
-def run_slots(out_rows: torch.Tensor, out_cols: torch.Tensor) -> torch.Tensor:
-    """Run offsets of a sorted descriptor list with a FIXED shape and no
-    host read: ``(E + 1,)`` int32, the start of run ``k`` at ``k`` for every
-    run, then the entry count ``E`` repeated.  A slot whose offsets are
-    equal holds no entry; the fused kernels return at once from such slots,
-    so a launch over all ``E`` slots covers every run whatever the data.
-    This is the form for descriptors made on the device at run time (the
-    compiled activation route), where the run count is not known on the
-    host without a sync."""
-    run_id = torch.cumsum(_key_changes(out_rows, out_cols), 0) - 1
-    slots = torch.arange(int(out_rows.shape[0]) + 1, device=out_rows.device)
-    return torch.searchsorted(run_id, slots).to(torch.int32)

@@ -163,8 +163,7 @@ def spmm(a: BlockCSR, y: BlockCSR, *, out_dtype=torch.float32):
 
 
 def spmm_fused(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols, first, *,
-               block_size: int, m_pad: int, n_pad: int, z=None, runs=None,
-               pred=None):
+               block_size: int, m_pad: int, n_pad: int, z=None, pred=None):
     """Fused multi-task SpMM over concatenated block pools; see
     :func:`repro_torch.kernels.spmm.spmm_fused`.  ``z`` is the canvas,
     updated in place (a zero canvas is allocated when not given)."""
@@ -177,7 +176,7 @@ def spmm_fused(a_blocks, y_blocks, a_ids, y_ids, out_rows, out_cols, first, *,
         _f32(a_blocks), _f32(y_blocks), _i32(a_ids, dev),
         _i32(y_ids, dev), _i32(out_rows, dev), _i32(out_cols, dev),
         _i32(first, dev),
-        block_size=block_size, z=z, runs=runs, pred=pred)
+        block_size=block_size, z=z, pred=pred)
 
 
 def blockize(y: torch.Tensor, block: int) -> torch.Tensor:

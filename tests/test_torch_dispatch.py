@@ -55,7 +55,7 @@ def test_descriptor_arrays_equal_reference(mixed):
     tdisp = te.dispatch_for(tplan, tx)
     assert jdisp.geom.__dict__ == tdisp.geom.__dict__
     assert jdisp.fingerprint == tdisp.fingerprint
-    assert set(jdisp.arrays) | {"mm_runs"} == set(tdisp.arrays)
+    assert set(jdisp.arrays) == set(tdisp.arrays)
     for k in DESCRIPTORS:
         t = tdisp.arrays[k]
         assert t.dtype == torch.int32, k
@@ -77,8 +77,6 @@ def test_each_output_block_is_one_run(mixed, prefix):
     ocol = a[f"{prefix}_out_cols"].numpy().astype(np.int64)
     runs = tf.run_starts(a[f"{prefix}_out_rows"],
                          a[f"{prefix}_out_cols"]).numpy()
-    if f"{prefix}_runs" in a:
-        np.testing.assert_array_equal(a[f"{prefix}_runs"].numpy(), runs)
     keys = orow * (ocol.max() + 1) + ocol
     starts = runs[:-1]
     assert runs[-1] == len(keys) and np.all(np.diff(runs) > 0)

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package, and the entry points run
+"""The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``
+or ``scripts/`` imports JAX or the JAX package, and the entry points run
 on the card unless the caller names the CPU."""
 import ast
 from pathlib import Path
@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return (files + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _imported_roots(path: Path):

@@ -16,7 +16,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.formats import pack_blockcsr as tpack
 from test_torch_kernels_cuda import (ATOL, RTOL, _gemm_case, _spdmm_case,
-                                     _spmm_case, _t, _walk_case)
+                                     _spmm_case, _spmm_walk_case, _t,
+                                     _walk_case)
 
 
 @pytest.mark.parametrize("k", [20, 32, 300])
@@ -99,17 +100,63 @@ def test_spdmm_plain_matches_pallas_walks(case):
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_spmm_fused_plain_matches_pallas(seed):
-    rng = np.random.default_rng(10 + seed)
-    a, yb, desc, z = _spmm_case(rng)
+# the triple walk's cases at interpret-mode size: (block, triples of the
+# long run, its `first` positions as fractions, zero A column, zero Y row
+# and filler shares)
+SPMM_WALKS = {
+    "long-run": (8, 200, (0,), 0.0, 0.0, 0.0),
+    "zero-columns-rows": (8, 40, (0, 2 / 3), 0.6, 0.6, 0.3),
+    "first-mid-run": (8, 60, (1 / 3,), 0.3, 0.3, 0.1),
+    "block-4": (4, 40, (0, 1 / 2), 0.5, 0.5, 0.2),
+    "block-16": (16, 30, (0, 1 / 2), 0.5, 0.5, 0.2),
+}
+
+
+@pytest.mark.parametrize("case", [0, 1, *SPMM_WALKS])
+def test_spmm_fused_plain_matches_pallas(case):
+    """Random short runs of every ``first`` pattern (cases 0 and 1), and
+    the semantics the CUDA triple walk is held to: a long run, A blocks
+    with all-zero columns and Y blocks with all-zero rows, zero fillers and
+    the sentinels, a ``first`` in the middle of a run, other block sizes
+    (the named cases)."""
+    if case in SPMM_WALKS:
+        B, n, resets, zero_cols, zero_rows, fillers = SPMM_WALKS[case]
+        rng = np.random.default_rng(len(case))
+        a, yb, desc, z = _spmm_walk_case(
+            rng, B, n, nrb=3, ncb=2, Pa=12, Py=10, zero_cols=zero_cols,
+            zero_rows=zero_rows, fillers=fillers, resets=resets)
+    else:
+        B = 8
+        rng = np.random.default_rng(10 + case)
+        a, yb, desc, z = _spmm_case(rng)
     want = np.asarray(jops.spmm_fused(
-        jnp.asarray(a), jnp.asarray(yb), *desc, block_size=8,
+        jnp.asarray(a), jnp.asarray(yb), *desc, block_size=B,
         m_pad=z.shape[0], n_pad=z.shape[1], interpret=True,
         z=jnp.asarray(z)))
-    got = tops.spmm_fused(*_t(a, yb), *desc, block_size=8, m_pad=z.shape[0],
+    got = tops.spmm_fused(*_t(a, yb), *desc, block_size=B, m_pad=z.shape[0],
                           n_pad=z.shape[1], z=torch.as_tensor(z.copy()))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("B", [4, 8])
+def test_ops_spmm_matches_pallas(B):
+    """``ops.spmm`` on one BlockCSR pair (zero columns inside A's blocks,
+    zero rows inside Y's, whole zero blocks, ragged edges) against the
+    reference's ``spmm`` in interpret mode."""
+    rng = np.random.default_rng(500 + B)
+    m, k, n = 5 * B - 3, 7 * B, 3 * B - 2
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    x *= rng.uniform(size=(1, k)) >= 0.5
+    x *= np.kron(rng.uniform(size=(5, 7)) >= 0.3, np.ones((B, B)))[:m]
+    y = rng.normal(size=(k, n)).astype(np.float32)
+    y *= rng.uniform(size=(k, 1)) >= 0.5
+    y *= np.kron(rng.uniform(size=(7, 3)) >= 0.3, np.ones((B, B)))[:, :n]
+    want = jops.spmm(jpack(x, B), jpack(y, B), interpret=True)
+    got = tops.spmm(tpack(x, B), tpack(y, B))
+    assert got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), x @ y, rtol=1e-4, atol=1e-4)
 
 
 def test_first_reset_and_accumulate_semantics():

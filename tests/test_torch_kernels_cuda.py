@@ -3,7 +3,10 @@ the card: ragged tiles, every block size the kernels are built for, canvas
 blocks no entry covers, ``first`` resets in the middle of a run, runs that
 add onto the canvas, and bitwise repeatability; the SpDMM run walk on runs
 of thousands of entries, all-zero columns and filler blocks at every width,
-and bitwise equal to the dense ``gemm`` kernel; the predicated overflow
+and bitwise equal to the dense ``gemm`` kernel; the SpMM triple walk on a
+run of thousands of triples, all-zero A columns and Y rows, sentinel
+blocks, runs that straddle the warps' shares, and bitwise equal to the
+dense ``gemm`` kernel through ``ops.spmm``; the predicated overflow
 route on both branches, run-time descriptors under one CUDA graph, and the
 compiled and per-task paths against the CPU.  Every case needs a card and
 skips without one; this file imports no JAX, so it runs on a machine that
@@ -88,37 +91,29 @@ def _t(*arrays, device="cpu"):
     return [torch.as_tensor(a, device=device) for a in arrays]
 
 
-def _walk_case(rng, B, bn, long_run, *, nrb=6, ncs=2, K_blocks=40, P=64,
-               zero_cols=0.5, fillers=0.2, dyadic=False, resets=(0, 2 / 3)):
-    """A fused SpDMM case that exercises the run walk: one run of
-    ``long_run`` entries on output block (0, 0) with a ``first`` at each
-    fraction ``resets`` of its length (by default at its start and in its
-    middle), then short runs (1-40 entries) of
-    every ``first`` pattern on the other blocks.  Every pool block has
-    each column all-zero with probability ``zero_cols``, and a share
-    ``fillers`` of the blocks is all zero (the packer's fillers).  With
-    ``dyadic`` every value is a small multiple of 1/4 (A) or 1/8 (Y, the
-    canvas), so every partial sum is exact in float32 and two summation
-    orders agree exactly."""
-    def values(size, scale):
-        if dyadic:
-            return (rng.integers(-4, 5, size=size) / scale).astype(np.float32)
-        return rng.normal(size=size).astype(np.float32)
+def _values(rng, size, scale, dyadic):
+    """Normal values, or with ``dyadic`` small multiples of ``1/scale``."""
+    if dyadic:
+        return (rng.integers(-4, 5, size=size) / scale).astype(np.float32)
+    return rng.normal(size=size).astype(np.float32)
 
-    a = values((P, B, B), 4)
-    a *= (rng.uniform(size=(P, 1, B)) >= zero_cols)
-    a *= (rng.uniform(size=(P, 1, 1)) >= fillers)
-    y = values((K_blocks * B, ncs * bn), 8)
-    z = values((nrb * B, ncs * bn), 8)
+
+def _walk_runs(rng, long_run, nrb, ncb, resets):
+    """``(out_rows, out_cols, first)`` of a walk case: one run of
+    ``long_run`` entries on output block (0, 0) with a ``first`` at each
+    fraction ``resets`` of its length, then short runs (1-40 entries) on
+    the blocks of rows 1.. of every ``first`` pattern: reset at the start,
+    none (adds onto the canvas), reset in the middle.  Row 0's other
+    blocks are covered by no entry."""
     first = np.zeros(long_run, np.int32)
     first[[int(f * long_run) for f in resets]] = 1
     orow, ocol = [0] * long_run, [0] * long_run
     firsts = [first]
     for r in range(1, nrb):
-        for c in range(ncs):
+        for c in range(ncb):
             n = int(rng.integers(1, 41))
             f = np.zeros(n, np.int32)
-            kind = (r * ncs + c) % 3        # reset at start, none, mid-run
+            kind = (r * ncb + c) % 3        # reset at start, none, mid-run
             if kind == 0:
                 f[0] = 1
             elif kind == 2:
@@ -126,11 +121,54 @@ def _walk_case(rng, B, bn, long_run, *, nrb=6, ncs=2, K_blocks=40, P=64,
             orow += [r] * n
             ocol += [c] * n
             firsts.append(f)
-    E = len(orow)
     as32 = lambda v: np.asarray(v, np.int32)
-    desc = (as32(rng.integers(0, P, E)), as32(rng.integers(0, K_blocks, E)),
-            as32(orow), as32(ocol), np.concatenate(firsts))
+    return as32(orow), as32(ocol), np.concatenate(firsts)
+
+
+def _walk_case(rng, B, bn, long_run, *, nrb=6, ncs=2, K_blocks=40, P=64,
+               zero_cols=0.5, fillers=0.2, dyadic=False, resets=(0, 2 / 3)):
+    """A fused SpDMM case that exercises the run walk
+    (:func:`_walk_runs`, by default with a ``first`` at the long run's
+    start and in its middle).  Every pool block has each column all-zero
+    with probability ``zero_cols``, and a share ``fillers`` of the blocks
+    is all zero (the packer's fillers).  With ``dyadic`` every value is a
+    small multiple of 1/4 (A) or 1/8 (Y, the canvas), so every partial sum
+    is exact in float32 and two summation orders agree exactly."""
+    a = _values(rng, (P, B, B), 4, dyadic)
+    a *= (rng.uniform(size=(P, 1, B)) >= zero_cols)
+    a *= (rng.uniform(size=(P, 1, 1)) >= fillers)
+    y = _values(rng, (K_blocks * B, ncs * bn), 8, dyadic)
+    z = _values(rng, (nrb * B, ncs * bn), 8, dyadic)
+    orow, ocol, first = _walk_runs(rng, long_run, nrb, ncs, resets)
+    E = len(orow)
+    desc = (rng.integers(0, P, E).astype(np.int32),
+            rng.integers(0, K_blocks, E).astype(np.int32), orow, ocol, first)
     return a, y, desc, z
+
+
+def _spmm_walk_case(rng, B, long_run, *, nrb=6, ncb=3, Pa=40, Py=30,
+                    zero_cols=0.5, zero_rows=0.5, fillers=0.2, dyadic=False,
+                    resets=(0, 2 / 3)):
+    """A fused SpMM case that exercises the triple walk: the runs of
+    :func:`_walk_runs`; every A pool block has each column all-zero with
+    probability ``zero_cols``, every Y pool block each row with
+    probability ``zero_rows``, a share ``fillers`` of both pools is all
+    zero, and the last block of each pool is the zero sentinel.
+    ``dyadic`` as in :func:`_walk_case`."""
+    a = _values(rng, (Pa, B, B), 4, dyadic)
+    a *= rng.uniform(size=(Pa, 1, B)) >= zero_cols
+    a *= rng.uniform(size=(Pa, 1, 1)) >= fillers
+    yb = _values(rng, (Py, B, B), 8, dyadic)
+    yb *= rng.uniform(size=(Py, B, 1)) >= zero_rows
+    yb *= rng.uniform(size=(Py, 1, 1)) >= fillers
+    a[-1] = 0
+    yb[-1] = 0
+    z = _values(rng, (nrb * B, ncb * B), 8, dyadic)
+    orow, ocol, first = _walk_runs(rng, long_run, nrb, ncb, resets)
+    E = len(orow)
+    desc = (rng.integers(0, Pa, E).astype(np.int32),
+            rng.integers(0, Py, E).astype(np.int32), orow, ocol, first)
+    return a, yb, desc, z
 
 
 @pytest.mark.gpu
@@ -171,17 +209,27 @@ def test_spdmm_fused_kernel_matches_plain(cuda, B, bn):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["short-runs", "walk"])
 @pytest.mark.parametrize("B", [1, 2, 4, 8, 16, 32])
-def test_spmm_fused_kernel_matches_plain(cuda, B):
-    rng = np.random.default_rng(B)
-    a, yb, desc, z = _spmm_case(rng, B=B, nrb=11, ncb=6)
+def test_spmm_fused_kernel_matches_plain(cuda, B, case):
+    """Short random runs of every ``first`` pattern, and the triple walk's
+    case (:func:`_spmm_walk_case`: a run of 2,100 triples with a ``first``
+    in its middle, all-zero A columns, Y rows and blocks, sentinel blocks;
+    dyadic values, so any wrong or missing term shows), at every block
+    size.  The kernel repeats bitwise and equals the plain version."""
+    if case == "walk":
+        rng = np.random.default_rng(200 + B)
+        a, yb, desc, z = _spmm_walk_case(rng, B, 2100, dyadic=True)
+    else:
+        rng = np.random.default_rng(B)
+        a, yb, desc, z = _spmm_case(rng, B=B, nrb=11, ncb=6)
     args = _t(a, yb, *desc, device=cuda)
-    got = tspmm.spmm_fused(*args, block_size=B,
-                           z=torch.as_tensor(z, device=cuda))
-    again = tspmm.spmm_fused(*args, block_size=B,
-                             z=torch.as_tensor(z, device=cuda))
-    want = tspmm.spmm_fused_plain(*args, block_size=B,
-                                  z=torch.as_tensor(z, device=cuda))
+    canvas = lambda: torch.as_tensor(z, device=cuda)
+    tops.reset_cuda_launch_counts()
+    got = tspmm.spmm_fused(*args, block_size=B, z=canvas())
+    again = tspmm.spmm_fused(*args, block_size=B, z=canvas())
+    assert tops.cuda_launch_counts() == {"spmm_fused": 2}
+    want = tspmm.spmm_fused_plain(*args, block_size=B, z=canvas())
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -345,6 +393,88 @@ def test_spdmm_fused_walk_matches_plain(cuda, B, bn):
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4, 8, 16])
+def test_spmm_fused_share_boundaries_and_predicate(cuda, B):
+    """Thousands of runs of one to four triples (an entry count that is no
+    multiple of the warps' shares, so run starts fall on both sides of
+    every share boundary), runs with no ``first`` that add onto the
+    canvas, zero A columns and Y rows, and the overflow predicate both
+    ways: the launch that matches the flag equals the plain version and
+    repeats bitwise, the other leaves the canvas untouched."""
+    rng = np.random.default_rng(300 + B)
+    nrb, ncb, Pa, Py = 700, 3, 97, 61
+    a = rng.normal(size=(Pa, B, B)).astype(np.float32)
+    a *= rng.uniform(size=(Pa, 1, B)) >= 0.6
+    yb = rng.normal(size=(Py, B, B)).astype(np.float32)
+    yb *= rng.uniform(size=(Py, B, 1)) >= 0.4
+    desc = _runs(rng, nrb, ncb, Pa, Py, cover=0.9)
+    assert len(desc[0]) % 32 != 0
+    z = rng.normal(size=(nrb * B, ncb * B)).astype(np.float32)
+    args = _t(a, yb, *desc, device=cuda)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    canvas = lambda: torch.as_tensor(z, device=cuda)
+    got = tspmm.spmm_fused(*args, block_size=B, z=canvas(), pred=(flag, 0))
+    again = tspmm.spmm_fused(*args, block_size=B, z=canvas(), pred=(flag, 0))
+    idle = tspmm.spmm_fused(*args, block_size=B, z=canvas(), pred=(flag, 1))
+    want = tspmm.spmm_fused_plain(*args, block_size=B, z=canvas())
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(idle, canvas())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_spmm_fused_empty_list_keeps_canvas(cuda):
+    """No triple: no launch, and the canvas is returned unchanged."""
+    B = 8
+    z = torch.arange(64 * 16, dtype=torch.float32, device=cuda).reshape(64,
+                                                                         16)
+    pool = torch.zeros((1, B, B), device=cuda)
+    empty = [torch.zeros(0, dtype=torch.int32, device=cuda)
+             for _ in range(5)]
+    tops.reset_cuda_launch_counts()
+    got = tspmm.spmm_fused(pool, pool, *empty, block_size=B, z=z.clone())
+    torch.cuda.synchronize()
+    assert tops.cuda_launch_counts() == {}
+    assert torch.equal(got, z)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4, 8, 16])
+def test_spmm_equals_dense_gemm_bitwise(cuda, B):
+    """The k-order invariant of the SpMM walk: block-sparse operands with
+    all-zero columns inside A's blocks, all-zero rows inside Y's blocks and
+    whole zero blocks, multiplied through ``ops.spmm`` (only the pairs of
+    stored blocks, in block-column order), are bitwise the dense ``gemm``
+    kernel's product, which sums every k from 0 with fmaf."""
+    from repro_torch.kernels.formats import pack_blockcsr
+    rng = np.random.default_rng(400 + B)
+    nrb, ncb, ncy = 5, 120, 4
+    k = ncb * B
+    x = rng.normal(size=(nrb * B, k)).astype(np.float32)
+    x *= np.repeat(rng.uniform(size=(nrb, k)) >= 0.6, B, axis=0)
+    x *= np.kron(rng.uniform(size=(nrb, ncb)) >= 0.3, np.ones((B, B)))
+    y = rng.normal(size=(k, ncy * B)).astype(np.float32)
+    y *= np.repeat(rng.uniform(size=(k, ncy)) >= 0.5, B, axis=1)
+    y *= np.kron(rng.uniform(size=(ncb, ncy)) >= 0.3, np.ones((B, B)))
+    x = np.ascontiguousarray(x[:nrb * B - 3])
+    y = np.ascontiguousarray(y[:, :ncy * B - 2])
+    a, yb = pack_blockcsr(x, B, device=cuda), pack_blockcsr(y, B,
+                                                            device=cuda)
+    xs, ys = (torch.as_tensor(v, device=cuda) for v in (x, y))
+    tops.reset_cuda_launch_counts()
+    got = tops.spmm(a, yb)
+    want = tops.gemm(xs, ys, out_dtype=torch.float32)
+    assert tops.cuda_launch_counts() == {"spmm_fused": 1, "gemm": 1}
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.cpu().numpy(), x.astype(np.float64) @ y,
+                               rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.gpu
