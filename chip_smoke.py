@@ -17,8 +17,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 2. drives GIN on the Cora stand-in (CO) at full size the same way: its
    first aggregation is the path's SpMM kernel;
 3. compiles GCN-FL into one CUDA graph (``gnn.compile_model``), replays it
-   and profiles a replay: per call the dense ``gemm`` kernel twice and the
-   fused SpDMM twice;
+   and profiles a replay: per call the dense ``gemm`` kernel twice (the
+   layer-1 update on the wide tile, the logits layer on the narrow one)
+   and the fused SpDMM twice;
 4. compiles GIN-CO: its ``l1-mlp1`` kernel takes the activation block-skip
    route (device packer, run-time descriptors), also on a sparser input
    of the same support under the same graph, and a budget one slot short
@@ -30,9 +31,11 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    paths gave it (recorded in an extra, uncounted run of each path) and
    times kernel, plain version and one library call with CUDA events; the
    sparse kernels ``spdmm``, ``spdmm_fused`` and ``spmm_fused`` also in a
-   CUDA graph, and the fused SpDMM on compiled GIN-CO's ``l1-mlp1``
+   CUDA graph, the fused SpDMM on compiled GIN-CO's ``l1-mlp1``
    block-skip launch (its long runs), beside ``torch.sparse.mm`` of that
-   activation;
+   activation, and ``gemm`` also on compiled GCN-FL's logits layer (n = 7,
+   the narrow tile), beside ``torch.matmul``; each dense GEMM call's
+   TFLOP/s and share of its bound are logged;
 8. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
@@ -80,14 +83,15 @@ KERNELS = {
         module="spdmm", source=CSRC + "spdmm_fused.cu",
         replaces="src/repro/kernels/spdmm.py:43"),
     "gemm_batch": dict(
-        module="gemm", source=CSRC + "gemm_batch_scatter.cu",
+        module="gemm", source=CSRC + "gemm.cu",
         replaces="src/repro/kernels/gemm.py:165"),
 }
 # kernels whose canvas z is updated in place (recorded as it was before)
 IN_PLACE = ("gemm_batch_scatter", "spdmm_fused", "spmm_fused")
 # extra fields of a kernel's summary, all measured in this run: the sparse
-# kernels' times in a CUDA graph, and spdmm_fused's long-run call
-EXTRA = ("graph_ms", "library_graph_ms", "compiled_l1_mlp1")
+# kernels' times in a CUDA graph, spdmm_fused's long-run call and gemm's
+# narrow call
+EXTRA = ("graph_ms", "library_graph_ms", "compiled_l1_mlp1", "narrow_call")
 
 
 def log(*parts) -> None:
@@ -476,7 +480,7 @@ def profile_replay(torch, cm, h, per_call):
     port = {}
     for dev_us, _, key in rows:
         m = re.match(r"(?:void )?\(anonymous namespace\)::"
-                     r"((?:gemm|spdmm|spmm)\w*_kernel)", key)
+                     r"((?:gemm|spdmm|spmm)\w*_kernel(?:<[^(]*>)?)", key)
         if m:
             port[m.group(1)] = port.get(m.group(1), 0.0) + dev_us / 1e3
     log("  the port's kernels in the profiled replay (device ms): "
@@ -693,7 +697,7 @@ def check_kernel(torch, mods, name, calls, library):
     log(f"  {name} timed on call 0: kernel {ms:.4f} ms  plain "
         f"{plain_ms:.4f} ms  library "
         f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}  "
-        + bound["text"])
+        + bound["text"] + "; " + rate_text(bound, ms, library_ms))
     entry = {"name": name, "route": "cuda",
              "source": KERNELS[name]["source"],
              "replaces": KERNELS[name]["replaces"],
@@ -727,7 +731,8 @@ def bound_of(name: str, args, kw) -> dict:
     nbytes, flops = work_of(name, args, kw)
     t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
     out = dict(bound_ms=1e3 * max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops)
     out["text"] = (f"bound {out['bound_ms']:.4f} ms ({nbytes:.4g} B, "
                    f"{flops:.4g} FLOP)")
     if name in ("spdmm", "spdmm_fused", "spmm_fused"):
@@ -736,6 +741,47 @@ def bound_of(name: str, args, kw) -> dict:
         out["text"] += (f"; multiplying every stored block: {bf:.4g} FLOP, "
                         f"bound {out['block_bound_ms']:.4f} ms")
     return out
+
+
+def rate_text(bound, ms, library_ms=None) -> str:
+    """Achieved rates of a timed call and its share of the bound (bound
+    time over measured time), for the kernel and the library call."""
+    def one(t):
+        return (f"{bound['flops'] / t / 1e9:.2f} TFLOP/s, "
+                f"{bound['bytes'] / t / 1e6:.1f} GB/s, "
+                f"{bound['bound_ms'] / t:.1%} of the bound")
+    text = "kernel " + one(ms)
+    if library_ms is not None:
+        text += "; library " + one(library_ms)
+    return text
+
+
+def time_narrow_gemm(torch, mods, calls):
+    """The first recorded ``gemm`` call with n <= 16 (compiled GCN-FL's
+    logits layer, the narrow tile; :func:`check_kernel` holds it against
+    its plain version with every other call): the kernel beside
+    ``torch.matmul`` of the same operands, eagerly and in a CUDA graph (the
+    call is short enough for host time between eager calls to show), and
+    its bound."""
+    gemm = mods["gemm"]
+    args, kw = next(c for c in calls if c[0][1].shape[1] <= 16)
+    kw = {k: v for k, v in kw.items() if k != "pred"}
+    x, y = args
+    k_fn = lambda: gemm.gemm(x, y, **kw)
+    library = lambda: torch.matmul(x, y)
+    ms, ms_graph = device_ms(torch, k_fn), graph_ms(torch, k_fn)
+    library_ms, library_graph = device_ms(torch, library), graph_ms(torch,
+                                                                    library)
+    bound = bound_of("gemm", args, kw)
+    log(f"  gemm, narrow call: {shape_of('gemm', args, kw)} n {y.shape[1]}; "
+        f"kernel {ms:.4f} ms ({ms_graph:.4f} in a CUDA graph); library "
+        f"{library_ms:.4f} ms ({library_graph:.4f}) (torch.matmul); "
+        + bound["text"] + "; in a graph: "
+        + rate_text(bound, ms_graph, library_graph))
+    return {"call": shape_of("gemm", args, kw) + f" n {y.shape[1]}",
+            "ms": ms, "graph_ms": ms_graph, "library_ms": library_ms,
+            "library_graph_ms": library_graph, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"]}
 
 
 def time_skip_call(torch, mods, calls):
@@ -835,6 +881,10 @@ def summarize(torch, mods, paths):
                    for p_label, _, rec in paths}
         entry.update(path=label, launches=by_path[label],
                      launches_by_path=by_path)
+        if name == "gemm":
+            entry["narrow_call"] = time_narrow_gemm(
+                torch, mods, [c for p_label, _, c in calls
+                              if p_label == label])
         if name == "spdmm_fused":
             entry["compiled_l1_mlp1"] = time_skip_call(
                 torch, mods, next(rec["calls"][name] for p_label, _, rec
@@ -875,7 +925,8 @@ def main() -> int:
         f"({_build.BUILD_INFO.get('path')}, cached="
         f"{_build.BUILD_INFO.get('cached')})")
     for line in _build.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             log(f"  ptxas: {line.strip()}")
 
     t0 = time.perf_counter()

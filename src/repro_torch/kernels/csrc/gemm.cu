@@ -1,66 +1,154 @@
-// Tiled dense GEMM z = x @ y with an f32 accumulator and an out_dtype cast.
+// Dense GEMM kernels: `gemm` (z = x @ y, f32 accumulator, out_dtype cast)
+// and `gemm_batch` (stacked z[t] = x[t] @ y[t]).
 //
-// Replaces the Pallas kernel `repro/kernels/gemm.py::gemm` (grid
+// gemm replaces the Pallas kernel `src/repro/kernels/gemm.py:40` (grid
 // (M/bm, N/bn, K/bk), the contraction innermost, an f32 VMEM accumulator
-// zeroed at k == 0 and cast to out_dtype at the last k step).  Here one
-// 256-thread block owns one 64 x 64 output tile and walks all of K itself
-// (gemm_tile.cuh), so no accumulator crosses blocks.
+// zeroed at k == 0 and cast to out_dtype at the last k step).
+// gemm_batch replaces `src/repro/kernels/gemm.py:165` (grid (T, K/bk),
+// output block (t, 0, 0)).  Here one thread block owns one output tile and
+// walks all of K itself, so no accumulator crosses blocks; both kernels run
+// the register-blocked tile product of sgemm_sm90.cuh, which gives the
+// note on tiles, stages, layouts and the summation order.
 //
-// What bounds it on an H100: the compiled GCN layer on the Flickr stand-in
-// (x 89,250 x 500, y 500 x 128) does 2*M*K*N = 1.14e10 FLOP over ~179 MB
-// of x, so it is bound by the FP32 CUDA-core rate (67 TFLOP/s, ~0.17 ms);
-// with N = 7 (the logits layer) it is bound by reading x.  The TPU wrapper
-// pads x to its block multiples; this kernel masks its own M, N and K
-// tails, so the caller makes no padded copy of x.
-// Inputs are float32 or bfloat16 (both of one type; bfloat16 is loaded
-// natively and widened in registers, which is exact, and a product of two
-// bf16 values is exact in f32), the output float32 or bfloat16 (round to
-// nearest even).  `pred`, when not null, predicates the whole launch on
-// *pred == when: the compiled activation route launches this kernel as its
+// What bounds them on an H100: GCN-FL's layer-1 update (x 89,250 x 500,
+// y 500 x 128) and the dense queue's batch (8 x 11264 x 500 by 8 x 500 x
+// 128) each do ~1.1e10 FLOP over ~225 MB, bound by the FP32 CUDA-core
+// rate (67 TFLOP/s, ~0.17 ms); GCN-FL's logits layer (n = 7) is bound by
+// reading x once (48 MB, ~0.014 ms).  The launch picks the tile from n
+// (tile_for): the narrow tiles for n <= 16, 128 x 64 for n <= 64, else
+// 128 x 128.  At n = 128 the layer-1 update is 698 tiles of 128 x 128,
+// 2.64 waves of two thread blocks on each of 132 SMs; the 128 x 64 tile,
+// 3.5 waves of three, ran slower (scripts/gemm_tile_ablation.py,
+// `wide64`), so the tail wave was left as it is.  The grid is
+// one-dimensional over a task's tiles, the column tiles of a row stripe
+// adjacent, so they share x through L2; the task is blockIdx.y.  The
+// wrapper pads nothing: the kernels mask their own M, N and K tails.
+//
+// Inputs of gemm are float32 or bfloat16 (both of one type; bf16 widened
+// in registers, which is exact, and a product of two bf16 values is exact
+// in f32), its output float32 or bfloat16 (round to nearest even).
+// gemm_batch is float32.  `pred`, when not null, predicates a gemm launch
+// on *pred == when: the compiled activation route launches it as its
 // dense overflow fallback inside one captured program, and its thread
 // blocks return at once when the batch did not overflow.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_tile.cuh"
+#include "sgemm_sm90.cuh"
 
 namespace {
 
-using namespace tile_gemm;
+using namespace sgemm_sm90;
 
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(THREADS)
+template <class Tile>
+__device__ __forceinline__ void tile_origin(int n, int& row0, int& col0) {
+  const int col_tiles = (n + Tile::BN - 1) / Tile::BN;
+  row0 = (int)(blockIdx.x / col_tiles) * Tile::BM;
+  col0 = (int)(blockIdx.x % col_tiles) * Tile::BN;
+}
+
+// The body of both kernels: tile blockIdx.x of task blockIdx.y of a
+// stacked batch (gemm is a batch of one).  One body gives both kernels one
+// register allocation and one schedule: gemm with its own body, operands
+// taken straight from its parameters, ran 15 % slower on the layer-1
+// update (scripts/gemm_tile_ablation.py, `own_body`).
+template <class Tile, bool VEC, typename TIn, typename TOut>
+__device__ __forceinline__ void batched_tile(const TIn* __restrict__ x,
+                                             const TIn* __restrict__ y,
+                                             TOut* __restrict__ z, int m,
+                                             int k, int n,
+                                             typename Tile::Smem& s) {
+  const int64_t t = blockIdx.y;
+  int row0, col0;
+  tile_origin<Tile>(n, row0, col0);
+  Tile::template tile<VEC>(x + t * m * k, y + t * k * n, z + t * m * n, m,
+                           k, n, row0, col0, s);
+}
+
+template <class Tile, bool VEC, typename TIn, typename TOut>
+__global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
 gemm_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
             TOut* __restrict__ z, int m, int k, int n,
             const int* __restrict__ pred, int when) {
   if (skipped(pred, when)) return;
-  __shared__ Smem s;
-  const int row0 = blockIdx.x * TM;
-  const int col0 = blockIdx.y * TN;
-  float acc[4][4];
-  product(x, k, y, n, m, k, n, row0, col0, s, acc);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c < n) narrow(&z[(int64_t)r * n + c], acc[i][j]);
-    }
-  }
+  __shared__ typename Tile::Smem s;
+  batched_tile<Tile, VEC>(x, y, z, m, k, n, s);
+}
+
+template <class Tile, bool VEC>
+__global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
+gemm_batch_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  float* __restrict__ z, int m, int k, int n) {
+  __shared__ typename Tile::Smem s;
+  batched_tile<Tile, VEC>(x, y, z, m, k, n, s);
+}
+
+bool aligned(const void* p, int bytes) {
+  return (uintptr_t)p % (uintptr_t)bytes == 0;
+}
+
+// Vector loads: k % 4 == 0 and x aligned to four elements; the wide tiles
+// also load y by four, so they need n % 4 == 0 and y aligned.  Then every
+// row of every task starts aligned too.
+template <class Tile, typename TIn>
+bool vector_loads(const void* x, const void* y, int k, int n) {
+  const int four = 4 * (int)sizeof(TIn);
+  const bool y_vec = Tile::BN <= 16 || (n % 4 == 0 && aligned(y, four));
+  return k % 4 == 0 && aligned(x, four) && y_vec;
+}
+
+template <class Tile>
+dim3 grid_of(int m, int n, int T) {
+  const int64_t tiles = (int64_t)((m + Tile::BM - 1) / Tile::BM) *
+                        ((n + Tile::BN - 1) / Tile::BN);
+  return dim3((unsigned)tiles, (unsigned)T);
+}
+
+template <class Tile, typename TIn, typename TOut>
+int launch_gemm(const void* x, const void* y, void* z, int m, int k, int n,
+                const void* pred, int when, cudaStream_t st) {
+  const dim3 grid = grid_of<Tile>(m, n, 1);
+  if (vector_loads<Tile, TIn>(x, y, k, n))
+    gemm_kernel<Tile, true, TIn, TOut><<<grid, Tile::THREADS, 0, st>>>(
+        (const TIn*)x, (const TIn*)y, (TOut*)z, m, k, n, (const int*)pred,
+        when);
+  else
+    gemm_kernel<Tile, false, TIn, TOut><<<grid, Tile::THREADS, 0, st>>>(
+        (const TIn*)x, (const TIn*)y, (TOut*)z, m, k, n, (const int*)pred,
+        when);
+  return (int)cudaGetLastError();
+}
+
+template <class Tile>
+int launch_batch(const void* x, const void* y, void* z, int T, int m, int k,
+                 int n, cudaStream_t st) {
+  const dim3 grid = grid_of<Tile>(m, n, T);
+  if (vector_loads<Tile, float>(x, y, k, n))
+    gemm_batch_kernel<Tile, true><<<grid, Tile::THREADS, 0, st>>>(
+        (const float*)x, (const float*)y, (float*)z, m, k, n);
+  else
+    gemm_batch_kernel<Tile, false><<<grid, Tile::THREADS, 0, st>>>(
+        (const float*)x, (const float*)y, (float*)z, m, k, n);
+  return (int)cudaGetLastError();
+}
+
+// Calls pick(Tile{}) with the tile for n: the narrow tiles (every column
+// in one tile) for n <= 16, 128 x 64 for n <= 64, else 128 x 128.
+template <class Pick>
+int tile_for(int n, Pick&& pick) {
+  if (n <= 8) return pick(Narrow<8>{});
+  if (n <= 16) return pick(Narrow<16>{});
+  if (n <= 64) return pick(Wide<64>{});
+  return pick(Wide<128, 16>{});
 }
 
 template <typename TIn, typename TOut>
-int launch(const void* x, const void* y, void* z, int m, int k, int n,
-           const void* pred, int when, cudaStream_t stream) {
-  dim3 grid((m + TM - 1) / TM, (n + TN - 1) / TN);
-  gemm_kernel<TIn, TOut><<<grid, THREADS, 0, stream>>>(
-      (const TIn*)x, (const TIn*)y, (TOut*)z, m, k, n, (const int*)pred,
-      when);
-  return (int)cudaGetLastError();
+int gemm_for(const void* x, const void* y, void* z, int m, int k, int n,
+             const void* pred, int when, cudaStream_t st) {
+  return tile_for(n, [&](auto tile) {
+    return launch_gemm<decltype(tile), TIn, TOut>(x, y, z, m, k, n, pred,
+                                                  when, st);
+  });
 }
 
 }  // namespace
@@ -72,14 +160,25 @@ extern "C" int gemm_tiled(const void* x, const void* y, void* z, int m, int k,
                           int when, void* stream) {
   if (m == 0 || n == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  using bf16 = __nv_bfloat16;
   if (in_dtype == 0 && out_dtype == 0)
-    return launch<float, float>(x, y, z, m, k, n, pred, when, st);
+    return gemm_for<float, float>(x, y, z, m, k, n, pred, when, st);
   if (in_dtype == 0 && out_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, y, z, m, k, n, pred, when, st);
+    return gemm_for<float, bf16>(x, y, z, m, k, n, pred, when, st);
   if (in_dtype == 1 && out_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, y, z, m, k, n, pred, when, st);
+    return gemm_for<bf16, float>(x, y, z, m, k, n, pred, when, st);
   if (in_dtype == 1 && out_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, y, z, m, k, n, pred, when,
-                                                st);
+    return gemm_for<bf16, bf16>(x, y, z, m, k, n, pred, when, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// z[t] = x[t] @ y[t] for t < T.  x (T, m, k), y (T, k, n), z (T, m, n), all
+// f32 row-major contiguous.
+extern "C" int gemm_batch_f32(const void* x, const void* y, void* z, int T,
+                              int m, int k, int n, void* stream) {
+  if (T == 0 || m == 0 || n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return tile_for(n, [&](auto tile) {
+    return launch_batch<decltype(tile)>(x, y, z, T, m, k, n, st);
+  });
 }

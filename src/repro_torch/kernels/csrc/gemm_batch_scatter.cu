@@ -1,4 +1,4 @@
-// Batched tile GEMMs: scattered in place into a canvas, or stacked.
+// Batched tile GEMMs scattered in place into a canvas.
 //
 // gemm_batch_scatter replaces the Pallas kernel
 // `repro/kernels/gemm.py::gemm_batch_scatter` (grid (T, K/bk), f32 VMEM
@@ -7,21 +7,19 @@
 // [rows[t]*m, +m), cols [cols[t]*n, +n) -- with x[t] @ y[t] summed in f32;
 // every other canvas element is left as it is.
 //
-// gemm_batch replaces `repro/kernels/gemm.py::gemm_batch` (grid (T, K/bk),
-// output block (t, 0, 0)): z[t] = x[t] @ y[t], stacked (T, m, n).
-//
-// What bounds them on an H100: at the Dense Task Queue shapes of a GCN
+// What bounds it on an H100: at the Dense Task Queue shapes of a GCN
 // layer (x (8, 11264, 500), y (8, 500, 128)) the product does
 // ~2*m*n*k*T = 1.2e10 FLOP over ~180 MB of x, so it is compute bound on the
 // FP32 CUDA cores (67 TFLOP/s); with n = 8 (the logits layer) it is bound
 // by reading x.
 // Design: a plain shared-memory tiled SGEMM (gemm_tile.cuh), one 256-thread
 // block per (64 x 64) output tile per task, M/N/K tails masked in the
-// kernel.  The per-element summation order is that of gemm.cu, so a task's
-// tile equals the dense kernel's result on the same rows bit for bit.  FP32
-// FMA, no tensor cores (TF32 would change the numbers); no atomics -- every
-// output element has one writer, so the result is deterministic.  Faster
-// variants (wgmma on TF32/bf16 opt-in, TMA pipelines) are later work.
+// kernel.  The per-element summation order is that of gemm.cu's
+// register-blocked tiles (sgemm_sm90.cuh), so a task's tile equals the
+// dense kernel's result on the same rows bit for bit.  FP32 FMA, no tensor
+// cores (TF32 would change the numbers); no atomics -- every output element
+// has one writer, so the result is deterministic.  Moving it onto the
+// register-blocked tile of sgemm_sm90.cuh is the next step.
 // `pred` (not null) predicates the scatter on *pred == when: the compiled
 // activation route skips it when the batch overflowed its block budget.
 #include <cuda_runtime.h>
@@ -72,19 +70,6 @@ gemm_batch_scatter_kernel(const float* __restrict__ x,
              m, n, acc);
 }
 
-__global__ void __launch_bounds__(THREADS)
-gemm_batch_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  float* __restrict__ z, int m, int k, int n) {
-  __shared__ Smem s;
-  const int t = blockIdx.z;
-  const int row0 = blockIdx.x * TM;
-  const int col0 = blockIdx.y * TN;
-  float acc[4][4];
-  product(x + (int64_t)t * m * k, k, y + (int64_t)t * k * n, n, m, k, n,
-          row0, col0, s, acc);
-  store_tile(z + (int64_t)t * m * n, 0, 0, n, row0, col0, m, n, acc);
-}
-
 }  // namespace
 
 // z[rows[t]*m:+m, cols[t]*n:+n] = x[t] @ y[t] for t < T.  x (T, m, k),
@@ -101,16 +86,5 @@ extern "C" int gemm_batch_scatter_f32(const void* x, const void* y,
   gemm_batch_scatter_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)y, (const int*)rows, (const int*)cols,
       (float*)z, m, k, n, ldz, (const int*)pred, when);
-  return (int)cudaGetLastError();
-}
-
-// z[t] = x[t] @ y[t] for t < T.  x (T, m, k), y (T, k, n), z (T, m, n), all
-// f32 row-major contiguous.
-extern "C" int gemm_batch_f32(const void* x, const void* y, void* z, int T,
-                              int m, int k, int n, void* stream) {
-  if (T == 0 || m == 0 || n == 0) return 0;
-  dim3 grid((m + TM - 1) / TM, (n + TN - 1) / TN, T);
-  gemm_batch_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y, (float*)z, m, k, n);
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,16 @@
-// Tile product shared by the dense GEMM kernels (gemm.cu,
-// gemm_batch_scatter.cu): one 256-thread block computes a 64 x 64 output
-// tile of x @ y in f32.
+// Tile product of the batched scatter kernel (gemm_batch_scatter.cu) only:
+// one 256-thread block computes a 64 x 64 output tile of x @ y in f32.
+// `gemm` and `gemm_batch` run the register-blocked tiles of sgemm_sm90.cuh;
+// this loop serves gemm_batch_scatter until it moves onto them too.
 //
 // K is walked in chunks of 16 staged in shared memory (the x tile stored
 // transposed, padded against bank conflicts); each thread keeps a 4 x 4
 // register accumulator over rows ty+16i and cols tx+16j, so shared-memory
 // reads of y are consecutive across a warp and reads of x are broadcasts.
 // Every accumulator sums its products with fmaf in increasing k, starting
-// from 0 -- the same per-element order in every kernel that includes this
-// file and in the fused sparse kernels, which is what makes the port's
-// routes (per-task gemm, batched gemm_batch_scatter, compiled gemm) bitwise
-// equal on the card.  The M, N and K tails are masked to zero, and a zero
+// from 0 -- the same per-element order as sgemm_sm90.cuh and the fused
+// sparse kernels, which is what makes the port's routes (per-task gemm,
+// batched gemm_batch_scatter, compiled gemm) bitwise equal on the card.  The M, N and K tails are masked to zero, and a zero
 // product leaves the sum unchanged, so padding never changes a result.
 // FP32 FMA on the CUDA cores, no tensor cores (TF32 would change the
 // numbers), no atomics.

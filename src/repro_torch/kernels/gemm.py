@@ -1,9 +1,11 @@
 """Dense GEMM kernels: the tiled ``gemm``, the stacked ``gemm_batch`` and
 the Dense Task Queue's ``gemm_batch_scatter`` (in place on a canvas).
 
-Each launches its hand-written CUDA kernel (``csrc/gemm.cu``,
-``csrc/gemm_batch_scatter.cu``) for CUDA tensors and runs its ``_plain``
-version for CPU tensors.  The TPU scatter kernel aliases the canvas to its
+Each launches its hand-written CUDA kernel for CUDA tensors (``gemm`` and
+``gemm_batch``: ``csrc/gemm.cu``, on the register-blocked tiles of
+``csrc/sgemm_sm90.cuh``; ``gemm_batch_scatter``:
+``csrc/gemm_batch_scatter.cu``) and runs its ``_plain`` version for CPU
+tensors.  The TPU scatter kernel aliases the canvas to its
 output; here the kernel updates the canvas ``z`` IN PLACE and the wrapper
 returns that same tensor.
 
@@ -51,7 +53,8 @@ def gemm(x: torch.Tensor, y: torch.Tensor, *, out_dtype=torch.float32,
     """``x @ y`` for ``x`` ``(M, K)``, ``y`` ``(K, N)``, accumulated in
     float32 and cast to ``out_dtype`` (float32 or bfloat16).  Inputs are
     float32 or bfloat16, both of one type (the ``ops`` wrapper widens a
-    mixed pair).  Any shape: the kernel masks its own tails.
+    mixed pair).  Any shape: the kernel masks its own tails and picks its
+    tile from N.
 
     ``pred`` (CUDA only) is ``(flag, when)``: the kernel's thread blocks
     return at once unless the one-element int32 device ``flag`` equals

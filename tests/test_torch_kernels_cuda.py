@@ -1,8 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: ragged tiles, every block size the kernels are built for, canvas
-blocks no entry covers, ``first`` resets in the middle of a run, runs that
-add onto the canvas, and bitwise repeatability; the SpDMM run walk on runs
-of thousands of entries, all-zero columns and filler blocks at every width,
+the card: the dense GEMM kernels at every tile and load variant, bitwise
+equal across tiles, the stacked batch and the scatter kernel's older
+tile, and predicated; ragged tiles, every block size the kernels are
+built for, canvas blocks no entry covers, ``first`` resets in the middle
+of a run, runs that add onto the canvas, and bitwise repeatability; the
+SpDMM run walk on runs of thousands of entries, all-zero columns and
+filler blocks at every width,
 and bitwise equal to the dense ``gemm`` kernel; the SpMM triple walk on a
 run of thousands of triples, all-zero A columns and Y rows, sentinel
 blocks, runs that straddle the warps' shares, and bitwise equal to the
@@ -277,14 +280,25 @@ def test_literal_engine_on_card_matches_cpu(cuda, model):
 # ------------------------------------------------ kernels of the 2nd slice
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 500, 128), (64, 7, 3),
-                                   (130, 128, 70), (257, 33, 129)])
+                                   (130, 128, 70), (257, 33, 129),
+                                   (131, 128, 7), (300, 2708, 16),
+                                   (129, 500, 64), (200, 33, 7),
+                                   (70, 1, 128), (257, 7, 16),
+                                   (128, 2708, 1), (129, 500, 9)])
 @pytest.mark.parametrize("dtype,out", [(torch.float32, torch.float32),
                                        (torch.bfloat16, torch.float32),
                                        (torch.bfloat16, torch.bfloat16)])
 def test_gemm_kernel_matches_plain(cuda, m, k, n, dtype, out):
+    """Every tile (narrow n <= 8 and <= 16, 128 x 64, 128 x 128), with
+    vector loads (k % 4 == 0) and without, ragged M, N and K tails, f32 and
+    bf16 in and out.  Past k = 500 the values are dyadic (:func:`_values`):
+    the sums of normal values reach ~50 there, where two rounding orders
+    drift apart by about the f32 tolerance, and dyadic sums are exact in
+    both."""
     rng = np.random.default_rng(m * k + n)
-    x, y = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
-                            device=cuda).to(dtype) for s in ((m, k), (k, n)))
+    x, y = (torch.as_tensor(_values(rng, s, sc, k > 500),
+                            device=cuda).to(dtype)
+            for s, sc in (((m, k), 4), ((k, n), 8)))
     tops.reset_cuda_launch_counts()
     got = tgemm.gemm(x, y, out_dtype=out)
     assert tops.cuda_launch_counts() == {"gemm": 1}
@@ -298,32 +312,75 @@ def test_gemm_kernel_matches_plain(cuda, m, k, n, dtype, out):
 
 
 @pytest.mark.gpu
-def test_gemm_tile_equals_batched_scatter_bitwise(cuda):
-    """The dense kernel and the batched scatter kernel sum each element in
-    the same order: a task's tile is bitwise the dense product's rows."""
-    rng = np.random.default_rng(5)
-    x = torch.as_tensor(rng.normal(size=(96, 300)).astype(np.float32),
-                        device=cuda)
-    y = torch.as_tensor(rng.normal(size=(300, 40)).astype(np.float32),
-                        device=cuda)
+@pytest.mark.parametrize("m,k,n", [(96, 300, 40), (96, 500, 128),
+                                   (96, 500, 7), (96, 33, 16),
+                                   (96, 2708, 16), (96, 7, 129)])
+def test_gemm_tile_equals_batched_scatter_bitwise(cuda, m, k, n):
+    """Every GEMM kernel sums each element with fmaf in increasing k from
+    +0, whatever its tile: the dense kernel's product equals, bit for bit,
+    the batched scatter kernel's tiles (the older 64 x 64 tile loop), the
+    same columns of the dense kernel at the widths of its other tiles
+    (narrow, 128 x 64, 128 x 128), and each task of the stacked batch
+    kernel equals the dense kernel on that task's operands."""
+    rng = np.random.default_rng(m + k + n)
+    rand = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                      device=cuda)
+    x, y = rand(m, k), rand(k, n)
     full = tgemm.gemm(x, y)
-    z = torch.zeros((96, 40), device=cuda)
+    z = torch.zeros((m, n), device=cuda)
     rows = torch.arange(3, dtype=torch.int32, device=cuda)
     cols = torch.zeros(3, dtype=torch.int32, device=cuda)
-    tgemm.gemm_batch_scatter(x.reshape(3, 32, 300).contiguous(),
-                             y.expand(3, 300, 40).contiguous(), rows, cols, z)
+    tgemm.gemm_batch_scatter(x.reshape(3, m // 3, k).contiguous(),
+                             y.expand(3, k, n).contiguous(), rows, cols, z)
     assert torch.equal(full, z)
+    for width in (16, 40, 130):
+        if width > n:
+            wide = torch.cat([y, rand(k, width - n)], dim=1)
+            assert torch.equal(tgemm.gemm(x, wide)[:, :n], full)
+    x3, y3 = rand(3, m + 5, k), rand(3, k, n)
+    stacked = tgemm.gemm_batch(x3, y3)
+    for t in range(3):
+        assert torch.equal(stacked[t], tgemm.gemm(x3[t].contiguous(),
+                                                  y3[t].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 16, 64, 128])
+@pytest.mark.parametrize("flag", [0, 1])
+def test_predicated_gemm_writes_or_leaves_output(cuda, n, flag):
+    """A launch predicated on ``flag == 1`` writes the product when the
+    device flag is 1 and leaves every output element as it was when it is
+    0, in each tile (the C entry is called on a pre-filled output)."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(n + flag)
+    m, k = 130, 68
+    x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32),
+                        device=cuda)
+    y = torch.as_tensor(rng.normal(size=(k, n)).astype(np.float32),
+                        device=cuda)
+    z = torch.full((m, n), 1234.5, device=cuda)
+    f = torch.tensor([flag], dtype=torch.int32, device=cuda)
+    err = _build.library().gemm_tiled(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), m, k, n, 0, 0, f.data_ptr(),
+        1, torch.cuda.current_stream(cuda).cuda_stream)
+    _build.check(err, "gemm")
+    want = tgemm.gemm(x, y) if flag == 1 else torch.full_like(z, 1234.5)
+    assert torch.equal(z, want)
+    assert torch.equal(tgemm.gemm(x, y, pred=(f, flag)), tgemm.gemm(x, y))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,m,k,n", [(8, 100, 500, 128), (3, 5, 7, 9),
-                                     (1, 64, 64, 64)])
+                                     (1, 64, 64, 64), (2, 131, 128, 7),
+                                     (3, 129, 33, 16), (2, 70, 500, 1),
+                                     (2, 257, 2708, 64), (4, 130, 1, 129),
+                                     (2, 200, 7, 128)])
 def test_gemm_batch_kernel_matches_plain(cuda, T, m, k, n):
+    """Each tile and both load variants, as for ``gemm`` (dyadic values
+    past k = 500)."""
     rng = np.random.default_rng(T + m)
-    x = torch.as_tensor(rng.normal(size=(T, m, k)).astype(np.float32),
-                        device=cuda)
-    y = torch.as_tensor(rng.normal(size=(T, k, n)).astype(np.float32),
-                        device=cuda)
+    x = torch.as_tensor(_values(rng, (T, m, k), 4, k > 500), device=cuda)
+    y = torch.as_tensor(_values(rng, (T, k, n), 8, k > 500), device=cuda)
     tops.reset_cuda_launch_counts()
     got = tgemm.gemm_batch(x, y)
     assert tops.cuda_launch_counts() == {"gemm_batch": 1}
