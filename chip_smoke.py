@@ -33,9 +33,13 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    sparse kernels ``spdmm``, ``spdmm_fused`` and ``spmm_fused`` also in a
    CUDA graph, the fused SpDMM on compiled GIN-CO's ``l1-mlp1``
    block-skip launch (its long runs), beside ``torch.sparse.mm`` of that
-   activation, and ``gemm`` also on compiled GCN-FL's logits layer (n = 7,
-   the narrow tile), beside ``torch.matmul``; each dense GEMM call's
-   TFLOP/s and share of its bound are logged;
+   activation, ``gemm`` also on compiled GCN-FL's logits layer (n = 7,
+   the narrow tile), beside ``torch.matmul``, and ``gemm_batch_scatter``
+   also on compiled GIN-CO's largest block-skip launch, beside
+   ``torch.bmm``; each dense GEMM call's TFLOP/s and share of its bound
+   are logged, and the device copies and fills of the eager warm runs
+   and of the compiled replays and bodies are named by the line of the
+   port that makes them;
 8. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
@@ -68,7 +72,7 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "gemm_batch_scatter": dict(
-        module="gemm", source=CSRC + "gemm_batch_scatter.cu",
+        module="gemm", source=CSRC + "gemm.cu",
         replaces="src/repro/kernels/gemm.py:94"),
     "spdmm_fused": dict(
         module="spdmm", source=CSRC + "spdmm_fused.cu",
@@ -89,9 +93,10 @@ KERNELS = {
 # kernels whose canvas z is updated in place (recorded as it was before)
 IN_PLACE = ("gemm_batch_scatter", "spdmm_fused", "spmm_fused")
 # extra fields of a kernel's summary, all measured in this run: the sparse
-# kernels' times in a CUDA graph, spdmm_fused's long-run call and gemm's
-# narrow call
-EXTRA = ("graph_ms", "library_graph_ms", "compiled_l1_mlp1", "narrow_call")
+# kernels' times in a CUDA graph, spdmm_fused's long-run call, gemm's
+# narrow call and gemm_batch_scatter's largest compiled GIN-CO launch
+EXTRA = ("graph_ms", "library_graph_ms", "compiled_l1_mlp1", "narrow_call",
+         "compiled_gin_co")
 
 
 def log(*parts) -> None:
@@ -416,6 +421,123 @@ def device_rows(prof):
     return rows
 
 
+PORT_RANGE = "port "
+
+
+class PortRanges:
+    """While active, every call made from a frame of the port into torch (a
+    torch function written in Python, a builtin of ``torch`` or a tensor
+    method) runs inside a profiler range ``port <file>(<line>):
+    <function>`` named after the calling line, so the ops it launches, and
+    their device rows, nest under the line that made them; each call of a
+    port function runs inside a range ``port <file>(<line>): def
+    <function>`` (its ``def`` line), which catches what the first kind
+    cannot see (indexing and operators, which make no Python call)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.open = []
+
+    @staticmethod
+    def _port(frame):
+        name = frame.f_code.co_filename
+        return name.split("repro_torch/", 1)[1] if "repro_torch/" in name \
+            else None
+
+    def _is_torch(self, fn) -> bool:
+        return ((getattr(fn, "__module__", None) or "").startswith("torch")
+                or isinstance(getattr(fn, "__self__", None),
+                              self.torch.Tensor))
+
+    def _enter(self, key, label):
+        rng = self.torch.autograd.profiler.record_function(PORT_RANGE + label)
+        rng.__enter__()
+        self.open.append((key, rng))
+
+    def hook(self, frame, event, arg):
+        if event == "c_call":
+            where = self._port(frame)
+            if where and self._is_torch(arg):
+                self._enter((frame, arg), f"{where}({frame.f_lineno}): "
+                            f"{frame.f_code.co_name}")
+        elif event == "call":
+            code, caller = frame.f_code, frame.f_back
+            where = self._port(frame)
+            if where:
+                self._enter((frame, None), f"{where}({code.co_firstlineno}): "
+                            f"def {code.co_name}")
+            elif caller is not None and "/torch/" in code.co_filename:
+                at = self._port(caller)
+                if at:
+                    self._enter((frame, None), f"{at}({caller.f_lineno}): "
+                                f"{caller.f_code.co_name}")
+        elif self.open and self.open[-1][0] == (
+                frame, None if event == "return" else arg):
+            self.open.pop()[1].__exit__(None, None, None)
+
+    def __enter__(self):
+        sys.setprofile(self.hook)
+        return self
+
+    def __exit__(self, *exc):
+        sys.setprofile(None)
+        while self.open:
+            self.open.pop()[1].__exit__(None, None, None)
+
+
+def port_frame(event) -> str:
+    """The port's line that made a profiler event: the innermost enclosing
+    :class:`PortRanges` range."""
+    parent = event.cpu_parent
+    while parent is not None:
+        if parent.name.startswith(PORT_RANGE):
+            return parent.name[len(PORT_RANGE):]
+        parent = parent.cpu_parent
+    return "(no line of the port)"
+
+
+def device_kind(name: str) -> str:
+    """A short name of a device row that is not one of the port's
+    kernels: the copy or memset as the profiler names it, a fill, or the
+    start of the kernel's name."""
+    if name.startswith(("Memcpy", "Memset")):
+        return name.split(" (")[0]
+    if "FillFunctor" in name:
+        return "fill kernel"
+    return name[:60]
+
+
+def copy_sources(torch, label, fn):
+    """One run of ``fn`` under ``torch.profiler`` and :class:`PortRanges`:
+    the device time of every row that is not one of the port's kernels
+    (the copies, fills and torch ops around them), summed by kind and by
+    the line of the port (:func:`port_frame`) whose call launched it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with PortRanges(torch):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        for kern in e.kernels:
+            if "(anonymous namespace)::" in kern.name:
+                continue                       # the port's own kernels
+            key = (device_kind(kern.name), port_frame(e))
+            us, count = rows.get(key, (0.0, 0))
+            rows[key] = (us + kern.duration, count + 1)
+    if not rows:
+        log(f"  {label}: the profiler recorded no device rows to attribute")
+        return
+    total = sum(us for us, _ in rows.values()) / 1e3
+    log(f"  {label}: device rows other than the port's kernels, "
+        f"{total:.3f} ms, by the line of the port that launched them:")
+    for (kind, where), (us, count) in sorted(rows.items(),
+                                             key=lambda kv: -kv[1][0])[:12]:
+        log(f"    {us / 1e3:8.4f} ms  x{count:<3d} {kind:22s} {where}")
+
+
 def drive_compiled(torch, tgnn, ops, name, model, g, dev, mods, eager):
     """``compile_model`` on the eager path's engine (its caches are warm),
     the capture (first call), three warm replays, one profiled replay and
@@ -451,6 +573,10 @@ def drive_compiled(torch, tgnn, ops, name, model, g, dev, mods, eager):
     check_logits(torch, name, z1, eager["ref"], g)
     check_logits(torch, name + " warmup", warm, eager["ref"], g)
     profile_replay(torch, cm, h, per_call)
+    copy_sources(torch, f"{name} replay (the rows around the graph)",
+                 lambda: cm(h))
+    copy_sources(torch, f"{name} replay body, run uncaptured",
+                 lambda: cm.run(cm.payload, h))
     with Recorder(mods) as rec:
         cm.run(cm.payload, h)
     torch.cuda.synchronize()
@@ -645,6 +771,8 @@ def profile_warm(torch, tgnn, model, engine, adj, h, params, dev):
         f"share {1 - busy_ms / (1e3 * wall):.4f}")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    copy_sources(torch, "warm run", lambda: tgnn.run_inference(
+        model, engine, adj, h, params, device=dev))
 
 
 def check_kernel(torch, mods, name, calls, library):
@@ -770,17 +898,69 @@ def time_narrow_gemm(torch, mods, calls):
     k_fn = lambda: gemm.gemm(x, y, **kw)
     library = lambda: torch.matmul(x, y)
     ms, ms_graph = device_ms(torch, k_fn), graph_ms(torch, k_fn)
+    plain_ms = device_ms(torch, lambda: gemm.gemm_plain(x, y, **kw))
     library_ms, library_graph = device_ms(torch, library), graph_ms(torch,
                                                                     library)
     bound = bound_of("gemm", args, kw)
     log(f"  gemm, narrow call: {shape_of('gemm', args, kw)} n {y.shape[1]}; "
-        f"kernel {ms:.4f} ms ({ms_graph:.4f} in a CUDA graph); library "
-        f"{library_ms:.4f} ms ({library_graph:.4f}) (torch.matmul); "
+        f"kernel {ms:.4f} ms ({ms_graph:.4f} in a CUDA graph); plain "
+        f"{plain_ms:.4f} ms; library {library_ms:.4f} ms "
+        f"({library_graph:.4f}) (torch.matmul); "
         + bound["text"] + "; in a graph: "
         + rate_text(bound, ms_graph, library_graph))
     return {"call": shape_of("gemm", args, kw) + f" n {y.shape[1]}",
-            "ms": ms, "graph_ms": ms_graph, "library_ms": library_ms,
+            "ms": ms, "graph_ms": ms_graph, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "library_graph_ms": library_graph, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"]}
+
+
+def largest_block_skip_call(calls):
+    """The recorded ``gemm_batch_scatter`` call of the activation
+    block-skip route (the calls with a predicate) with the most FLOPs."""
+    skip = [c for c in calls if c[1].get("pred") is not None]
+    return max(skip, key=lambda c: work_of("gemm_batch_scatter", *c)[1])
+
+
+def time_scatter_call(torch, mods, calls):
+    """Compiled GIN-CO's largest block-skip launch of
+    ``gemm_batch_scatter`` (:func:`largest_block_skip_call`), unpredicated,
+    on its recorded operands: the kernel eagerly and in a CUDA graph,
+    beside ``torch.bmm`` of its stacked operands, held against the plain
+    version."""
+    gemm = mods["gemm"]
+    args, _kw = largest_block_skip_call(calls)
+    x, y, rows, cols, canvas = args
+    z = canvas.clone()
+    k_fn = lambda: gemm.gemm_batch_scatter(x, y, rows, cols, z)
+    library = lambda: torch.bmm(x, y)
+    ms, ms_graph = device_ms(torch, k_fn), graph_ms(torch, k_fn)
+    plain_ms = device_ms(torch, lambda: gemm.gemm_batch_scatter_plain(
+        x, y, rows, cols, z))
+    library_ms, library_graph = device_ms(torch, library), graph_ms(torch,
+                                                                    library)
+    got = gemm.gemm_batch_scatter(x, y, rows, cols, canvas.clone())
+    want = gemm.gemm_batch_scatter_plain(x, y, rows, cols, canvas.clone())
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    bound = bound_of("gemm_batch_scatter", args, {})
+    log(f"  gemm_batch_scatter, compiled GIN-CO's largest block-skip launch: "
+        f"{shape_of('gemm_batch_scatter', args, {})}; kernel {ms:.4f} ms "
+        f"({ms_graph:.4f} in a CUDA graph); plain {plain_ms:.4f} ms; "
+        f"library {library_ms:.4f} ms "
+        f"({library_graph:.4f}) (torch.bmm); max abs vs plain "
+        f"{err.max().item():.3e}; " + bound["text"] + "; in a graph: "
+        + rate_text(bound, ms_graph, library_graph))
+    if bool((err > KERNEL_TOL["atol"]
+             + KERNEL_TOL["rtol"] * want.abs()).any()):
+        raise AssertionError("compiled GIN-CO's scatter launch disagrees "
+                             "with its plain version")
+    return {"path": "GIN-CO compiled",
+            "call": shape_of("gemm_batch_scatter", args, {}), "ms": ms,
+            "graph_ms": ms_graph, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_graph_ms": library_graph,
+            "max_abs_err": err.max().item(), "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"]}
 
 
@@ -885,6 +1065,10 @@ def summarize(torch, mods, paths):
             entry["narrow_call"] = time_narrow_gemm(
                 torch, mods, [c for p_label, _, c in calls
                               if p_label == label])
+        if name == "gemm_batch_scatter":
+            entry["compiled_gin_co"] = time_scatter_call(
+                torch, mods, next(rec["calls"][name] for p_label, _, rec
+                                  in paths if p_label == "GIN-CO compiled"))
         if name == "spdmm_fused":
             entry["compiled_l1_mlp1"] = time_skip_call(
                 torch, mods, next(rec["calls"][name] for p_label, _, rec

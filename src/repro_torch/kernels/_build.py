@@ -43,8 +43,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "gemm_tiled": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     "gemm_batch_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "gemm_batch_scatter_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _P, _I, _P],
+    "gemm_batch_scatter_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                               _I, _P],
     "spdmm_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     "spdmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                         _P, _I, _P],

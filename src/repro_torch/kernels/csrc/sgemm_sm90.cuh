@@ -1,10 +1,13 @@
-// Register-blocked FP32 tile product of the dense GEMM kernels `gemm` and
-// `gemm_batch` (gemm.cu): one output tile of x @ y, x (m, k) and y (k, n)
-// row-major contiguous, float32 or bfloat16 inputs widened to float32 in
-// registers (exact), a float32 accumulator.
+// Register-blocked FP32 tile product of the dense GEMM kernels `gemm`,
+// `gemm_batch` and `gemm_batch_scatter` (gemm.cu): one output tile of
+// x @ y, x (m, k) and y (k, n) row-major contiguous, float32 or bfloat16
+// inputs widened to float32 in registers (exact), a float32 accumulator,
+// stored from an output origin with a row stride (a dense output, or a
+// tile of the scatter's canvas: DenseOut below, CanvasOut in gemm.cu).
 //
 // Replaces, with gemm.cu, the Pallas kernels `src/repro/kernels/gemm.py:40`
-// (`gemm`) and `src/repro/kernels/gemm.py:165` (`gemm_batch`).
+// (`gemm`), `src/repro/kernels/gemm.py:94` (`gemm_batch_scatter`) and
+// `src/repro/kernels/gemm.py:165` (`gemm_batch`).
 //
 // What bounds the shapes on the path (H100 SXM: 67 TFLOP/s FP32 outside
 // the tensor cores, 3.35 TB/s HBM3):
@@ -24,7 +27,7 @@
 //   Wide<64>       128 x 64 tile, chunks of 8, 256 threads of 8 x 4
 //                  outputs (16 < n <= 64), three thread blocks an SM;
 //   Narrow<NP>     NP = 8 or 16 columns (every column of n <= 16 in one
-//                  tile), chunks of 32, 128 threads of 4 columns each:
+//                  tile), chunks of 64, 128 threads of 4 columns each:
 //                  64 or 32 rows a tile.
 // A wide thread's rows and columns are two groups of four consecutive ones
 // (ty*4 and 64 + ty*4; tx*4 and 64 + tx*4), so each fragment is two
@@ -35,13 +38,17 @@
 // 32 distinct banks at chunks of 8 and two ways at 16); y is stored
 // row-major.  A step of k runs its 64 fmafs column by column.  The narrow
 // tile keeps x row-major (a thread reads its row 16 bytes at a time; rows
-// padded to 36 words, so eight consecutive rows fill the 32 banks) and
+// padded to 68 words, so eight consecutive rows fill the 32 banks) and
 // reads its four columns of a y row as one 16-byte load.
 //
 // Chunks of 16, the column-by-column fmaf order and four columns a narrow
 // thread were each kept because they ran faster on the card
 // (scripts/gemm_tile_ablation.py, PERF.md section 6): the schedule ptxas
-// makes of the wide loop moves its time by up to 15 %.
+// makes of the wide loop moves its time by up to 15 %.  The narrow tiles'
+// chunks of 64 halve the round trips to memory of a long K: a narrow call
+// with few rows (compiled GIN-CO's scatter, 12 blocks walking K = 2708)
+// is a chain of such round trips with one warp on each SM scheduler, and
+// ran 13-14 % faster than with chunks of 32, GCN-FL's logits call 10 %.
 //
 // Pipeline: two shared-memory stages.  While the threads multiply chunk c
 // out of one stage, their global loads of chunk c + 1 (16 bytes of f32, 8
@@ -61,13 +68,12 @@
 // Order invariant.  Every output element is
 //   acc = +0.0f; for kk in 0 .. k-1: acc = fmaf(x[r][kk], y[kk][c], acc)
 // in increasing kk, in every tile and both pipeline variants: the chunks
-// are walked in order and the fmafs of a chunk in increasing kk.  It is
-// the order of gemm_tile.cuh (gemm_batch_scatter) and, with zero terms
-// left out, of the sparse kernels, which is what keeps the port's routes
-// bitwise equal on the card.  A zero term (masked tail) leaves a sum that
-// started from +0 unchanged.  So: no split-K, no partial sums across
-// threads, no tensor cores (TF32 rounds the operands), no atomics; FP32
-// FMA on the CUDA cores.
+// are walked in order and the fmafs of a chunk in increasing kk.  It is,
+// with zero terms left out, the order of the sparse kernels too, which is
+// what keeps the port's routes bitwise equal on the card.  A zero term
+// (masked tail) leaves a sum that started from +0 unchanged.  So: no
+// split-K, no partial sums across threads, no tensor cores (TF32 rounds
+// the operands), no atomics; FP32 FMA on the CUDA cores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -107,6 +113,17 @@ __device__ __forceinline__ float4 ld_shared4(const float* p) {
 __device__ __forceinline__ bool skipped(const int* pred, int when) {
   return pred != nullptr && *pred != when;
 }
+
+// Where a tile is stored: out.origin() is element (0, 0) of the output,
+// whose rows are out.ld elements apart.  The tiles call origin() only
+// after the product, so an output whose origin is read from memory (the
+// scatter's canvas, gemm.cu) holds no pointer across the K loop.
+template <typename T>
+struct DenseOut {
+  T* z;
+  int64_t ld;
+  __device__ __forceinline__ T* origin() const { return z; }
+};
 
 // ---------------------------------------------------------------- wide
 template <int BN_, int BK_ = 8>
@@ -232,12 +249,11 @@ struct Wide {
     }
   }
 
-  // z[row0 :+BM, col0 :+BN] = x[row0 :+BM, :] @ y[:, col0 :+BN].
-  template <bool VEC, typename TIn, typename TOut>
+  // out[row0 :+BM, col0 :+BN] = x[row0 :+BM, :] @ y[:, col0 :+BN].
+  template <bool VEC, typename TIn, class Out>
   __device__ static __forceinline__ void tile(
-      const TIn* __restrict__ x, const TIn* __restrict__ y,
-      TOut* __restrict__ z, int m, int k, int n, int row0, int col0,
-      Smem& s) {
+      const TIn* __restrict__ x, const TIn* __restrict__ y, const Out& out,
+      int m, int k, int n, int row0, int col0, Smem& s) {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int ty = warp / 2 * 4 + lane / 8;  // 0..15: rows ty*4, 64+ty*4
     const int tx = warp % 2 * 8 + lane % 8;  // 0..15: cols tx*4 (+64)
@@ -258,6 +274,7 @@ struct Wide {
       if (more) stash<VEC>(s, (c + 1) & 1, xr, yr);
       __syncthreads();
     }
+    auto* z = out.origin();
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
@@ -265,7 +282,7 @@ struct Wide {
 #pragma unroll
       for (int j = 0; j < 4 * CB; ++j) {
         const int c = col0 + 64 * (j / 4) + tx * 4 + j % 4;
-        if (c < n) narrow(&z[(int64_t)r * n + c], acc[i][j]);
+        if (c < n) narrow(&z[r * out.ld + c], acc[i][j]);
       }
     }
   }
@@ -276,7 +293,7 @@ struct Wide {
 // row, each owning NP / CG consecutive columns, so a tile is 128 / CG rows.
 template <int NP, int CG = NP / 4>
 struct Narrow {
-  static constexpr int THREADS = 128, BM = THREADS / CG, BN = NP, BK = 32;
+  static constexpr int THREADS = 128, BM = THREADS / CG, BN = NP, BK = 64;
   static constexpr int MIN_BLOCKS = 4;
   static constexpr int CW = NP / CG;            // columns a thread
   static constexpr int XS = BM * BK / THREADS;  // x elements a thread
@@ -368,12 +385,11 @@ struct Narrow {
     }
   }
 
-  // z[row0 :+BM, :n] = x[row0 :+BM, :] @ y, for n <= NP (col0 is 0).
-  template <bool VEC, typename TIn, typename TOut>
+  // out[row0 :+BM, :n] = x[row0 :+BM, :] @ y, for n <= NP (col0 is 0).
+  template <bool VEC, typename TIn, class Out>
   __device__ static __forceinline__ void tile(
-      const TIn* __restrict__ x, const TIn* __restrict__ y,
-      TOut* __restrict__ z, int m, int k, int n, int row0, int col0,
-      Smem& s) {
+      const TIn* __restrict__ x, const TIn* __restrict__ y, const Out& out,
+      int m, int k, int n, int row0, int col0, Smem& s) {
     (void)col0;
     float acc[CW];
 #pragma unroll
@@ -392,9 +408,10 @@ struct Narrow {
     }
     const int r = row0 + threadIdx.x / CG, c0 = threadIdx.x % CG * CW;
     if (r >= m) return;
+    auto* z = out.origin();
 #pragma unroll
     for (int j = 0; j < CW; ++j)
-      if (c0 + j < n) narrow(&z[(int64_t)r * n + c0 + j], acc[j]);
+      if (c0 + j < n) narrow(&z[r * out.ld + c0 + j], acc[j]);
   }
 };
 

@@ -1,13 +1,12 @@
 """Dense GEMM kernels: the tiled ``gemm``, the stacked ``gemm_batch`` and
 the Dense Task Queue's ``gemm_batch_scatter`` (in place on a canvas).
 
-Each launches its hand-written CUDA kernel for CUDA tensors (``gemm`` and
-``gemm_batch``: ``csrc/gemm.cu``, on the register-blocked tiles of
-``csrc/sgemm_sm90.cuh``; ``gemm_batch_scatter``:
-``csrc/gemm_batch_scatter.cu``) and runs its ``_plain`` version for CPU
-tensors.  The TPU scatter kernel aliases the canvas to its
-output; here the kernel updates the canvas ``z`` IN PLACE and the wrapper
-returns that same tensor.
+Each launches its hand-written CUDA kernel of ``csrc/gemm.cu`` for CUDA
+tensors (all three on the register-blocked tiles of ``csrc/sgemm_sm90.cuh``
+through one body) and runs its ``_plain`` version for CPU tensors.  The
+TPU scatter kernel aliases the canvas to its output; here the kernel
+updates the canvas ``z`` IN PLACE and the wrapper returns that same
+tensor.
 
 Numerics.  The kernels sum every output element with ``fmaf`` over k in
 increasing order from 0; the plain versions (:func:`ordered_matmul`) sum in
@@ -161,7 +160,7 @@ def gemm_batch_scatter(x: torch.Tensor, y: torch.Tensor, rows: torch.Tensor,
     pred_ptr, when = _build.predicate(pred)
     err = _build.library().gemm_batch_scatter_f32(
         x.data_ptr(), y.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-        z.data_ptr(), t, m, k, n, z.shape[0], z.shape[1], pred_ptr, when,
+        z.data_ptr(), t, m, k, n, z.shape[1], pred_ptr, when,
         torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(err, "gemm_batch_scatter")
     _build.count_launch("gemm_batch_scatter")

@@ -56,10 +56,6 @@ def reset_cuda_launch_counts() -> None:
     _build.LAUNCHES.clear()
 
 
-def _round_up(x: int, b: int) -> int:
-    return -(-x // b) * b
-
-
 def _i32(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         if a.device != device:
@@ -101,17 +97,14 @@ def gemm_batch(x, y, *, out_dtype=torch.float32):
 def gemm_batch_scatter(x, y, rows, cols, z, *, bk: int = 128, pred=None):
     """Batched tile GEMM scattered in place: ``z`` at tile coords
     ``(rows[t], cols[t])`` receives ``x[t] @ y[t]``; other tiles keep their
-    content.  K is zero-padded to a multiple of ``min(bk, round_up(k, 8))``
-    as the reference wrapper does (the kernel also masks its own K tail).
-    Returns ``z``, updated in place."""
-    t, m, k = x.shape
-    t2, k2, n = y.shape
-    assert t == t2 and k == k2, (x.shape, y.shape)
-    bk_ = min(bk, _round_up(k, 8))
-    kp = _round_up(k, bk_)
-    if kp != k:
-        x = F.pad(x, (0, kp - k))
-        y = F.pad(y, (0, 0, 0, kp - k))
+    content.  Returns ``z``, updated in place.
+
+    The reference wrapper zero-pads K to a multiple of
+    ``min(bk, round_up(k, 8))``; here x and y reach the kernel at the
+    caller's k, with no padded copy.  The kernel masks its own K tail, and
+    a zero term adds +0 to a sum that starts at +0, so the result is
+    bit-identical to the padded call.  ``bk`` is kept for the reference's
+    signature and changes nothing."""
     _count_call()
     return _gemm.gemm_batch_scatter(_f32(x), _f32(y), _i32(rows, z.device),
                                     _i32(cols, z.device), z, pred=pred)

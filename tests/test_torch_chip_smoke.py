@@ -1,10 +1,13 @@
 """``chip_smoke.py``'s work counts of the dense GEMM calls it times, on
 ``meta`` tensors (shapes only, no data and no card): the bytes each call
 must move (inputs read once, output written once), its FLOPs, and whether
-the card's FP32 rate or its memory rate bounds it."""
+the card's FP32 rate or its memory rate bounds it; the choice of the
+scatter launch it times on compiled GIN-CO; and, on the CPU, the naming
+of a profiled op by the line of the port that made it."""
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,8 +29,10 @@ def _meta(*shape):
 
 # (kernel, x shape, y shape, bytes, FLOPs, bound_by, bound ms at the H100
 # peaks): compiled GCN-FL's layer-1 update and logits layer (89,250
-# vertices, 500 features, hidden 128, 7 classes) and the dense queue's
-# stacked batch (8 x 11264 x 500)
+# vertices, 500 features, hidden 128, 7 classes), the dense queue's
+# stacked batch (8 x 11264 x 500) through gemm_batch and through the
+# scatter at the caller's k (the tile coordinates add 8 B a task), and
+# compiled GIN-CO's largest scatter launch (one 384-row tile, K 2708)
 CASES = [
     ("gemm", (89250, 500), (500, 128),
      4 * (89250 * 500 + 500 * 128 + 89250 * 128), 2.0 * 89250 * 500 * 128,
@@ -38,14 +43,30 @@ CASES = [
     ("gemm_batch", (8, 11264, 500), (8, 500, 128),
      4 * (8 * 11264 * 500 + 8 * 500 * 128 + 8 * 11264 * 128),
      2.0 * 8 * 11264 * 500 * 128, "operations", 0.172154),
+    ("gemm_batch_scatter", (8, 11264, 500), (8, 500, 128),
+     4 * (8 * 11264 * 500 + 8 * 500 * 128 + 8 * 11264 * 128) + 8 * 8,
+     2.0 * 8 * 11264 * 500 * 128, "operations", 0.172154),
+    ("gemm_batch_scatter", (1, 384, 2708), (1, 2708, 16),
+     4 * (384 * 2708 + 2708 * 16 + 384 * 16) + 8, 2.0 * 384 * 2708 * 16,
+     "bytes", 0.001301),
 ]
+
+
+def _scatter_args(xs, ys, canvas_rows):
+    t = xs[0]
+    rows = torch.empty((t,), dtype=torch.int32, device="meta")
+    return (_meta(*xs), _meta(*ys), rows, rows,
+            _meta(canvas_rows, ys[2]))
 
 
 @pytest.mark.parametrize("name,xs,ys,nbytes,flops,by,ms", CASES,
                          ids=["gemm-l1-update", "gemm-logits",
-                              "gemm_batch-dense-queue"])
+                              "gemm_batch-dense-queue",
+                              "gemm_batch_scatter-dense-queue",
+                              "gemm_batch_scatter-gin-co-l1-mlp1"])
 def test_gemm_work_and_bound(smoke, name, xs, ys, nbytes, flops, by, ms):
-    args = (_meta(*xs), _meta(*ys))
+    args = ((_meta(*xs), _meta(*ys)) if name != "gemm_batch_scatter"
+            else _scatter_args(xs, ys, xs[0] * xs[1]))
     kw = {"out_dtype": torch.float32} if name == "gemm" else {}
     assert smoke.work_of(name, args, kw) == (nbytes, flops)
     bound = smoke.bound_of(name, args, kw)
@@ -62,3 +83,45 @@ def test_bf16_output_halves_the_output_bytes(smoke):
     f32, _ = smoke.work_of("gemm", (x, y), {"out_dtype": torch.float32})
     bf16, _ = smoke.work_of("gemm", (x, y), {"out_dtype": torch.bfloat16})
     assert f32 - bf16 == 2 * 89250 * 7
+
+
+def test_scatter_timed_call_is_the_largest_block_skip_launch(smoke):
+    """Compiled GIN-CO's timed scatter call is the predicated launch (the
+    block-skip route's dense queue) with the most FLOPs, not a larger
+    unpredicated one."""
+    flag = torch.empty((1,), dtype=torch.int32, device="meta")
+    call = lambda xs, ys, pred: (_scatter_args(xs, ys, 3072),
+                                 {} if pred is None else {"pred": pred})
+    calls = [call((1, 384, 9000), (1, 9000, 16), None),
+             call((7, 384, 16), (7, 16, 16), (flag, 0)),
+             call((1, 384, 2708), (1, 2708, 16), (flag, 0)),
+             call((7, 384, 16), (7, 16, 8), (flag, 0))]
+    assert smoke.largest_block_skip_call(calls) is calls[2]
+
+
+def test_port_ranges_name_the_line_that_made_an_op(smoke):
+    """Under :class:`PortRanges` the profiler's pad op of ``ops.spdmm``
+    (the zero-pad of Y's rows) is named by the line of ``ops.py`` that
+    calls ``F.pad``, and an op made outside the port by no line."""
+    import inspect
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.formats import pack_blockcsr
+
+    rng = np.random.default_rng(0)
+    dense = rng.normal(size=(16, 12)) * (rng.uniform(size=(16, 12)) < 0.4)
+    a = pack_blockcsr(torch.as_tensor(dense, dtype=torch.float32), 8)
+    y = torch.as_tensor(rng.normal(size=(12, 5)).astype(np.float32))
+    lines, first = inspect.getsourcelines(ops.spdmm)
+    pad_line = first + next(i for i, text in enumerate(lines)
+                            if "F.pad(" in text)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with smoke.PortRanges(torch):
+            ops.spdmm(a, y)
+            torch.nn.functional.pad(y, (0, 1))
+    pads = [smoke.port_frame(e) for e in prof.events()
+            if e.name == "aten::constant_pad_nd"]
+    assert pads == [f"kernels/ops.py({pad_line}): spdmm",
+                    "(no line of the port)"]

@@ -12,6 +12,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.formats import pack_blockcsr as jpack
+from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.formats import pack_blockcsr as tpack
@@ -20,7 +21,7 @@ from test_torch_kernels_cuda import (ATOL, RTOL, _gemm_case, _spdmm_case,
                                      _walk_case)
 
 
-@pytest.mark.parametrize("k", [20, 32, 300])
+@pytest.mark.parametrize("k", [7, 20, 32, 300, 500])
 def test_gemm_batch_scatter_plain_matches_pallas(k):
     rng = np.random.default_rng(k)
     x, y, rows, cols, z = _gemm_case(rng, k=k)
@@ -35,6 +36,31 @@ def test_gemm_batch_scatter_plain_matches_pallas(k):
     for r, c in zip(rows, cols):
         covered[r * 16:(r + 1) * 16, c * 8:(c + 1) * 8] = True
     np.testing.assert_array_equal(got.numpy()[~covered], z[~covered])
+
+
+@pytest.mark.parametrize("k", [7, 20, 500])
+def test_ops_gemm_batch_scatter_hands_the_callers_k(monkeypatch, k):
+    """``ops.gemm_batch_scatter`` passes x and y to the kernel module at the
+    caller's k, with no padded copy, and its canvas equals bit for bit the
+    call on operands zero-padded to the reference wrapper's K multiple."""
+    rng = np.random.default_rng(100 + k)
+    x, y, rows, cols, z = _gemm_case(rng, k=k)
+    seen = []
+    kernel = tgemm.gemm_batch_scatter
+
+    def record(xs, ys, *args, **kw):
+        seen.append((tuple(xs.shape), tuple(ys.shape)))
+        return kernel(xs, ys, *args, **kw)
+
+    monkeypatch.setattr(tgemm, "gemm_batch_scatter", record)
+    got = tops.gemm_batch_scatter(*_t(x, y), rows, cols, torch.as_tensor(z))
+    assert seen == [(x.shape, y.shape)]
+    bk = min(128, -(-k // 8) * 8)
+    kp = -(-k // bk) * bk
+    padded = kernel(torch.as_tensor(np.pad(x, ((0, 0), (0, 0), (0, kp - k)))),
+                    torch.as_tensor(np.pad(y, ((0, 0), (0, kp - k), (0, 0)))),
+                    *_t(rows, cols), torch.as_tensor(z))
+    assert torch.equal(got, padded)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

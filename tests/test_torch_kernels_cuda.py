@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: the dense GEMM kernels at every tile and load variant, bitwise
-equal across tiles, the stacked batch and the scatter kernel's older
-tile, and predicated; ragged tiles, every block size the kernels are
+equal across tiles, the stacked batch and the scatter kernel, and
+predicated; ragged tiles, every block size the kernels are
 built for, canvas blocks no entry covers, ``first`` resets in the middle
 of a run, runs that add onto the canvas, and bitwise repeatability; the
 SpDMM run walk on runs of thousands of entries, all-zero columns and
@@ -318,7 +318,7 @@ def test_gemm_kernel_matches_plain(cuda, m, k, n, dtype, out):
 def test_gemm_tile_equals_batched_scatter_bitwise(cuda, m, k, n):
     """Every GEMM kernel sums each element with fmaf in increasing k from
     +0, whatever its tile: the dense kernel's product equals, bit for bit,
-    the batched scatter kernel's tiles (the older 64 x 64 tile loop), the
+    the batched scatter kernel's tiles (stored into a canvas), the
     same columns of the dense kernel at the widths of its other tiles
     (narrow, 128 x 64, 128 x 128), and each task of the stacked batch
     kernel equals the dense kernel on that task's operands."""
@@ -367,6 +367,24 @@ def test_predicated_gemm_writes_or_leaves_output(cuda, n, flag):
     want = tgemm.gemm(x, y) if flag == 1 else torch.full_like(z, 1234.5)
     assert torch.equal(z, want)
     assert torch.equal(tgemm.gemm(x, y, pred=(f, flag)), tgemm.gemm(x, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 16, 64, 128])
+@pytest.mark.parametrize("flag", [0, 1])
+def test_predicated_scatter_writes_or_leaves_canvas(cuda, n, flag):
+    """The scatter predicated on ``flag == 1`` writes its tasks' tiles when
+    the device flag is 1 and leaves the whole canvas as it was when it is
+    0, in each tile."""
+    rng = np.random.default_rng(10 * n + flag)
+    x, y, rows, cols, z = _gemm_case(rng, T=5, m=40, k=68, n=n)
+    xs, ys, rs, cs = _t(x, y, rows, cols, device=cuda)
+    f = torch.tensor([flag], dtype=torch.int32, device=cuda)
+    canvas = lambda: torch.as_tensor(z, device=cuda)
+    got = tgemm.gemm_batch_scatter(xs, ys, rs, cs, canvas(), pred=(f, 1))
+    want = (tgemm.gemm_batch_scatter(xs, ys, rs, cs, canvas()) if flag == 1
+            else canvas())
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
