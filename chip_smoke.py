@@ -27,8 +27,31 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 5. drives GIN-CO through the per-task path (``batched=False``): the
    ``gemm``, ``spdmm`` and SpMM kernels, one launch per task;
 6. runs ``gemm_batch`` once at the shape of GCN-FL's dense queue;
-7. holds every kernel against its plain PyTorch version on the operands the
-   paths gave it (recorded in an extra, uncounted run of each path) and
+7. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
+   card's kernels, every sample and fit logged; ``get_calibrated`` twice on
+   a fresh ``SharedPlanCache`` (one build, one hit), saved, loaded into a
+   fresh cache and resolved again with no measurement; then GCN on FL
+   planned with the fitted model (``runtime_fallback("cuda")``), held
+   against the ``literal=False`` logits;
+8. serves GCN on FL at full size (16 requests, ``max_batch`` 4) and GIN on
+   CO (8 requests) through ``ServingEngine`` over a literal engine and a
+   ``SharedPlanCache`` on the card: every result against that request's
+   single-request literal ``run_inference``, at least one compiled batch
+   after the first (GCN-FL: three) and none degraded; latency, requests/s,
+   a profiled batch's device time and idle share, peak memory; GCN on FL
+   once more with a cache budget that holds FL (the first burst has the
+   default 256 MiB, which evicts FL's structures);
+9. chaos and restart on CO: a poison request (``FaultInjector(seed=0)`` at
+   ``request``, ``req:5;``) fails alone with every other result bitwise
+   equal to a fault-free run, and ``python -m
+   repro_torch.launch.gnn_serve --literal --cache-file`` run twice, the
+   second with no packing and no analysis;
+10. holds every kernel against its plain PyTorch version on the operands the
+   paths gave it (recorded in an extra, uncounted run of each path: a
+   second sweep, a second calibrated inference, a served batch of its
+   own with its compiled body run uncaptured; chaos records its
+   fault-free run outside the capture; the second GCN-FL burst records
+   nothing) and
    times kernel, plain version and one library call with CUDA events; the
    sparse kernels ``spdmm``, ``spdmm_fused`` and ``spmm_fused`` also in a
    CUDA graph, the fused SpDMM on compiled GIN-CO's ``l1-mlp1``
@@ -40,7 +63,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    are logged, and the device copies and fills of the eager warm runs
    and of the compiled replays and bodies are named by the line of the
    port that makes them;
-8. prints the kernel summary as one JSON line, the card's name and power
+11. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a card, or
@@ -48,11 +71,15 @@ outside a checkout, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -68,6 +95,10 @@ PEAK_HBM_BYTES = 3.35e12
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-4)
 # literal (fused kernels) vs literal=False logits: f32 end to end
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+# SharedPlanCache's default byte budget, and one that holds GCN-FL served
+# four wide (its packed stripes, dispatch pools and activation dispatch)
+SERVING_CACHE_BYTES = 256 * 2**20
+FL_CACHE_BYTES = 8 * 2**30
 
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
@@ -185,12 +216,18 @@ class Recorder:
         self._orig = {}
 
     def __enter__(self):
+        import torch
         for name, spec in KERNELS.items():
             mod = self.mods[spec["module"]]
             fn = getattr(mod, name)
             self._orig[name] = fn
 
             def rec(*args, _name=name, _fn=fn, **kw):
+                if (torch.cuda.is_available()
+                        and torch.cuda.is_current_stream_capturing()):
+                    # a captured call's operands are the graph's own
+                    # buffers, rewritten by every replay: not kept
+                    return _fn(*args, **kw)
                 if _name == "gemm_batch_scatter":
                     saved = (args[:4] + (args[4].clone(),), dict(kw))
                 elif _name in IN_PLACE:
@@ -1040,6 +1077,350 @@ def library_call(torch, name, g, args):
     return lambda: torch.sparse.mm(csr, y[: csr.shape[1]])
 
 
+def no_calls() -> dict:
+    """The ``calls`` of a path that records none (its kernels are checked
+    on the operands of the earlier paths)."""
+    return {name: [] for name in KERNELS}
+
+
+def require_launched(label: str, launches: dict, names) -> None:
+    for k in names:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"{label} launched no {k} kernel: "
+                                 f"{launches}")
+
+
+class LogLines(logging.Handler):
+    """For the length of a ``with`` block: prints every INFO record of one
+    logger and keeps its messages."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger = logging.getLogger(name)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+        log("    " + record.getMessage())
+
+    def __enter__(self):
+        self._level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self._level)
+
+
+def drive_calibration(torch, tgnn, ops, engine_cls, g, dev, eager, mods):
+    """The reference's sweep on the card's kernels, the calibration level
+    of a ``SharedPlanCache`` through save and load, and GCN on ``g``
+    planned with the fitted model.  Returns the records of the sweep and
+    of the calibrated inference, each with the calls of one more,
+    uncounted run (a second sweep, a second inference)."""
+    from repro_torch.core import calibrate
+    from repro_torch.core.perfmodel import runtime_fallback
+    from repro_torch.serving import SharedPlanCache
+
+    log("== calibration: the reference's sweep (block 8) on the card's "
+        "kernels")
+    base = runtime_fallback("cuda")
+    n0 = calibrate.measurement_count()
+    ops.reset_cuda_launch_counts()
+    with LogLines(calibrate.__name__) as lines:
+        model, wall = synced_wall(torch, lambda: calibrate.calibrate(
+            base, block=8, device=dev))
+    launches = ops.cuda_launch_counts()
+    clamped = sum("clamped" in line for line in lines.lines)
+    log(f"  sweep {wall:.3f} s, {model.n_samples} timed samples, launches "
+        f"{launches}; slope clamp fired in {clamped} of 4 fits")
+    log("  fitted model " + json.dumps(dataclasses.asdict(model)))
+    if not (model.calibrated and model.backend == calibrate.device_kind(dev)
+            and model.n_samples == calibrate.measurement_count() - n0 == 14):
+        raise AssertionError(f"calibration produced {model}")
+    require_launched("calibration", launches, ("gemm_batch_scatter",
+                                               "spdmm_fused", "spmm_fused",
+                                               "gemm"))
+    with Recorder(mods) as sweep:      # uncounted: the sweep's operands
+        calibrate.calibrate(base, block=8, device=dev)
+
+    cache = SharedPlanCache(device=dev)
+    first = calibrate.get_calibrated(cache, base, device=dev)
+    again = calibrate.get_calibrated(cache, base, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plans.pkl")
+        cache.save(path)
+        fresh = SharedPlanCache(device=dev)
+        manifest = fresh.load(path)
+    n1 = calibrate.measurement_count()
+    restored = calibrate.get_calibrated(fresh, base, device=dev)
+    log(f"  get_calibrated x2: builds {cache.stats.calib_builds}, hits "
+        f"{cache.stats.calib_hits}; after save and load ({manifest}): "
+        f"builds {fresh.stats.calib_builds}, hits {fresh.stats.calib_hits}, "
+        f"measurements {calibrate.measurement_count() - n1}")
+    if not ((cache.stats.calib_builds, cache.stats.calib_hits) == (1, 1)
+            and again is first and restored == first
+            and calibrate.measurement_count() == n1
+            and (fresh.stats.calib_builds, fresh.stats.calib_hits)
+            == (0, 1)):
+        raise AssertionError("the calibration did not replay from the "
+                             "cache without measuring")
+
+    log(f"== GCN on {g.stats.name} planned with {first.name}")
+    engine = engine_cls(base, literal=True, cache=fresh, device=dev)
+    h = g.features_dense
+    ops.reset_cuda_launch_counts()
+    (logits, report), wall = synced_wall(torch, lambda: tgnn.run_inference(
+        "GCN", engine, g.adj, h, eager["params"], device=dev))
+    fl_launches = ops.cuda_launch_counts()
+    if engine.runtime_hw() != first or fresh.stats.calib_builds:
+        raise AssertionError("the engine did not plan with the restored "
+                             "calibration")
+    log(f"  cold wall {wall:.4f} s, launches {fl_launches}")
+    check_logits(torch, "GCN-FL calibrated", logits, eager["ref"], g)
+    reps = [rep for _, rep in report.kernels]
+    require_launched("GCN-FL calibrated", fl_launches, [
+        k for k, n in (("spdmm_fused", sum(r.n_spdmm for r in reps)),
+                       ("spmm_fused", sum(r.n_spmm for r in reps)),
+                       ("gemm_batch_scatter", sum(r.n_dtq for r in reps)))
+        if n])
+    for (name, rep), (_, vck) in zip(report.kernels,
+                                     eager["engine"].report.kernels):
+        log(f"  kernel {name:10s} STQ {rep.n_stq:3d} (SpDMM {rep.n_spdmm}, "
+            f"SpMM {rep.n_spmm}) DTQ {rep.n_dtq:3d}; VCK5000: STQ "
+            f"{vck.n_stq:3d} DTQ {vck.n_dtq:3d}")
+    with Recorder(mods) as rec:        # uncounted: the planned operands
+        tgnn.run_inference("GCN", engine, g.adj, h, eager["params"],
+                           device=dev)
+    torch.cuda.synchronize()
+    return (dict(launches=launches, calls=sweep.calls),
+            dict(launches=fl_launches, calls=rec.calls))
+
+
+def profile_serving(torch, srv, reqs):
+    """One more served batch under ``torch.profiler``: its device time,
+    wall and the device's idle share, the device rows by kind, and,
+    unprofiled, the host wall of uploading its requests' features alone
+    (what the dispatch worker does before stacking)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import as_tensor
+
+    dev = srv.engine.device
+    _, upload = synced_wall(torch, lambda: [as_tensor(h, dev)
+                                            for _, h in reqs])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_wall(torch, lambda: srv.serve(reqs))
+    rows = device_rows(prof)
+    log(f"  upload of the {len(reqs)} requests' features alone: "
+        f"{1e3 * upload:.3f} ms wall")
+    if not rows:
+        log("  profiler recorded no device time in the served batch: idle "
+            "share not measured")
+        return
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(f"  profiled batch of {len(reqs)} (a replay): device busy "
+        f"{busy_ms:.3f} ms of {1e3 * wall:.3f} ms wall: idle share "
+        f"{1 - busy_ms / (1e3 * wall):.4f}")
+    kinds = {}
+    for dev_us, count, key in rows:
+        kind = ("the port's kernels" if "(anonymous namespace)::" in key
+                else device_kind(key))
+        us, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (us + dev_us, n + count)
+    log("  device ms by kind: " + ", ".join(
+        f"{kind} {us / 1e3:.3f} (x{n})" for kind, (us, n)
+        in sorted(kinds.items(), key=lambda kv: -kv[1][0])[:8]))
+    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
+        log(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+
+
+def drive_serving(torch, tgnn, ops, engine_cls, label, model, g, dev, eager,
+                  n_requests, max_batch, min_compiled, mods=None,
+                  max_bytes=SERVING_CACHE_BYTES):
+    """``n_requests`` requests built as ``gnn_serve`` builds them, served by
+    a ``ServingEngine`` over a literal engine and a ``SharedPlanCache`` of
+    ``max_bytes`` on the card; each result held against the request's
+    single-request literal ``run_inference``.  With ``mods``, one more,
+    uncounted burst of ``max_batch`` requests on a second ``ServingEngine``
+    over the same cache records the kernel calls of its eager first batch,
+    and of its compiled program's body run uncaptured at the stacked
+    shape."""
+    from repro_torch.device import as_tensor, host
+    from repro_torch.launch.gnn_serve import synthetic_requests
+    from repro_torch.serving import (ServingConfig, ServingEngine,
+                                     SharedPlanCache)
+
+    log(f"== {label}: ServingEngine {model} on {g.stats.name}, "
+        f"{n_requests} requests, max_batch {max_batch}, cache budget "
+        f"{max_bytes / 2**20:.0f} MiB")
+    t0 = time.perf_counter()
+    reqs = synthetic_requests(g.stats.name, host(g.features_dense),
+                              n_requests)
+    log(f"  requests built in {time.perf_counter() - t0:.2f} s")
+    cache = SharedPlanCache(device=dev, max_bytes=max_bytes)
+
+    def server(**config):
+        srv = ServingEngine(model, eager["params"],
+                            engine=engine_cls(literal=True, cache=cache,
+                                              device=dev),
+                            config=ServingConfig(max_batch=max_batch,
+                                                 **config))
+        srv.register_graph(g.stats.name, g.adj)
+        return srv
+
+    srv = server()
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        ops.reset_cuda_launch_counts()
+        outs, wall = synced_wall(torch, lambda: srv.serve(reqs))
+        launches = ops.cuda_launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        st = srv.stats
+        lat = np.array([r.latency for r in st.requests])
+        ds = srv.dispatch_stats()
+        log(f"  wall {wall:.4f} s, {n_requests / wall:.2f} requests/s, "
+            f"latency p50 {1e3 * np.percentile(lat, 50):.3f} ms, p99 "
+            f"{1e3 * np.percentile(lat, 99):.3f} ms, mean batch "
+            f"{st.mean_batch_size:.2f}; peak memory {peak / 2**30:.3f} GiB "
+            f"({held / 2**30:.3f} GiB held before the burst)")
+        log(f"  stats {json.dumps(st.as_dict())}")
+        log(f"  dispatch {json.dumps({k: v for k, v in ds.items() if k != 'health'})}; "
+            f"cache {cache.stats.as_dict()}, {cache.bytes_used} B; "
+            f"launches {launches}; per-step "
+            + ", ".join(f"{1e3 * r.t_execute:.3f}" for r in st.requests[
+                ::max_batch]) + " ms")
+        if (st.errors or st.degraded_batches
+                or st.compiled_batches < min_compiled):
+            raise AssertionError(f"{label}: {st.as_dict()}")
+        profile_serving(torch, srv, reqs[:max_batch])
+    finally:
+        srv.close()
+    worst = 0.0
+    for (_, h), z in zip(reqs, outs):
+        want, _ = tgnn.run_inference(model, eager["engine"], g.adj, h,
+                                     eager["params"], device=dev)
+        err = (z - want).abs()
+        if bool((err > LOGIT_TOL["atol"]
+                 + LOGIT_TOL["rtol"] * want.abs()).any()):
+            raise AssertionError(f"{label}: a served result disagrees with "
+                                 "its single-request run")
+        worst = max(worst, err.max().item())
+    log(f"  every result vs its single-request literal run: max abs "
+        f"{worst:.3e}, tolerance {LOGIT_TOL}")
+    del srv, outs
+    torch.cuda.empty_cache()
+    calls = no_calls()
+    if mods is not None:
+        rec_srv = server()
+        try:
+            with Recorder(mods) as rec:
+                rec_srv.serve(reqs[:max_batch])
+                cm = next(iter(rec_srv._compiled.values()))
+                cm.run(cm.payload, torch.cat(
+                    [as_tensor(h, dev) for _, h in reqs[:max_batch]], dim=1))
+            torch.cuda.synchronize()
+        finally:
+            rec_srv.close()
+        calls = rec.calls
+        log("  recorded (uncounted burst of one batch): " + ", ".join(
+            f"{k} {len(v)}" for k, v in calls.items() if v))
+    return dict(launches=launches, calls=calls)
+
+
+def drive_chaos(torch, ops, engine_cls, g, dev, eager, mods):
+    """GIN on ``g``: request 5 poisoned at the ``request`` site fails alone;
+    every other result is bitwise equal to a fault-free run's.  The
+    fault-free run records its kernel calls outside the capture (its eager
+    batch and the capture's uncaptured warm-up run)."""
+    from repro_torch.device import host
+    from repro_torch.launch.gnn_serve import synthetic_requests
+    from repro_torch.serving import (FaultInjector, InjectedFault,
+                                     ServingConfig, ServingEngine,
+                                     SharedPlanCache)
+
+    log(f"== chaos: GIN on {g.stats.name}, request 5 poisoned")
+    reqs = synthetic_requests(g.stats.name, host(g.features_dense), 8,
+                              seed=1)
+
+    def run(faults):
+        srv = ServingEngine(
+            "GIN", eager["params"],
+            engine=engine_cls(literal=True,
+                              cache=SharedPlanCache(device=dev), device=dev),
+            config=ServingConfig(max_batch=4, activation_skip=False,
+                                 request_timeout=300.0, faults=faults))
+        srv.register_graph(g.stats.name, g.adj)
+        try:
+            return srv.serve(reqs, return_exceptions=True), srv.stats
+        finally:
+            srv.close()
+
+    ops.reset_cuda_launch_counts()
+    with Recorder(mods) as rec:
+        ref, _ = run(None)
+    out, st = run(FaultInjector(seed=0).arm("request", match="req:5;"))
+    launches = ops.cuda_launch_counts()
+    equal = [i for i, z in enumerate(out) if i != 5
+             and not isinstance(z, Exception) and torch.equal(z, ref[i])]
+    log(f"  request 5: {type(out[5]).__name__}; bitwise equal to the "
+        f"fault-free run: {equal}; bisections {st.bisections}, retries "
+        f"{st.retries}, quarantined {st.quarantined}; launches {launches}")
+    if not (isinstance(out[5], InjectedFault) and len(equal) == 7
+            and st.quarantined == 1 and st.errors == 1
+            and not any(isinstance(z, Exception) for z in ref)):
+        raise AssertionError("the poison request was not isolated")
+    return dict(launches=launches, calls=rec.calls)
+
+
+def drive_restart(tmp_dir: str, *extra: str) -> list[dict]:
+    """``python -m repro_torch.launch.gnn_serve --literal --cache-file`` on
+    CO at full size (``extra`` flags appended, the last of a flag wins),
+    twice: the second run restores the plan cache and neither packs nor
+    analyzes.  Returns the stats line of each run."""
+    log("== restart: gnn_serve on CO twice with one --cache-file")
+    path = os.path.join(tmp_dir, "gnn_serve_plans.pkl")
+    cmd = [sys.executable, "-m", "repro_torch.launch.gnn_serve",
+           "--dataset", "CO", "--scale", "1", "--literal", "--requests",
+           "16", "--max-batch", "4", "--cache-file", path, *extra]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600, cwd=ROOT)
+        if out.returncode != 0:
+            raise AssertionError(f"gnn_serve run {i + 1} exited "
+                                 f"{out.returncode}:\n{out.stderr[-4000:]}")
+        line = next(l for l in out.stdout.splitlines()
+                    if l.startswith("[gnn_serve] {"))
+        stats = json.loads(line[len("[gnn_serve] "):])
+        runs.append(stats)
+        log(f"  run {i + 1}: {time.perf_counter() - t0:.2f} s; packs "
+            f"{stats['cache']['packs']}, analyzes "
+            f"{stats['cache']['analyzes']}, errors {stats['errors']}, "
+            f"compiled batches {stats['compiled_batches']}, latency "
+            f"{stats['latency']}, kernel launches per request "
+            f"{stats['kernel_launches_per_request']}")
+        log(f"    host wall by phase (s): {json.dumps(stats['phases'])}")
+        for l in out.stdout.splitlines():
+            if "cache:" in l:
+                log("    " + l)
+    first, second = runs
+    if (first["errors"] or second["errors"]
+            or second["cache"]["packs"] or second["cache"]["analyzes"]
+            or not first["cache"]["packs"]):
+        raise AssertionError("the restarted gnn_serve re-planned or "
+                             "failed")
+    return runs
+
+
 def summarize(torch, mods, paths):
     """One summary entry per kernel: its worst error against the plain
     version over every recorded call, and the times of its first recorded
@@ -1089,6 +1470,7 @@ def main() -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    os.environ.pop("REPRO_CALIBRATION_PATH", None)   # measure, never replay
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1148,12 +1530,46 @@ def main() -> int:
                             co_eager)
     batch = drive_gemm_batch(torch, ops, dev, mods)
 
+    calib, fl_calib = drive_calibration(torch, gnn, ops, DynasparseEngine,
+                                        fl, dev, fl_eager, mods)
+    fl_serve = drive_serving(torch, gnn, ops, DynasparseEngine,
+                             "GCN-FL serving", "GCN", fl, dev, fl_eager,
+                             n_requests=16, max_batch=4, min_compiled=3,
+                             mods=mods)
+    require_launched("GCN-FL serving", fl_serve["launches"],
+                     ("gemm_batch_scatter", "spdmm_fused", "gemm"))
+    fl_held = drive_serving(torch, gnn, ops, DynasparseEngine,
+                            "GCN-FL serving, cache holding FL", "GCN", fl,
+                            dev, fl_eager, n_requests=16, max_batch=4,
+                            min_compiled=3, max_bytes=FL_CACHE_BYTES)
+    require_launched("GCN-FL serving, cache holding FL",
+                     fl_held["launches"],
+                     ("gemm_batch_scatter", "spdmm_fused", "gemm"))
+    co_serve = drive_serving(torch, gnn, ops, DynasparseEngine,
+                             "GIN-CO serving", "GIN", co, dev, co_eager,
+                             n_requests=8, max_batch=4, min_compiled=1,
+                             mods=mods)
+    require_launched("GIN-CO serving", co_serve["launches"],
+                     ("spmm_fused", "spdmm_fused", "gemm_batch_scatter"))
+    chaos = drive_chaos(torch, ops, DynasparseEngine, co, dev, co_eager,
+                        mods)
+    with tempfile.TemporaryDirectory() as tmp:
+        restart = drive_restart(tmp)
+    if not all(r["kernel_launches_per_request"] > 0 for r in restart):
+        raise AssertionError("gnn_serve --literal launched no kernel")
+
     summary = summarize(torch, mods,
                         [("GCN-FL", fl, fl_eager), ("GIN-CO", co, co_eager),
                          ("GCN-FL compiled", fl, fl_comp),
                          ("GIN-CO compiled", co, co_comp),
                          ("GIN-CO per-task", co, co_task),
-                         ("gemm_batch", None, batch)])
+                         ("gemm_batch", None, batch),
+                         ("calibration", None, calib),
+                         ("GCN-FL calibrated", fl, fl_calib),
+                         ("GCN-FL serving", fl, fl_serve),
+                         ("GCN-FL serving, cache holding FL", fl, fl_held),
+                         ("GIN-CO serving", co, co_serve),
+                         ("GIN-CO chaos", co, chaos)])
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -225,11 +225,15 @@ def _spmm_dense_y_triples(tasks, part, stripes, offsets, R: int, C: int,
 
 def build_dispatch(part, stq, dtq, stripes: dict[int, BlockCSR],
                    *, block: int, eps: float = 0.0,
-                   fingerprint: str = "") -> CompiledDispatch | None:
+                   fingerprint: str = "",
+                   faults: object = None) -> CompiledDispatch | None:
     """Lower a planned kernel into a :class:`CompiledDispatch` on the
     stripes' device: O(nnz blocks) of vectorized numpy plus one upload, paid
     once per (structure, assignment, geometry).  ``None`` when the canvas
-    geometry cannot take the in-place layout."""
+    geometry cannot take the in-place layout.  ``faults`` is the optional
+    fault injector probed at the ``lower`` site."""
+    if faults is not None:
+        faults.probe("lower", detail=f"dispatch:{part.name}")
     slots = canvas_slots(part, block)
     if slots is None:
         return None
@@ -509,7 +513,8 @@ def activation_budgets(x, part, block: int, *, eps: float = 0.0,
 
 def build_activation_dispatch(part, stq, dtq, *, block: int, capacity,
                               eps: float = 0.0, fingerprint: str = "",
-                              device="cpu") -> ActivationDispatch | None:
+                              device="cpu", faults: object = None
+                              ) -> ActivationDispatch | None:
     """Lower an activation-side plan into capacity-slot descriptor arrays
     on ``device``.
 
@@ -520,7 +525,10 @@ def build_activation_dispatch(part, stq, dtq, *, block: int, capacity,
     output block is visited in ONE consecutive run for ANY stored pattern,
     and the real contributions arrive in the order the eager host pack
     emits, so sums are bit-identical.  ``None`` for canvas geometries the
-    in-place layout cannot take."""
+    in-place layout cannot take.  ``faults`` is the optional fault injector
+    probed at the ``pack`` site."""
+    if faults is not None:
+        faults.probe("pack", detail=f"act:{part.name}")
     slots = canvas_slots(part, block)
     if slots is None:
         return None

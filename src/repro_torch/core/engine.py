@@ -25,9 +25,15 @@ which splits into two phases:
 kernel into the capacity block-skip route that the whole-model compiler
 (:func:`repro_torch.models.gnn.compile_model`) replays.
 
+``calibration="auto"`` replaces a ``fallback=True`` model for analysis by
+a measured :class:`~repro_torch.core.calibrate.CalibratedModel` of the
+engine's device.  An optional fault injector (``faults=``) is probed at the
+``plan``, ``pack`` and ``execute`` sites, and at ``lower`` / ``pack`` of the
+dispatch lowerings.
+
 Not in this slice of the port (each raises ``NotImplementedError``): mesh
-engines, per-device models and ``calibration="auto"`` on a
-``fallback=True`` model.
+engines, per-device models and a non-default ``operand_sharding`` — the
+multi-device slice.
 """
 from __future__ import annotations
 
@@ -73,6 +79,19 @@ class EngineReport:
         layers, each overlapping its two queues internally."""
         return sum(r.makespan for _, r in self.kernels)
 
+    def attributed(self, k: int) -> "EngineReport":
+        """An even per-request share of a micro-batch report: every kernel's
+        cost fields divided by ``k`` (the batch's request count), so
+        ``hardware_time`` and FLOPs sum back to the batch total across its
+        requests.  The kernel list and task counts still describe the shared
+        fused launches.  ``k <= 1`` returns ``self``."""
+        if k <= 1:
+            return self
+        s = 1.0 / k
+        return EngineReport(
+            kernels=[(name, rep.scaled(s)) for name, rep in self.kernels],
+            meta=list(self.meta))
+
 
 def _later(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
@@ -99,6 +118,7 @@ class DynasparseEngine:
         mesh: object = None,
         operand_sharding: str = "halo",
         per_device_models: "list[HardwareModel] | None" = None,
+        faults: object = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -106,6 +126,9 @@ class DynasparseEngine:
                 or operand_sharding != "halo"):
             raise _later("mesh sharding", "multi-device")
         self.hw = hw
+        # optional repro_torch.serving.faults.FaultInjector (anything with
+        # .probe(site, detail)); None keeps every probe a no-op
+        self.faults = faults
         self.calibration = calibration
         self._hw_runtime: HardwareModel | None = None
         self.tile_m = tile_m
@@ -124,6 +147,12 @@ class DynasparseEngine:
         self.report = EngineReport()
         self.last_plan: KernelPlan | None = None
 
+    @property
+    def n_devices(self) -> int:
+        """Devices the engine runs on: 1 (mesh engines come with the
+        multi-device slice)."""
+        return 1
+
     def reset(self) -> None:
         """Clear the accumulated report.  The plan cache survives — it is
         keyed on operand structure, not on the inference run."""
@@ -131,15 +160,21 @@ class DynasparseEngine:
 
     # ------------------------------------------------------------------
     def runtime_hw(self) -> HardwareModel:
-        """The model the Analyzer/Scheduler consult: an explicit
-        ``calibration`` model wins; analytical models are used as given."""
+        """The model the Analyzer/Scheduler consult, resolved once per
+        engine: an explicit ``calibration`` model wins; ``"auto"``
+        calibrates ``fallback=True`` models on the engine's device
+        (cache-first: a warm ``PlanCache`` or ``$REPRO_CALIBRATION_PATH``
+        snapshot means zero measurements) and leaves analytical models
+        untouched; anything else keeps ``hw``."""
         if self._hw_runtime is None:
             hw = self.hw
             if isinstance(self.calibration, HardwareModel):
                 hw = self.calibration
             elif self.calibration == "auto" and self.hw.fallback:
-                raise _later(f"calibration of the fallback model "
-                             f"{self.hw.name!r}", "calibration")
+                from repro_torch.core import calibrate as _calibrate
+                hw = _calibrate.get_calibrated(
+                    self.cache, self.hw, block=self.block,
+                    device=self.device)
             self._hw_runtime = hw
         return self._hw_runtime
 
@@ -162,7 +197,9 @@ class DynasparseEngine:
     def plan(self, x, y, name: str = "kernel") -> KernelPlan:
         """Preprocessing phase: densities → task grid → Analyzer → simulated
         schedule.  Cached on the sparsity structure for ``SparseCOO`` x."""
-        x =self._operand(x)
+        if self.faults is not None:
+            self.faults.probe("plan", detail=name)
+        x = self._operand(x)
         y = as_tensor(y, self.device)
         M, K = x.shape
         N = y.shape[1]
@@ -237,6 +274,8 @@ class DynasparseEngine:
         K = x.shape[1]
 
         def _build() -> StructureEntry:
+            if self.faults is not None:
+                self.faults.probe("pack", detail=f"stripes:{nrt}")
             rows, cols, vals = host(x.rows), host(x.cols), host(x.vals)
             order = np.argsort(rows, kind="stable")
             rows, cols, vals = rows[order], cols[order], vals[order]
@@ -281,7 +320,8 @@ class DynasparseEngine:
             (plan.struct_key, digest),
             lambda: _dispatch.build_dispatch(
                 plan.part, plan.stq, plan.dtq, entry.stripes,
-                block=self.block, eps=self.eps, fingerprint=digest))
+                block=self.block, eps=self.eps, fingerprint=digest,
+                faults=self.faults))
 
     def activation_dispatch_for(
             self, plan: KernelPlan, x, *, capacity=None,
@@ -319,7 +359,7 @@ class DynasparseEngine:
             lambda: _dispatch.build_activation_dispatch(
                 plan.part, plan.stq, plan.dtq, block=self.block,
                 capacity=capacity, eps=self.eps, fingerprint=digest,
-                device=self.device))
+                device=self.device, faults=self.faults))
 
     def compiled_operands(
             self, plan: KernelPlan,
@@ -341,7 +381,9 @@ class DynasparseEngine:
         Literal engines prefer the compiled dispatch (descriptors served
         from the cache); kernels the compiler declines take the eager
         batched drain (or the per-task path when ``batched=False``)."""
-        x =self._operand(x)
+        if self.faults is not None:
+            self.faults.probe("execute", detail=plan.part.name)
+        x = self._operand(x)
         y = as_tensor(y, self.device)
         if self.literal:
             pair = self.compiled_operands(plan, x)

@@ -13,10 +13,9 @@ Two parameter sets ship:
   defaults** — the 0.85/0.70 block-skip efficiencies and the ~100 ns
   dispatch bubble are hand-tuned guesses, which is why the model is marked
   ``fallback=True``: a runtime engine is expected to replace them with a
-  measured model before trusting its STQ/DTQ decisions (the port's
-  calibration comes in a later slice; until then its engine refuses
-  ``calibration="auto"`` on a fallback model).  ``VCK5000`` stays
-  analytical by design — it reproduces the paper's tables.
+  measured model before trusting its STQ/DTQ decisions
+  (:mod:`repro_torch.core.calibrate`).  ``VCK5000`` stays analytical by
+  design — it reproduces the paper's tables.
 
 Closed forms (Table I):
     t_AIE   = m·n·d / (f_AIE · N_AIE · β)
@@ -104,17 +103,44 @@ TPUV5E = HardwareModel(
 )
 
 
+# H100 SXM (NVIDIA data sheet): 67 TFLOP/s FP32 outside the tensor cores
+# (the port's kernels are FP32 FMA on the CUDA cores, 2 FLOP per MAC),
+# 3.35 TB/s HBM3, 1.98 GHz boost clock.  Data-sheet starting guesses for
+# that card, not measurements: the same block-skip discounts and dispatch
+# bubble as the TPU guesses, float32 operands, the engine's 8 x 8 skip
+# block, and ``fallback=True`` so the runtime replaces them with a measured
+# ``CalibratedModel``.
+_H100_MACS = 67e12 / 2
+H100_FALLBACK = HardwareModel(
+    name="cuda-fallback",
+    f_dense=1.98e9,
+    dense_macs_per_cycle=_H100_MACS / 1.98e9,
+    f_sparse=1.98e9,
+    spdmm_macs_per_cycle=_H100_MACS / 1.98e9 * 0.85,
+    spmm_macs_per_cycle=_H100_MACS / 1.98e9 * 0.70,
+    n_sparse_units=1,
+    mem_bw=3.35e12,
+    bytes_per_elem=4,
+    dispatch_overhead=1e-7,
+    skip_block=8,
+    fallback=True,
+)
+
+
 def runtime_fallback(backend: str) -> HardwareModel:
     """Uncalibrated fallback model for a backend kind ("tpu", "cpu",
-    "gpu", ...), kept identical to the reference's table.
+    "cuda", ...).  ``"cuda"`` gets the H100 data-sheet guesses above;
+    every other kind is kept identical to the reference's table.
 
     Every returned model carries ``fallback=True`` — the constants are
     starting guesses the calibration subsystem is expected to replace.  The
-    non-TPU entries reuse the TPU closed forms with the name rebound so a
-    ``CalibratedModel`` fitted on that backend is attributed honestly.
+    other non-TPU entries reuse the TPU closed forms with the name rebound
+    so a ``CalibratedModel`` fitted on that backend is attributed honestly.
     """
     if backend == "tpu":
         return TPUV5E
+    if backend == "cuda":
+        return H100_FALLBACK
     return dataclasses.replace(TPUV5E, name=f"{backend}-fallback")
 
 

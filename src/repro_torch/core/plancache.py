@@ -20,12 +20,16 @@ Levels, held in ONE byte-accounted LRU store:
   kernel's block-skip route
   (:class:`~repro_torch.core.dispatch.ActivationDispatch`) — content
   independent, so one lowering serves every activation of that shape.
+- **calibration level** (device kind + block + dtype + base model): measured
+  performance models (:class:`~repro_torch.core.calibrate.CalibratedModel`),
+  so a ``SharedPlanCache`` snapshot replays a restart with zero
+  measurements.
 
 Only kernels whose X operand is ``SparseCOO`` are planned once; dense X
 (activations) is planned fresh every call.  Keys and fingerprints equal the
 reference package's for the same operand, so the two caches can be compared
-entry by entry.  The calibration and sharded levels come with later slices
-of the port.
+entry by entry.  The sharded level comes with the multi-device slice of
+the port.
 """
 from __future__ import annotations
 
@@ -64,6 +68,16 @@ def coo_fingerprint(x: SparseCOO) -> str:
     fp = h.hexdigest()
     x._plan_fp = (arr_ids, fp)
     return fp
+
+
+def key_mentions(key, fingerprint: str) -> bool:
+    """True when ``fingerprint`` appears anywhere in a (nested) cache key.
+    Every key that depends on an operand's content embeds its fingerprint
+    digest verbatim, so a recursive scan finds all of a graph's entries
+    without knowing each level's key layout."""
+    if isinstance(key, tuple):
+        return any(key_mentions(k, fingerprint) for k in key)
+    return key == fingerprint
 
 
 def nbytes_of(obj) -> int:
@@ -119,9 +133,8 @@ class CacheStats:
     # route, and reuses of a cached one (compiled replays credit these too)
     act_builds: int = 0
     act_hits: int = 0
-    # the reference's calibration / snapshot counters, kept so the two
-    # packages' ``as_dict()`` have the same keys (their levels come with
-    # later slices of the port and stay 0 until then)
+    # calibration level: measured models built (swept or read from a
+    # snapshot file) and reused; unusable snapshots (cold starts)
     calib_builds: int = 0
     calib_hits: int = 0
     snapshot_errors: int = 0
@@ -179,6 +192,7 @@ class PlanCache:
     # entry-kind prefixes of the unified store
     _PLAN, _DENSITY, _STRUCT, _DISPATCH = "plan", "density", "struct", "dispatch"
     _ACT = "actdispatch"
+    _CALIB = "calib"
 
     def __init__(self, capacity: int = 256, max_bytes: int | None = None):
         self.capacity = capacity
@@ -214,6 +228,20 @@ class PlanCache:
             self.bytes_used -= nb
             self.stats.evictions += 1
             self.stats.bytes_evicted += nb
+
+    def purge_fingerprint(self, fingerprint: str) -> int:
+        """Drop every entry whose key embeds ``fingerprint`` (all levels).
+        The invalidation hook for content no longer reachable — a graph id
+        re-registered with different adjacency content — so a later
+        ``save`` cannot persist (and a ``load`` cannot resurrect) its stale
+        compiled artifacts.  Returns the number of entries purged."""
+        doomed = [k for k in self._entries
+                  if key_mentions(k[1], fingerprint)]
+        for k in doomed:
+            _, nb = self._entries.pop(k)
+            self.bytes_used -= nb
+            self.stats.invalidations += 1
+        return len(doomed)
 
     def recharge(self, kind: str, key) -> None:
         """Re-measure an entry whose payload mutated in place (e.g. a
@@ -300,6 +328,12 @@ class PlanCache:
             self._put(self._DISPATCH, key, d)
         return d
 
+    def dispatch_count(self) -> int:
+        """Number of cached compiled-dispatch entries (steady state:
+        ``dispatch_builds == plan_count()``)."""
+        return sum(1 for (kind, _k) in self._entries
+                   if kind == self._DISPATCH)
+
     # ------------------------------------------- activation-dispatch level
     def activation_dispatch(self, key: tuple, compute: Callable[[], object]):
         """Get-or-compute an
@@ -321,6 +355,26 @@ class PlanCache:
     def activation_count(self) -> int:
         """Number of cached activation-dispatch entries."""
         return sum(1 for (kind, _k) in self._entries if kind == self._ACT)
+
+    # --------------------------------------------------- calibration level
+    def calibration(self, key: tuple, compute: Callable[[], object]):
+        """Get-or-compute a measured performance model
+        (:class:`repro_torch.core.calibrate.CalibratedModel`), keyed on
+        (device kind, block, dtype, base model).  ``None`` is never
+        cached."""
+        m = self._get(self._CALIB, key)
+        if m is not None:
+            self.stats.calib_hits += 1
+            return m
+        m = compute()
+        if m is not None:
+            self.stats.calib_builds += 1
+            self._put(self._CALIB, key, m)
+        return m
+
+    def calibration_count(self) -> int:
+        """Number of cached calibration entries."""
+        return sum(1 for (kind, _k) in self._entries if kind == self._CALIB)
 
     def clear(self) -> None:
         self._entries.clear()

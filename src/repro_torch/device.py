@@ -46,3 +46,21 @@ def host(t) -> np.ndarray:
             t = t.float()
         return t.detach().cpu().numpy()
     return np.asarray(t)
+
+
+def capture_graph(fn, device: torch.device):
+    """Capture ``fn()`` as one ``torch.cuda.CUDAGraph`` on ``device``;
+    returns ``(graph, out)``, ``out`` being what the captured call returned
+    (its tensors are the graph's static outputs).  One uncaptured call on a
+    side stream comes first, as CUDA graph capture asks: it makes the lazy
+    one-time work (loading the kernel library, the allocator's first
+    blocks) happen outside the capture."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out

@@ -31,7 +31,7 @@ from repro_torch.core import dispatch as _dispatch
 from repro_torch.core import sparsity
 from repro_torch.core.engine import DynasparseEngine, EngineReport
 from repro_torch.core.primitives import SparseCOO
-from repro_torch.device import as_tensor, resolve_device
+from repro_torch.device import as_tensor, capture_graph, resolve_device
 from repro_torch.kernels import _build, ops
 
 MM = Callable[..., torch.Tensor]   # mm(x, y, name=...) -> z
@@ -187,6 +187,7 @@ class CompiledModel:
     n_sparse: int
     n_act: int = 0                # kernels on the capacity block-skip route
     stats: object | None = None   # CacheStats receiving call accounting
+    faults: object | None = None  # FaultInjector probed at "compiled"
     device: torch.device = torch.device("cpu")
     calls: int = 0
     traces: int = 0               # distinct input signatures (captures)
@@ -213,25 +214,28 @@ class CompiledModel:
                             meta=list(self.report.meta))
 
     def _capture(self, h: torch.Tensor) -> _Program:
-        """Capture the replay body for ``h``'s signature.  One uncaptured
-        run on a side stream comes first, as CUDA graph capture asks: it
-        makes the lazy one-time work (loading the kernel library, the
-        allocator's first blocks) happen outside the capture."""
+        """Capture the replay body for ``h``'s signature
+        (:func:`repro_torch.device.capture_graph`: one uncaptured run on a
+        side stream, then the capture), counting the captured run's
+        launches."""
         static_h = h.clone()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.run(self.payload, static_h)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        before = collections.Counter(_build.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            logits, diags = self.run(self.payload, static_h)
+        launched = []
+
+        def body():
+            before = collections.Counter(_build.LAUNCHES)
+            out = self.run(self.payload, static_h)
+            launched.append(collections.Counter(_build.LAUNCHES) - before)
+            return out
+        graph, (logits, diags) = capture_graph(body, self.device)
         self.capture_launches[(tuple(h.shape), str(h.dtype))] = dict(
-            collections.Counter(_build.LAUNCHES) - before)
+            launched[-1])
         return _Program(graph=graph, h=static_h, logits=logits, diags=diags)
 
     def __call__(self, h) -> torch.Tensor:
+        # the whole-model compiled-execute site, probed before any stats
+        # are credited so a failed call never skews the hit accounting
+        if self.faults is not None:
+            self.faults.probe("compiled", detail=self.model)
         h = as_tensor(h, self.device)
         sig = (tuple(h.shape), str(h.dtype))
         new = sig not in self._programs
@@ -355,7 +359,8 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
         n_kernels=len(records),
         n_sparse=sum(1 for k, _ in records if k == "sparse"),
         n_act=sum(1 for k, _ in records if k == "act"),
-        stats=engine.cache.stats, device=engine.device)
+        stats=engine.cache.stats, faults=engine.faults,
+        device=engine.device)
 
 
 def run_inference(model: str, engine: DynasparseEngine, adj, h, params, *,
@@ -371,9 +376,36 @@ def run_inference(model: str, engine: DynasparseEngine, adj, h, params, *,
     dev = resolve_device(device)
     if dev != engine.device:
         raise ValueError(f"run_inference on {dev}, engine on {engine.device}")
+    if not isinstance(h, SparseCOO):
+        h = as_tensor(h, dev)   # GIN adds h itself to its aggregation
     engine.reset()
     logits = APPLY[model](engine_mm(engine), adj, h, params)
     return logits, engine.report
+
+
+def run_serving(model: str, engine: DynasparseEngine, adj, feature_batches,
+                params, *, max_batch: int = 1, device="cuda"):
+    """Serving path: repeated inference over a stream of feature matrices on
+    a FIXED graph — a thin wrapper over :mod:`repro_torch.serving`.
+    ``device`` must name the engine's device.
+
+    Request 1 populates the engine's plan cache; every later request hits
+    it, and the density sketch revalidates each hit against the live
+    feature batch.  ``max_batch > 1`` coalesces the stream into
+    micro-batches served with one plan/execute pass each.  Returns (list of
+    logits, list of per-request engine reports — each the request's 1/k
+    share of its micro-batch report)."""
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    dev = resolve_device(device)
+    if dev != engine.device:
+        raise ValueError(f"run_serving on {dev}, engine on {engine.device}")
+    with ServingEngine(model, params, engine=engine,
+                       config=ServingConfig(max_batch=max_batch)) as srv:
+        srv.register_graph("default", adj)
+        outs = srv.serve(("default", h) for h in feature_batches)
+        by_id = sorted(srv.stats.requests, key=lambda r: r.request_id)
+        return outs, [r.report for r in by_id]
 
 
 def run_reference(model: str, adj, h, params):

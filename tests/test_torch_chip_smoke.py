@@ -125,3 +125,71 @@ def test_port_ranges_name_the_line_that_made_an_op(smoke):
             if e.name == "aten::constant_pad_nd"]
     assert pads == [f"kernels/ops.py({pad_line}): spdmm",
                     "(no line of the port)"]
+
+
+def test_calibration_serving_and_chaos_phases_rehearse_on_the_cpu(
+        smoke, monkeypatch):
+    """``chip_smoke.py``'s calibration, serving and chaos phases on small
+    stand-ins on the CPU (the kernels' plain versions; the calls that need
+    the card stubbed): every check of each phase holds."""
+    from repro_torch.core import DynasparseEngine
+    from repro_torch.data.graphs import load_graph
+    from repro_torch.kernels import gemm, ops, spdmm, spmm
+    from repro_torch.models import gnn
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "require_launched", lambda *a: None)
+    monkeypatch.setattr(smoke, "profile_serving", lambda *a: None)
+    dev = torch.device("cpu")
+
+    def eager(model, g):
+        params = gnn.init_params(model, g.features_dense.shape[1],
+                                 g.stats.hidden, g.stats.classes, device=dev)
+        eng = DynasparseEngine(literal=True, device=dev)
+        gnn.run_inference(model, eng, g.adj, g.features_dense, params,
+                          device=dev)
+        ref = smoke.plain_logits(torch, gnn, DynasparseEngine, model, g,
+                                 g.features_dense, params, dev)
+        return dict(engine=eng, params=params, ref=ref)
+
+    fl = load_graph("FL", scale=0.01, device=dev)
+    co = load_graph("CO", scale=0.1, device=dev)
+    fl_eager, co_eager = eager("GCN", fl), eager("GIN", co)
+    mods = {"gemm": gemm, "spdmm": spdmm, "spmm": spmm}
+    calib, fl_calib = smoke.drive_calibration(
+        torch, gnn, ops, DynasparseEngine, fl, dev, fl_eager, mods)
+    assert set(calib) == set(fl_calib) == {"launches", "calls"}
+    served = smoke.drive_serving(
+        torch, gnn, ops, DynasparseEngine, "GCN-FL serving", "GCN", fl, dev,
+        fl_eager, n_requests=8, max_batch=2, min_compiled=3, mods=mods)
+    chaos = smoke.drive_chaos(torch, ops, DynasparseEngine, co, dev,
+                              co_eager, mods)
+    # each new path hands its own operands to the kernel checks: the
+    # sweep every kernel it times, the served batch its eager first batch
+    # and its compiled body (gemm) at the stacked width, chaos its
+    # fault-free batches
+    for rec, names in ((calib, ("gemm_batch_scatter", "spdmm_fused",
+                                "spmm_fused", "gemm")),
+                       (fl_calib, ("spdmm_fused",)),
+                       (served, ("gemm_batch_scatter", "spdmm_fused",
+                                 "gemm")),
+                       (chaos, ("spmm_fused", "spdmm_fused"))):
+        assert all(rec["calls"][k] for k in names), (names, {
+            k: len(v) for k, v in rec["calls"].items()})
+    v, f = fl.features_dense.shape
+    assert served["calls"]["spdmm_fused"][0][0][1].shape[1] == 2 * f
+    assert served["calls"]["gemm"][0][0][0].shape[0] == 2 * v
+
+
+def test_gnn_serve_restart_rehearses_on_the_cpu(smoke, tmp_path):
+    """The restart phase through ``python -m repro_torch.launch.gnn_serve``
+    on a small CO stand-in on the CPU: the second run restores the plan
+    cache and neither packs nor analyzes."""
+    first, second = smoke.drive_restart(str(tmp_path), "--scale", "0.05",
+                                        "--device", "cpu")
+    assert first["cache"]["packs"] > 0 and first["device"] == "cpu"
+    assert second["cache"]["packs"] == second["cache"]["analyzes"] == 0
+    assert second["requests"] == 16 and second["compiled_batches"] >= 1

@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DynasparseEngine
+from repro_torch.core import DynasparseEngine, calibrate
+from repro_torch.core.perfmodel import runtime_fallback
 from repro_torch.data.graphs import load_graph
 from repro_torch.models import gnn
+from repro_torch.serving import SharedPlanCache
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -60,3 +62,9 @@ def test_entry_points_default_to_the_card():
     eng = DynasparseEngine(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         gnn.run_inference("GCN", eng, None, adj_rows, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SharedPlanCache()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibrate.calibrate(runtime_fallback("cuda"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gnn.run_serving("GCN", eng, None, [], {})

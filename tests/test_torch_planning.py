@@ -60,9 +60,16 @@ def test_perfmodel_closed_forms_equal(hw):
 
 
 def test_runtime_fallback_equal():
-    for backend in ("tpu", "gpu", "cuda", "cpu"):
+    """Every backend kind but ``"cuda"`` keeps the reference's table; the
+    port's ``"cuda"`` entry holds the H100 data-sheet guesses instead of
+    the TPUv5e constants (still ``fallback=True``)."""
+    for backend in ("tpu", "gpu", "cpu"):
         assert (dataclasses.asdict(jpm.runtime_fallback(backend))
                 == dataclasses.asdict(tpm.runtime_fallback(backend)))
+    cuda = tpm.runtime_fallback("cuda")
+    assert cuda.fallback and cuda.name == "cuda-fallback"
+    assert cuda.mem_bw == 3.35e12 and cuda.bytes_per_elem == 4
+    assert cuda.f_dense * cuda.dense_macs_per_cycle == 67e12 / 2
 
 
 @pytest.mark.parametrize("shape,tile,eps", [
