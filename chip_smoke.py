@@ -27,26 +27,41 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 5. drives GIN-CO through the per-task path (``batched=False``): the
    ``gemm``, ``spdmm`` and SpMM kernels, one launch per task;
 6. runs ``gemm_batch`` once at the shape of GCN-FL's dense queue;
-7. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
+7. shards: GCN on FL through a mesh engine of one card
+   (``make_data_mesh(1)``), bitwise equal to the single-device engine with
+   one sharded dispatch per adjacency kernel; through a 4-shard mesh
+   whose shards share the card, in ``"halo"`` and ``"replicate"`` mode
+   (bitwise equal to each other, every adjacency kernel bitwise equal to
+   the eager executor of its placed plan, logits within 1e-4 of
+   ``literal=False``; bands, exchange rounds and takes, per-shard operand
+   bytes, each shard's kernel time and the exchange's device time
+   logged); that halo engine through ``compile_model`` (one CUDA graph;
+   replays bitwise equal to the eager mesh run); GIN on CO on 4 shards
+   (the sharded ``spmm_fused``); the reference's eight pinned sharding
+   cases and its block-diagonal case on 4 shards (ghost-tile pads through
+   ``gemm_batch_scatter``; the block-diagonal case exchanges nothing);
+8. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
    card's kernels, every sample and fit logged; ``get_calibrated`` twice on
    a fresh ``SharedPlanCache`` (one build, one hit), saved, loaded into a
    fresh cache and resolved again with no measurement; then GCN on FL
    planned with the fitted model (``runtime_fallback("cuda")``), held
    against the ``literal=False`` logits;
-8. serves GCN on FL at full size (16 requests, ``max_batch`` 4) and GIN on
+9. serves GCN on FL at full size (16 requests, ``max_batch`` 4) and GIN on
    CO (8 requests) through ``ServingEngine`` over a literal engine and a
    ``SharedPlanCache`` on the card: every result against that request's
    single-request literal ``run_inference``, at least one compiled batch
    after the first (GCN-FL: three) and none degraded; latency, requests/s,
    a profiled batch's device time and idle share, peak memory; GCN on FL
    once more with a cache budget that holds FL (the first burst has the
-   default 256 MiB, which evicts FL's structures);
-9. chaos and restart on CO: a poison request (``FaultInjector(seed=0)`` at
+   default 256 MiB, which evicts FL's structures); GIN on CO once more
+   through the mesh engine of ``ServingConfig(n_devices=1)``, whose
+   ``dispatch_stats()`` carry the sharded keys;
+10. chaos and restart on CO: a poison request (``FaultInjector(seed=0)`` at
    ``request``, ``req:5;``) fails alone with every other result bitwise
    equal to a fault-free run, and ``python -m
    repro_torch.launch.gnn_serve --literal --cache-file`` run twice, the
    second with no packing and no analysis;
-10. holds every kernel against its plain PyTorch version on the operands the
+11. holds every kernel against its plain PyTorch version on the operands the
    paths gave it (recorded in an extra, uncounted run of each path: a
    second sweep, a second calibrated inference, a served batch of its
    own with its compiled body run uncaptured; chaos records its
@@ -63,7 +78,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    are logged, and the device copies and fills of the eager warm runs
    and of the compiled replays and bodies are named by the line of the
    port that makes them;
-11. prints the kernel summary as one JSON line, the card's name and power
+12. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a card, or
@@ -1083,6 +1098,16 @@ def no_calls() -> dict:
     return {name: [] for name in KERNELS}
 
 
+def planned_kernels(report) -> list[str]:
+    """The fused kernels a run's plans send work to (its report's SpDMM,
+    SpMM and dense-queue task counts)."""
+    reps = [rep for _, rep in report.kernels]
+    return [k for k, n in (("spdmm_fused", sum(r.n_spdmm for r in reps)),
+                           ("spmm_fused", sum(r.n_spmm for r in reps)),
+                           ("gemm_batch_scatter", sum(r.n_dtq for r in reps)))
+            if n]
+
+
 def require_launched(label: str, launches: dict, names) -> None:
     for k in names:
         if launches.get(k, 0) <= 0:
@@ -1180,12 +1205,8 @@ def drive_calibration(torch, tgnn, ops, engine_cls, g, dev, eager, mods):
                              "calibration")
     log(f"  cold wall {wall:.4f} s, launches {fl_launches}")
     check_logits(torch, "GCN-FL calibrated", logits, eager["ref"], g)
-    reps = [rep for _, rep in report.kernels]
-    require_launched("GCN-FL calibrated", fl_launches, [
-        k for k, n in (("spdmm_fused", sum(r.n_spdmm for r in reps)),
-                       ("spmm_fused", sum(r.n_spmm for r in reps)),
-                       ("gemm_batch_scatter", sum(r.n_dtq for r in reps)))
-        if n])
+    require_launched("GCN-FL calibrated", fl_launches,
+                     planned_kernels(report))
     for (name, rep), (_, vck) in zip(report.kernels,
                                      eager["engine"].report.kernels):
         log(f"  kernel {name:10s} STQ {rep.n_stq:3d} (SpDMM {rep.n_spdmm}, "
@@ -1240,11 +1261,12 @@ def profile_serving(torch, srv, reqs):
 
 def drive_serving(torch, tgnn, ops, engine_cls, label, model, g, dev, eager,
                   n_requests, max_batch, min_compiled, mods=None,
-                  max_bytes=SERVING_CACHE_BYTES):
+                  max_bytes=SERVING_CACHE_BYTES, n_devices=None):
     """``n_requests`` requests built as ``gnn_serve`` builds them, served by
-    a ``ServingEngine`` over a literal engine and a ``SharedPlanCache`` of
-    ``max_bytes`` on the card; each result held against the request's
-    single-request literal ``run_inference``.  With ``mods``, one more,
+    a ``ServingEngine`` over a literal engine (with ``n_devices``, the mesh
+    engine ``ServingConfig(n_devices=...)`` builds) and a
+    ``SharedPlanCache`` of ``max_bytes`` on the card; each result held
+    against the request's single-request literal ``run_inference``.  With ``mods``, one more,
     uncounted burst of ``max_batch`` requests on a second ``ServingEngine``
     over the same cache records the kernel calls of its eager first batch,
     and of its compiled program's body run uncaptured at the stacked
@@ -1264,11 +1286,17 @@ def drive_serving(torch, tgnn, ops, engine_cls, label, model, g, dev, eager,
     cache = SharedPlanCache(device=dev, max_bytes=max_bytes)
 
     def server(**config):
-        srv = ServingEngine(model, eager["params"],
-                            engine=engine_cls(literal=True, cache=cache,
-                                              device=dev),
-                            config=ServingConfig(max_batch=max_batch,
-                                                 **config))
+        if n_devices is None:
+            srv = ServingEngine(model, eager["params"],
+                                engine=engine_cls(literal=True, cache=cache,
+                                                  device=dev),
+                                config=ServingConfig(max_batch=max_batch,
+                                                     **config))
+        else:
+            srv = ServingEngine(model, eager["params"], cache=cache,
+                                config=ServingConfig(max_batch=max_batch,
+                                                     n_devices=n_devices,
+                                                     **config))
         srv.register_graph(g.stats.name, g.adj)
         return srv
 
@@ -1297,6 +1325,11 @@ def drive_serving(torch, tgnn, ops, engine_cls, label, model, g, dev, eager,
         if (st.errors or st.degraded_batches
                 or st.compiled_batches < min_compiled):
             raise AssertionError(f"{label}: {st.as_dict()}")
+        if n_devices is not None and not (
+                ds["n_devices"] == n_devices and ds["sharded_dispatches"] >= 1
+                and ds["operand_sharding"] == "halo"
+                and ds["operand_bytes"]["entries"] >= 1):
+            raise AssertionError(f"{label}: dispatch stats {ds}")
         profile_serving(torch, srv, reqs[:max_batch])
     finally:
         srv.close()
@@ -1421,6 +1454,320 @@ def drive_restart(tmp_dir: str, *extra: str) -> list[dict]:
     return runs
 
 
+# the reference's pinned sharding cases (its multi-device tests): (n,
+# tile_m, tile_n, width, nnz, mode, strategy, eps, Y zero share, seed)
+PINNED = [
+    (100, 16, 8, 12, 400, "dynamic", "balanced", 0.0, 0.0, 1),
+    (100, 16, 8, 12, 400, "dynamic", "greedy", 0.0, 0.0, 2),
+    (64, 8, 8, 4, 2000, "dynamic", "balanced", 0.0, 0.0, 3),
+    (64, 8, 8, 4, 2000, "dynamic", "greedy", 0.5, 0.8, 4),
+    (40, 8, 16, 20, 60, "sparse_only", "balanced", 0.0, 0.8, 5),
+    (129, 16, 8, 8, 800, "dense_only", "balanced", 0.0, 0.0, 6),
+    (17, 8, 8, 8, 40, "dynamic", "balanced", 0.5, 0.5, 7),
+    (56, 8, 8, 8, 900, "sparse_only", "balanced", 0.5, 0.8, 8),
+]
+# its block-diagonal case: every edge stays in its row block (nnz unused)
+BLOCK_DIAGONAL = (64, 8, 8, 8, 0, "sparse_only", "greedy", 0.0, 0.0, 42)
+# shards of the co-resident mesh: all on the one card
+MESH_SHARDS = 4
+
+
+def log_sharded(engine) -> None:
+    """Bands, exchange rounds and takes, and the per-shard operand bytes
+    of every sharded dispatch in the engine's cache."""
+    for sd in [v for (kind, _k), v in engine.cache.items()
+               if kind == "sharddispatch"]:
+        ob = sd.operand_bytes
+        hg = sd.halo
+        log(f"  sharded {sd.geom.K}x{sd.geom.N} ({sd.operand_sharding}): "
+            f"bands {[b1 - b0 for b0, b1 in zip(sd.band_starts, sd.band_starts[1:])]} "
+            f"stripes, rows {list(sd.band_rows)}, "
+            + ("no exchange schedule" if hg is None else
+               f"n_rounds {hg.n_rounds}, max_take {hg.max_take}, "
+               f"L {hg.L}, max_own {hg.max_own}"))
+        log("    per shard (owned / halo / replicated-fallback bytes): "
+            + "; ".join(f"{p['owned_bytes']} / {p['halo_bytes']} / "
+                        f"{p['fallback_bytes']}" for p in ob["per_device"])
+            + f"; resident a shard {ob['halo_per_device_bytes']} B, "
+            f"replicated {ob['replicated_per_device_bytes']} B")
+
+
+def eager_checked_mm(torch, engine, label):
+    """``engine_mm`` of a mesh engine that also holds every adjacency
+    kernel against the single-device eager executor of the SAME placed
+    plan, bitwise."""
+    from repro_torch.core import scheduler
+    from repro_torch.core.primitives import SparseCOO
+
+    def mm(x, y, name="kernel"):
+        z, _ = engine.matmul(x, y, name=name)
+        if isinstance(x, SparseCOO):
+            plan = engine.last_plan
+            key, entry = engine._packed_structure(plan, x)
+            xd = engine._ensure_dense(key, entry, x) if plan.dtq else None
+            want = scheduler.execute_plan(
+                plan.part, plan.stq, plan.dtq, xd, y, block=engine.block,
+                batched=True, packed=entry.stripes, eps=engine.eps)
+            if not torch.equal(z, want):
+                raise AssertionError(f"{label} {name}: the sharded kernel "
+                                     "is not bitwise equal to the eager "
+                                     "executor of its placed plan")
+        return z
+    return mm
+
+
+def drive_mesh(torch, tgnn, ops, engine_cls, label, model, g, dev, eager,
+               mesh, mods, operand_sharding="halo"):
+    """Cold + warm ``run_inference`` through a mesh engine with launch
+    counts, the ``literal=False`` comparison, then (uncounted) the model
+    once more with every adjacency kernel held against the eager executor
+    of its placed plan, and a recording run."""
+    h = g.features_dense
+    engine = engine_cls(literal=True, device=dev, mesh=mesh,
+                        operand_sharding=operand_sharding)
+    log(f"== {label}: {model} on {g.stats.name}, {mesh.size} shard(s) on "
+        f"{sorted({str(d) for d in mesh.devices})}, {operand_sharding}")
+    ops.reset_cuda_launch_counts()
+    walls = []
+    for _ in ("cold", "warm"):
+        (logits, report), wall = synced_wall(torch, lambda: tgnn.run_inference(
+            model, engine, g.adj, h, eager["params"], device=dev))
+        walls.append(wall)
+    launches = ops.cuda_launch_counts()
+    log(f"  cold wall {walls[0]:.4f} s, warm {walls[1]:.4f} s; launches "
+        f"{launches}; sharded dispatches {engine.cache.sharded_count()}")
+    for d, rep in enumerate(report.by_device):
+        log(f"  device {d}: modelled {1e3 * rep.makespan:.4f} ms, STQ "
+            f"{rep.n_stq} DTQ {rep.n_dtq}")
+    log_sharded(engine)
+    check_logits(torch, label, logits, eager["ref"], g)
+    checked = tgnn.APPLY[model](eager_checked_mm(torch, engine, label),
+                                g.adj, h, eager["params"])
+    with Recorder(mods) as rec:
+        again, _ = tgnn.run_inference(model, engine, g.adj, h,
+                                      eager["params"], device=dev)
+    torch.cuda.synchronize()
+    if not (torch.equal(again, logits) and torch.equal(checked, logits)):
+        raise AssertionError(f"{label}: a repeated run is not bitwise equal")
+    log("  every adjacency kernel bitwise equal to the eager executor of "
+        "its placed plan; a repeated run bitwise equal")
+    require_launched(label, launches, planned_kernels(report))
+    return dict(launches=launches, calls=rec.calls, engine=engine,
+                logits=logits, walls=walls)
+
+
+def profile_exchange(torch, tgnn, model, engine, g, params, dev):
+    """One warm mesh run under ``torch.profiler`` and :class:`PortRanges`:
+    the device time of the ops the halo exchange launched (those made by
+    lines of ``core/halo.py``) beside the run's whole device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with PortRanges(torch):
+            _, wall = synced_wall(torch, lambda: tgnn.run_inference(
+                model, engine, g.adj, g.features_dense, params, device=dev))
+    by_file, total = {}, 0.0
+    for e in prof.events():
+        for kern in e.kernels:
+            where = port_frame(e).split("(")[0]
+            by_file[where] = by_file.get(where, 0.0) + kern.duration
+            total += kern.duration
+    if not total:
+        log("  profiler recorded no device rows: exchange time not measured")
+        return None
+    ex = by_file.get("core/halo.py", 0.0) / 1e3
+    log(f"  profiled warm run: wall {1e3 * wall:.2f} ms, device "
+        f"{total / 1e3:.3f} ms, of it the halo exchange (core/halo.py) "
+        f"{ex:.4f} ms; by port file: " + ", ".join(
+            f"{k} {v / 1e3:.3f}" for k, v in sorted(
+                by_file.items(), key=lambda kv: -kv[1])[:6]))
+    return ex
+
+
+def time_shard_calls(torch, mods, label, name, calls):
+    """Device time (CUDA events) of each recorded call of the sparse kernel
+    ``name``, with its entries and its longest run: where a shard's band is
+    short, its ghost-tile pads form one long run.  Returns the sum."""
+    kernel = getattr(mods[KERNELS[name]["module"]], name)
+    total = 0.0
+    for i, (args, kw) in enumerate(calls):
+        kw_t = {**kw, "z": kw["z"].clone()}
+        ms = device_ms(torch, lambda: kernel(*args, **kw_t))
+        lens = np.diff(runs_of(name, args, kw).long().cpu().numpy())
+        total += ms
+        log(f"  {label} {name} call {i}: entries {int(args[2].shape[0])}, "
+            f"runs {lens.size}, longest run {int(lens.max())}: {ms:.4f} ms")
+    log(f"  {label} {name}: {total:.4f} ms over {len(calls)} calls")
+    return total
+
+
+def drive_mesh_compiled(torch, tgnn, ops, label, model, g, dev, mods, run):
+    """``compile_model`` on a mesh engine (its caches warm): one CUDA graph
+    holds the exchange and every shard's kernels; the capture, three warm
+    replays bitwise equal to the eager mesh run, and an uncounted,
+    uncaptured body run that records each kernel call."""
+    h = g.features_dense
+    log(f"== {label}: compile_model {model} on {g.stats.name}, "
+        f"{run['engine'].n_devices} shards")
+    ops.reset_cuda_launch_counts()
+    (warm, cm), t_compile = synced_wall(torch, lambda: tgnn.compile_model(
+        model, run["engine"], g.adj, h, run["params"]))
+    if cm is None or cm.n_sparse < 1 or len(set(cm.mesh_devices)) != 1:
+        raise AssertionError(f"{label}: compile_model declined")
+    z1, t_capture = synced_wall(torch, lambda: cm(h))
+    walls, outs = [], []
+    for _ in range(3):
+        z, t = synced_wall(torch, lambda: cm(h))
+        walls.append(t)
+        outs.append(z)
+    launches = ops.cuda_launch_counts()
+    per_call = cm.capture_launches.get((tuple(h.shape), str(h.dtype)))
+    log(f"  compile {t_compile:.4f} s, capture {t_capture:.4f} s, warm "
+        "replays " + ", ".join(f"{1e3 * t:.3f}" for t in walls)
+        + f" ms (median {1e3 * statistics.median(walls):.3f} ms); launches "
+        f"per call (recorded at capture) {per_call}; wrapper launches "
+        f"{launches}")
+    if not all(torch.equal(z, run["logits"]) for z in [z1, warm] + outs):
+        raise AssertionError(f"{label}: the replay is not bitwise equal to "
+                             "the eager mesh run")
+    require_launched(label + " (per call)", per_call or {}, ("spdmm_fused",))
+    log("  warmup and every replay bitwise equal to the eager mesh run")
+    profile_replay(torch, cm, h, per_call)
+    copy_sources(torch, f"{label} replay body, run uncaptured",
+                 lambda: cm.run(cm.payload, h))
+    with Recorder(mods) as rec:
+        cm.run(cm.payload, h)
+    torch.cuda.synchronize()
+    return dict(launches=launches, calls=rec.calls, per_call=per_call,
+                replay_ms=[1e3 * t for t in walls])
+
+
+def pinned_case(torch, engine_cls, dev, case, mesh, **kw):
+    """One of the reference's pinned sharding cases (or
+    ``BLOCK_DIAGONAL``) on ``mesh``: returns (adjacency, Y, engine,
+    result)."""
+    from repro_torch.core.primitives import SparseCOO
+
+    n, tm, tn, w, nnz, mode, strategy, eps, y_zero, seed = case
+    r = np.random.default_rng(seed)
+    if case is BLOCK_DIAGONAL:
+        rows = np.sort(r.integers(0, n, n * 6)).astype(np.int32)
+        offs = r.integers(0, tm, n * 6).astype(np.int32)
+        cols = np.minimum((rows // tm) * tm + offs, n - 1).astype(np.int32)
+    else:
+        rows = np.sort(r.integers(0, n, nnz)).astype(np.int32)
+        cols = r.integers(0, n, nnz).astype(np.int32)
+    vals = r.standard_normal(rows.shape[0]).astype(np.float32)
+    adj = SparseCOO((n, n), *(torch.as_tensor(a, device=dev)
+                              for a in (rows, cols, vals)), tag="adjacency")
+    ry = np.random.default_rng(seed + 1)
+    y = ry.standard_normal((n, w)).astype(np.float32)
+    if y_zero:
+        y = np.where(ry.random((n, w)) < y_zero, 0.0, y).astype(np.float32)
+    y = torch.as_tensor(y, device=dev)
+    engine = engine_cls(tile_m=tm, tile_n=tn, literal=True, mode=mode,
+                        strategy=strategy, eps=eps, device=dev, mesh=mesh,
+                        **kw)
+    return adj, y, engine, engine.matmul(adj, y)[0]
+
+
+def drive_pinned(torch, engine_cls, ops, dev, mods):
+    """The reference's eight pinned sharding cases and its block-diagonal
+    case on a co-resident 4-shard mesh, halo mode, counted; then,
+    uncounted, each against the replicated oracle and the eager executor
+    of its placed plan (bitwise), and a recording run.  The dense queue's
+    ghost-tile pads reach ``gemm_batch_scatter`` here."""
+    from repro_torch.launch.mesh import DataMesh
+
+    mesh = DataMesh((dev,) * MESH_SHARDS)
+    cases = PINNED + [BLOCK_DIAGONAL]
+    log(f"== pinned sharding cases: {len(cases)} on {MESH_SHARDS} shards")
+    ops.reset_cuda_launch_counts()
+    runs = [pinned_case(torch, engine_cls, dev, c, mesh) for c in cases]
+    torch.cuda.synchronize()
+    launches = ops.cuda_launch_counts()
+    takes = []
+    for case, (adj, y, engine, z) in zip(cases, runs):
+        _, _, _, z_r = pinned_case(torch, engine_cls, dev, case, mesh,
+                                   operand_sharding="replicate")
+        plan = engine.last_plan
+        eager = eager_checked_mm(torch, engine, f"pinned seed {case[-1]}")
+        if not (torch.equal(z, z_r) and torch.equal(eager(adj, y), z)):
+            raise AssertionError(f"pinned seed {case[-1]}: halo, replicate "
+                                 "and eager disagree")
+        sd = engine.sharded_dispatch_for(plan, adj)
+        takes.append((case[-1], plan.placement.band_sizes(),
+                      sd.halo.max_take, len(plan.dtq)))
+    log(f"  launches {launches}; (seed, bands, max_take, DTQ tasks): "
+        f"{takes}; halo == replicate == eager executor, bitwise, in every "
+        "case")
+    if takes[-1][2] != 0:
+        raise AssertionError("the block-diagonal case exchanged blocks")
+    with Recorder(mods) as rec:
+        for c in cases:
+            pinned_case(torch, engine_cls, dev, c, mesh)
+    torch.cuda.synchronize()
+    return dict(launches=launches, calls=rec.calls)
+
+
+def drive_sharded(torch, tgnn, ops, engine_cls, fl, co, dev, fl_eager,
+                  co_eager, mods):
+    """GCN-FL on a mesh of one device (bitwise equal to the single-device
+    engine) and on a co-resident 4-shard mesh in halo and replicate mode
+    (bitwise equal to each other), the exchange's device time, the 4-shard
+    halo engine compiled, GIN-CO on 4 shards (its aggregation the sharded
+    ``spmm_fused``) and the pinned cases.  Returns the records by path."""
+    from repro_torch.launch.mesh import DataMesh, make_data_mesh
+
+    single, _ = tgnn.run_inference("GCN", fl_eager["engine"], fl.adj,
+                                   fl.features_dense, fl_eager["params"],
+                                   device=dev)
+    m1 = drive_mesh(torch, tgnn, ops, engine_cls, "GCN-FL mesh 1", "GCN",
+                    fl, dev, fl_eager, make_data_mesh(1, device=dev), mods)
+    n_adj = sum(m["x_is_adj"] for m in m1["engine"].report.meta)
+    if not (torch.equal(m1["logits"], single)
+            and m1["engine"].cache.sharded_count() == n_adj):
+        raise AssertionError("GCN-FL on a mesh of one device is not the "
+                             "single-device engine's result, or lowered "
+                             f"{m1['engine'].cache.sharded_count()} sharded "
+                             f"dispatches for {n_adj} adjacency kernels")
+    log(f"  mesh 1 bitwise equal to the single-device engine; one sharded "
+        f"dispatch per adjacency kernel ({n_adj})")
+    del m1["engine"]
+
+    mesh = DataMesh((dev,) * MESH_SHARDS)
+    m4 = drive_mesh(torch, tgnn, ops, engine_cls, "GCN-FL mesh 4 halo",
+                    "GCN", fl, dev, fl_eager, mesh, mods)
+    m4r = drive_mesh(torch, tgnn, ops, engine_cls, "GCN-FL mesh 4 replicate",
+                     "GCN", fl, dev, fl_eager, mesh, mods,
+                     operand_sharding="replicate")
+    if not torch.equal(m4["logits"], m4r["logits"]):
+        raise AssertionError("GCN-FL halo and replicate disagree")
+    log("  halo bitwise equal to replicate")
+    del m4r["engine"]
+    m4["exchange_ms"] = profile_exchange(torch, tgnn, "GCN", m4["engine"],
+                                         fl, fl_eager["params"], dev)
+    for label, rec in (("GCN-FL", fl_eager), ("GCN-FL mesh 4 halo", m4)):
+        time_shard_calls(torch, mods, label, "spdmm_fused",
+                         rec["calls"]["spdmm_fused"])
+    m4["params"] = fl_eager["params"]
+    m4c = drive_mesh_compiled(torch, tgnn, ops, "GCN-FL mesh 4 compiled",
+                              "GCN", fl, dev, mods, m4)
+    del m4["engine"]
+    co4 = drive_mesh(torch, tgnn, ops, engine_cls, "GIN-CO mesh 4", "GIN",
+                     co, dev, co_eager, mesh, mods)
+    require_launched("GIN-CO mesh 4", co4["launches"], ("spmm_fused",))
+    for label, rec in (("GIN-CO", co_eager), ("GIN-CO mesh 4", co4)):
+        time_shard_calls(torch, mods, label, "spmm_fused",
+                         rec["calls"]["spmm_fused"])
+    del co4["engine"]
+    pinned = drive_pinned(torch, engine_cls, ops, dev, mods)
+    return {"GCN-FL mesh 1": m1, "GCN-FL mesh 4 halo": m4,
+            "GCN-FL mesh 4 replicate": m4r, "GCN-FL mesh 4 compiled": m4c,
+            "GIN-CO mesh 4": co4, "pinned mesh 4": pinned}
+
+
 def summarize(torch, mods, paths):
     """One summary entry per kernel: its worst error against the plain
     version over every recorded call, and the times of its first recorded
@@ -1529,6 +1876,8 @@ def main() -> int:
                             "per-task GIN-CO", "GIN", co, dev, mods,
                             co_eager)
     batch = drive_gemm_batch(torch, ops, dev, mods)
+    sharded = drive_sharded(torch, gnn, ops, DynasparseEngine, fl, co, dev,
+                            fl_eager, co_eager, mods)
 
     calib, fl_calib = drive_calibration(torch, gnn, ops, DynasparseEngine,
                                         fl, dev, fl_eager, mods)
@@ -1551,6 +1900,12 @@ def main() -> int:
                              mods=mods)
     require_launched("GIN-CO serving", co_serve["launches"],
                      ("spmm_fused", "spdmm_fused", "gemm_batch_scatter"))
+    co_mesh = drive_serving(torch, gnn, ops, DynasparseEngine,
+                            "GIN-CO serving, mesh 1", "GIN", co, dev,
+                            co_eager, n_requests=8, max_batch=4,
+                            min_compiled=1, mods=mods, n_devices=1)
+    require_launched("GIN-CO serving, mesh 1", co_mesh["launches"],
+                     ("spmm_fused", "spdmm_fused"))
     chaos = drive_chaos(torch, ops, DynasparseEngine, co, dev, co_eager,
                         mods)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1569,7 +1924,11 @@ def main() -> int:
                          ("GCN-FL serving", fl, fl_serve),
                          ("GCN-FL serving, cache holding FL", fl, fl_held),
                          ("GIN-CO serving", co, co_serve),
-                         ("GIN-CO chaos", co, chaos)])
+                         ("GIN-CO chaos", co, chaos)]
+                        + [(label, fl if "FL" in label else
+                            co if "CO" in label else None, rec)
+                           for label, rec in sharded.items()]
+                        + [("GIN-CO serving, mesh 1", co, co_mesh)])
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -31,14 +31,19 @@ Two strategies:
   VI/VII); ``greedy`` underuses the ALUs on medium-density kernels and is
   kept for ablation.
 
-The ``hw`` argument is any :class:`HardwareModel`.  ``analyze_sharded`` (the
-mesh placement) comes with the multi-device slice of the port.
+The ``hw`` argument is any :class:`HardwareModel`.  ``analyze_sharded`` is
+the mesh placement: a band of row-stripes per device, then this analysis
+inside each band.
 """
 from __future__ import annotations
 
+import dataclasses
 import heapq
 
-from repro_torch.core.partition import KernelPartition, Task
+import numpy as np
+
+from repro_torch.core.partition import (DevicePlacement, KernelPartition,
+                                        Task, band_partition)
 from repro_torch.core.perfmodel import HardwareModel, t_dense, t_sparse
 
 
@@ -110,6 +115,59 @@ def analyze_kernel(
         task.queue, task.primitive = queue, prim
         (stq if queue == "STQ" else dtq).append(task)
     return stq, dtq
+
+
+def analyze_sharded(
+    part: KernelPartition,
+    hws: list[HardwareModel],
+    *,
+    strategy: str = "balanced",
+    mode: str = "dynamic",
+) -> tuple[list[Task], list[Task], DevicePlacement]:
+    """Two-level placement ``(device, queue)`` over a 1-D device mesh.
+
+    Level 1: a min-makespan contiguous band partition of row-stripes over
+    the per-device hardware models (:func:`band_partition`; the cost of a
+    stripe on device ``d`` is the sum over its tasks of
+    ``min(t_sparse, t_dense)`` under ``hws[d]``).  Level 2: the usual
+    STQ/DTQ analysis runs independently inside each band, so a device's
+    queue split follows ITS model.  Tasks get ``task.device`` filled; the
+    concatenated (STQ, DTQ) queues plus the :class:`DevicePlacement` are
+    returned.  With one device this is :func:`analyze_kernel` /
+    :func:`force_queue` on the full partition.
+    """
+    n_dev = len(hws)
+    if n_dev < 1:
+        raise ValueError("analyze_sharded needs at least one hardware model")
+    S = part.n_row_tiles
+    loads = np.zeros((n_dev, S))
+    for d, hw in enumerate(hws):
+        for task in part.tasks:
+            _fill_times(task, hw)
+            loads[d, task.i] += min(task.t_sparse, task.t_dense)
+    placement = DevicePlacement(n_dev, band_partition(loads, n_dev))
+
+    stq: list[Task] = []
+    dtq: list[Task] = []
+    for d in range(n_dev):
+        lo, hi = placement.band_starts[d], placement.band_starts[d + 1]
+        band = [t for t in part.tasks if lo <= t.i < hi]
+        for task in band:
+            task.device = d
+        if not band:
+            continue
+        sub = dataclasses.replace(part, tasks=band)
+        if mode == "dynamic":
+            s, q = analyze_kernel(sub, hws[d], strategy)
+        elif mode == "sparse_only":
+            s, q = force_queue(sub, hws[d], "STQ")
+        elif mode == "dense_only":
+            s, q = force_queue(sub, hws[d], "DTQ")
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        stq.extend(s)
+        dtq.extend(q)
+    return stq, dtq, placement
 
 
 def force_queue(part: KernelPartition, hw: HardwareModel, queue: str) -> tuple[list[Task], list[Task]]:

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import halo as _halo
 from repro_torch.device import as_tensor, host
 from repro_torch.kernels import ops
 from repro_torch.kernels.formats import BlockCSR, block_nonzero_mask
@@ -129,9 +130,10 @@ class CompiledDispatch:
 
 def plan_digest(plan, block: int) -> str:
     """Content digest of everything a dispatch is lowered from: operand
-    structure key, kernel geometry, and the ORDERED task assignment.
+    structure key, kernel geometry, the ORDERED task assignment and, for a
+    placed plan, the mesh bands and the operand ownership split they imply.
     Memoized on the plan instance; equal to the reference's digest for the
-    same (unsharded) plan."""
+    same plan."""
     memo = getattr(plan, "_dispatch_digest", None)
     if memo is not None and memo[0] == block:
         return memo[1]
@@ -141,6 +143,13 @@ def plan_digest(plan, block: int) -> str:
                    part.tile_m, part.tile_n, block)).encode())
     h.update(repr([(t.i, t.j, t.primitive) for t in plan.stq]).encode())
     h.update(repr([(t.i, t.j) for t in plan.dtq]).encode())
+    placement = plan.placement
+    if placement is not None:
+        h.update(repr(("mesh", placement.n_devices,
+                       placement.band_starts)).encode())
+        h.update(repr(("own", _halo.ownership_starts(
+            part.M, part.K, part.tile_m, placement.band_starts, block))
+        ).encode())
     digest = h.hexdigest()
     plan._dispatch_digest = (block, digest)
     return digest

@@ -28,12 +28,18 @@ kernel into the capacity block-skip route that the whole-model compiler
 ``calibration="auto"`` replaces a ``fallback=True`` model for analysis by
 a measured :class:`~repro_torch.core.calibrate.CalibratedModel` of the
 engine's device.  An optional fault injector (``faults=``) is probed at the
-``plan``, ``pack`` and ``execute`` sites, and at ``lower`` / ``pack`` of the
-dispatch lowerings.
+``plan``, ``pack`` and ``execute`` sites, at ``lower`` / ``pack`` of the
+dispatch lowerings and, on mesh engines, at ``shard_lower`` /
+``shard_exec``.
 
-Not in this slice of the port (each raises ``NotImplementedError``): mesh
-engines, per-device models and a non-default ``operand_sharding`` — the
-multi-device slice.
+``mesh=`` (a :class:`~repro_torch.launch.mesh.DataMesh`) makes a mesh
+engine: plans get a two-level (device, queue) placement
+(``analyze_sharded``, over ``per_device_models`` when given) and literal
+adjacency kernels run as a
+:class:`~repro_torch.core.shard_exec.ShardedDispatch`, one banded program
+per shard, with the dense operand distributed by ``operand_sharding``
+(``"halo"``: owned rows plus a ring exchange; ``"replicate"``: whole).  A
+mesh of size 1 takes the same sharded path.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from repro_torch.core import analyzer as _analyzer
 from repro_torch.core import dispatch as _dispatch
 from repro_torch.core import primitives as prim
 from repro_torch.core import scheduler as _scheduler
+from repro_torch.core import shard_exec as _shard_exec
 from repro_torch.core import sparsity
 from repro_torch.core.partition import choose_tile, make_tasks
 from repro_torch.core.perfmodel import VCK5000, HardwareModel
@@ -92,10 +99,20 @@ class EngineReport:
             kernels=[(name, rep.scaled(s)) for name, rep in self.kernels],
             meta=list(self.meta))
 
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} comes with the {slice_name} slice of the port")
+    @property
+    def by_device(self) -> list[_scheduler.ScheduleReport]:
+        """Per-device totals of a (possibly) sharded run — one merged
+        :class:`ScheduleReport` per mesh device.  Kernels without a
+        per-device breakdown (unsharded plans) count for device 0, so an
+        unsharded run returns ``[self.total]``."""
+        out: list[_scheduler.ScheduleReport] = []
+        for _, rep in self.kernels:
+            per = list(rep.per_device) if rep.per_device else [rep]
+            while len(out) < len(per):
+                out.append(_scheduler.ScheduleReport.zero())
+            for d, r in enumerate(per):
+                out[d] = out[d].merge(r)
+        return out
 
 
 class DynasparseEngine:
@@ -122,9 +139,42 @@ class DynasparseEngine:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if (mesh is not None or per_device_models is not None
-                or operand_sharding != "halo"):
-            raise _later("mesh sharding", "multi-device")
+        # a 1-D ("data",) DataMesh makes a mesh engine: sharded plan /
+        # lower / execute, one banded program per shard; its device is the
+        # mesh's first.  None = single-device engine (a size-1 mesh is the
+        # degenerate case of the SAME sharded path).
+        if mesh is not None:
+            names = tuple(getattr(mesh, "axis_names", ()))
+            if names != ("data",):
+                raise ValueError(
+                    f"DynasparseEngine mesh must be 1-D with axis ('data',), "
+                    f"got axes {names!r}")
+            kinds = {d.type for d in mesh.devices}
+            if kinds != {self.device.type}:
+                raise ValueError(
+                    f"mesh devices {[str(d) for d in mesh.devices]} are not "
+                    f"all of the engine's device type {self.device.type!r}")
+            self.device = resolve_device(mesh.devices[0])
+        self.mesh = mesh
+        # dense-operand distribution of the sharded executor: "halo" ships
+        # each shard its OWNED block-rows plus the halo its band reads;
+        # "replicate" ships the whole operand (the bitwise oracle)
+        if operand_sharding not in _shard_exec.OPERAND_SHARDINGS:
+            raise ValueError(
+                f"operand_sharding must be one of "
+                f"{_shard_exec.OPERAND_SHARDINGS}, got {operand_sharding!r}")
+        self.operand_sharding = operand_sharding
+        # per-device cost models of the band placement (e.g. two card
+        # generations) instead of n_devices copies of the runtime model
+        if per_device_models is not None:
+            if mesh is None:
+                raise ValueError("per_device_models requires a mesh engine")
+            if len(per_device_models) != mesh.size:
+                raise ValueError(
+                    f"per_device_models must list one model per mesh device "
+                    f"({mesh.size}), got {len(per_device_models)}")
+            per_device_models = list(per_device_models)
+        self.per_device_models = per_device_models
         self.hw = hw
         # optional repro_torch.serving.faults.FaultInjector (anything with
         # .probe(site, detail)); None keeps every probe a no-op
@@ -149,9 +199,8 @@ class DynasparseEngine:
 
     @property
     def n_devices(self) -> int:
-        """Devices the engine runs on: 1 (mesh engines come with the
-        multi-device slice)."""
-        return 1
+        """Mesh size (1 for single-device engines)."""
+        return 1 if self.mesh is None else self.mesh.size
 
     def reset(self) -> None:
         """Clear the accumulated report.  The plan cache survives — it is
@@ -216,6 +265,13 @@ class DynasparseEngine:
             struct_key = (coo_fingerprint(x), tm, self.eps)
             plan_key = (struct_key, K, N, tn, self.mode, self.strategy,
                         hw.name)
+            if self.mesh is not None:
+                # the mesh geometry (and per-device model names, which move
+                # the band DP) is part of a placed plan's identity
+                mesh_key = ("mesh", self.n_devices)
+                if self.per_device_models is not None:
+                    mesh_key += tuple(m.name for m in self.per_device_models)
+                plan_key = plan_key + (mesh_key,)
             cached = self.cache.get_plan(plan_key)
             if cached is not None:
                 if self.drift_threshold is None:
@@ -245,18 +301,28 @@ class DynasparseEngine:
         # (2) task grid
         part = make_tasks(name, M, K, N, row_d, col_d, tm, tn)
 
-        # (3) analyzer, (4) scheduler simulation → hardware-time estimate
-        if self.mode == "dynamic":
-            stq, dtq = _analyzer.analyze_kernel(part, hw, self.strategy)
-        elif self.mode == "sparse_only":
-            stq, dtq = _analyzer.force_queue(part, hw, "STQ")
+        # (3) analyzer, (4) scheduler simulation → hardware-time estimate;
+        # mesh engines also place contiguous stripe bands onto devices
+        placement = None
+        if self.mesh is not None:
+            hws = (self.per_device_models
+                   if self.per_device_models is not None
+                   else [hw] * self.n_devices)
+            stq, dtq, placement = _analyzer.analyze_sharded(
+                part, hws, strategy=self.strategy, mode=self.mode)
+            rep = _scheduler.simulate_sharded(stq, dtq, placement, hws)
         else:
-            stq, dtq = _analyzer.force_queue(part, hw, "DTQ")
-        rep = _scheduler.simulate(stq, dtq, hw)
+            if self.mode == "dynamic":
+                stq, dtq = _analyzer.analyze_kernel(part, hw, self.strategy)
+            elif self.mode == "sparse_only":
+                stq, dtq = _analyzer.force_queue(part, hw, "STQ")
+            else:
+                stq, dtq = _analyzer.force_queue(part, hw, "DTQ")
+            rep = _scheduler.simulate(stq, dtq, hw)
         plan = KernelPlan(part=part, stq=stq, dtq=dtq, report=rep,
                           row_density=np.asarray(row_d),
                           col_density=np.asarray(col_d),
-                          struct_key=struct_key)
+                          struct_key=struct_key, placement=placement)
         if plan_key is not None:
             self.cache.put_plan(plan_key, plan)
         self.last_plan = plan
@@ -306,9 +372,10 @@ class DynasparseEngine:
                      x) -> "_dispatch.CompiledDispatch | None":
         """The plan's :class:`CompiledDispatch` (cached; lowered on first
         need), or ``None`` when the kernel is not compilable: non-literal
-        engines, uncacheable (dense X) operands, or canvas-misaligned
-        geometry."""
-        if not (self.literal and self.batched):
+        engines, uncacheable (dense X) operands, canvas-misaligned geometry,
+        or a mesh engine (it lowers through :meth:`sharded_dispatch_for`,
+        even at mesh size 1)."""
+        if not (self.literal and self.batched) or self.mesh is not None:
             return None
         if not isinstance(x, SparseCOO) or plan.struct_key is None:
             return None
@@ -322,6 +389,33 @@ class DynasparseEngine:
                 plan.part, plan.stq, plan.dtq, entry.stripes,
                 block=self.block, eps=self.eps, fingerprint=digest,
                 faults=self.faults))
+
+    def sharded_dispatch_for(
+            self, plan: KernelPlan,
+            x) -> "_shard_exec.ShardedDispatch | None":
+        """The placed plan's
+        :class:`~repro_torch.core.shard_exec.ShardedDispatch` (cached;
+        lowered on first need, each shard's slice uploaded to its mesh
+        device then), or ``None`` when the kernel is not compilable — the
+        decline conditions of :meth:`dispatch_for`, plus a plan without a
+        placement (made by a single-device engine)."""
+        if self.mesh is None or not (self.literal and self.batched):
+            return None
+        if not isinstance(x, SparseCOO) or plan.struct_key is None:
+            return None
+        if plan.placement is None:
+            return None
+        if _dispatch.canvas_slots(plan.part, self.block) is None:
+            return None
+        _, entry = self._packed_structure(plan, x)
+        digest = _dispatch.plan_digest(plan, self.block)
+        return self.cache.sharded_dispatch(
+            (plan.struct_key, digest, self.n_devices, self.operand_sharding),
+            lambda: _shard_exec.build_sharded_dispatch(
+                plan.part, plan.stq, plan.dtq, entry.stripes, plan.placement,
+                block=self.block, eps=self.eps, fingerprint=digest,
+                operand_sharding=self.operand_sharding, faults=self.faults,
+                devices=self.mesh.devices))
 
     def activation_dispatch_for(
             self, plan: KernelPlan, x, *, capacity=None,
@@ -375,6 +469,21 @@ class DynasparseEngine:
             xd = self._ensure_dense(key, entry, x)
         return d, xd
 
+    def sharded_operands(
+            self, plan: KernelPlan,
+            x) -> "tuple[_shard_exec.ShardedDispatch, torch.Tensor | None] | None":
+        """(sharded dispatch, densified-x-or-None) for a placed plan, or
+        ``None`` when not compilable — the mesh counterpart of
+        :meth:`compiled_operands`."""
+        sd = self.sharded_dispatch_for(plan, x)
+        if sd is None:
+            return None
+        xd = None
+        if sd.needs_x:
+            key, entry = self._packed_structure(plan, x)
+            xd = self._ensure_dense(key, entry, x)
+        return sd, xd
+
     def execute(self, plan: KernelPlan, x, y) -> torch.Tensor:
         """Functional result of a planned kernel (no re-analysis).
 
@@ -386,6 +495,13 @@ class DynasparseEngine:
         x = self._operand(x)
         y = as_tensor(y, self.device)
         if self.literal:
+            if self.mesh is not None:
+                spair = self.sharded_operands(plan, x)
+                if spair is not None:
+                    sd, xd = spair
+                    return _shard_exec.execute_sharded(
+                        sd, xd, y, mesh=self.mesh, stats=self.cache.stats,
+                        faults=self.faults)
             pair = self.compiled_operands(plan, x)
             if pair is not None:
                 d, xd = pair

@@ -3,12 +3,17 @@
 A *kernel* is one matmul ``Z = X · Y`` (feature aggregation ``A·H`` or feature
 transformation ``H·W``).  It is decomposed into independent *tasks*, one per
 output partition ``Z_ij = X_{i,:} · Y_{:,j}`` — the unit the runtime system
-schedules onto the dense or sparse engine.  (The mesh placement of the
-reference, ``DevicePlacement`` / ``band_partition``, comes with the
-multi-device slice of the port.)
+schedules onto the dense or sparse engine.
+
+Placement (multi-device): on a mesh engine the Analyzer's queue assignment
+becomes a TWO-level decision ``(device, queue)`` — each device owns a
+contiguous band of row-stripes (:class:`DevicePlacement`, min-makespan over
+the per-device hardware models via :func:`band_partition`), and within its
+band the usual STQ/DTQ split applies.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Sequence
 
@@ -62,6 +67,78 @@ class KernelPartition:
     def col_extent(self, j: int) -> int:
         """Logical column count of col-tile ``j`` (ragged tail aware)."""
         return min(self.tile_n, self.N - j * self.tile_n)
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePlacement:
+    """Assignment of contiguous row-stripe bands to mesh devices.
+
+    ``band_starts`` has ``n_devices + 1`` monotone entries with
+    ``band_starts[0] == 0`` and ``band_starts[-1] == n_row_tiles``; device
+    ``d`` owns stripes ``[band_starts[d], band_starts[d+1])``.  Bands may be
+    empty (more devices than stripes).
+    """
+    n_devices: int
+    band_starts: tuple[int, ...]
+
+    def __post_init__(self):
+        bs = self.band_starts
+        if len(bs) != self.n_devices + 1 or bs[0] != 0:
+            raise ValueError(f"malformed band_starts {bs} for "
+                             f"{self.n_devices} devices")
+        if any(bs[d] > bs[d + 1] for d in range(self.n_devices)):
+            raise ValueError(f"band_starts must be monotone, got {bs}")
+
+    @property
+    def n_row_tiles(self) -> int:
+        return self.band_starts[-1]
+
+    def device_of(self, stripe: int) -> int:
+        if not 0 <= stripe < self.n_row_tiles:
+            raise ValueError(f"stripe {stripe} outside [0, {self.n_row_tiles})")
+        return bisect.bisect_right(self.band_starts, stripe) - 1
+
+    def stripes_of(self, device: int) -> range:
+        return range(self.band_starts[device], self.band_starts[device + 1])
+
+    def band_sizes(self) -> tuple[int, ...]:
+        bs = self.band_starts
+        return tuple(bs[d + 1] - bs[d] for d in range(self.n_devices))
+
+
+def band_partition(loads: np.ndarray, n_devices: int) -> tuple[int, ...]:
+    """Min-makespan contiguous partition of stripes into device bands.
+
+    ``loads[d, s]`` is the cost of stripe ``s`` when placed on device ``d``
+    (devices may run different models, so the cost of one stripe differs
+    per device).  Exact DP:
+    ``f[d][b] = min_a max(f[d-1][a], sum(loads[d, a:b]))``, O(D·S²).
+    Returns ``band_starts`` of length ``n_devices + 1``.
+    """
+    loads = np.asarray(loads, dtype=np.float64)
+    if loads.ndim != 2 or loads.shape[0] != n_devices:
+        raise ValueError(f"loads must be (n_devices, n_stripes), got "
+                         f"{loads.shape} for {n_devices} devices")
+    S = loads.shape[1]
+    # prefix[d, b] = sum of loads[d, :b]
+    prefix = np.concatenate(
+        [np.zeros((n_devices, 1)), np.cumsum(loads, axis=1)], axis=1)
+    f = prefix[0].copy()               # device 0 takes stripes [0, b)
+    back = np.zeros((n_devices, S + 1), dtype=np.int64)
+    for d in range(1, n_devices):
+        nf = np.empty(S + 1)
+        for b in range(S + 1):
+            band = prefix[d, b] - prefix[d, : b + 1]     # cost of [a, b) on d
+            cand = np.maximum(f[: b + 1], band)
+            a = int(np.argmin(cand))
+            nf[b] = cand[a]
+            back[d, b] = a
+        f = nf
+    starts = [S]
+    for d in range(n_devices - 1, 0, -1):
+        starts.append(int(back[d, starts[-1]]))
+    starts.append(0)
+    return tuple(reversed(starts))
 
 
 def make_tasks(

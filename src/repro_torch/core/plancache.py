@@ -15,6 +15,9 @@ Levels, held in ONE byte-accounted LRU store:
   task grid, STQ/DTQ assignment, and simulated ``ScheduleReport``.
 - **dispatch level** (structure key + plan digest): the plan lowered into a
   device-resident :class:`~repro_torch.core.dispatch.CompiledDispatch`.
+- **sharded-dispatch level** (structure key + plan digest + device count
+  + operand-sharding mode): a mesh engine's placed plan lowered into a
+  :class:`~repro_torch.core.shard_exec.ShardedDispatch`.
 - **activation-dispatch level** (plan digest + capacity + eps): the
   capacity-parameterized descriptor arrays of an activation-side (dense X)
   kernel's block-skip route
@@ -28,8 +31,7 @@ Levels, held in ONE byte-accounted LRU store:
 Only kernels whose X operand is ``SparseCOO`` are planned once; dense X
 (activations) is planned fresh every call.  Keys and fingerprints equal the
 reference package's for the same operand, so the two caches can be compared
-entry by entry.  The sharded level comes with the multi-device slice of
-the port.
+entry by entry.
 """
 from __future__ import annotations
 
@@ -154,8 +156,9 @@ class KernelPlan:
 
     ``struct_key`` is set when the X operand is cacheable (static sparsity);
     it addresses the packed-stripe entry used by the literal dispatch path.
-    ``placement`` is the mesh placement of the multi-device slice; always
-    ``None`` in the single-device engine.
+    ``placement`` is set by mesh engines (``analyze_sharded``): the
+    contiguous row-stripe band each device owns; ``None`` on single-device
+    plans.
     """
     part: KernelPartition
     stq: list[Task]
@@ -164,7 +167,7 @@ class KernelPlan:
     row_density: np.ndarray
     col_density: np.ndarray
     struct_key: tuple | None = None
-    placement: object | None = None   # mesh placement: multi-device slice
+    placement: object | None = None   # core.partition.DevicePlacement
 
 
 @dataclasses.dataclass
@@ -192,6 +195,7 @@ class PlanCache:
     # entry-kind prefixes of the unified store
     _PLAN, _DENSITY, _STRUCT, _DISPATCH = "plan", "density", "struct", "dispatch"
     _ACT = "actdispatch"
+    _SHARD = "sharddispatch"
     _CALIB = "calib"
 
     def __init__(self, capacity: int = 256, max_bytes: int | None = None):
@@ -333,6 +337,53 @@ class PlanCache:
         ``dispatch_builds == plan_count()``)."""
         return sum(1 for (kind, _k) in self._entries
                    if kind == self._DISPATCH)
+
+    def sharded_dispatch(self, key: tuple, compute: Callable[[], object]):
+        """Get-or-compute a
+        :class:`~repro_torch.core.shard_exec.ShardedDispatch`.
+
+        Keyed on (structure key, plan digest, device count, operand-sharding
+        mode): the digest of a placed plan hashes the band layout and the
+        ownership split, the device count keeps sharded entries apart from
+        unsharded ones, and the mode keeps halo and replicated lowerings of
+        one plan apart.  Counts into the shared ``dispatch_*`` counters, so
+        ``dispatch_builds == plans`` holds in steady state whether an engine
+        shards or not.  ``None`` is never cached."""
+        d = self._get(self._SHARD, key)
+        if d is not None:
+            self.stats.dispatch_hits += 1
+            return d
+        d = compute()
+        if d is not None:
+            self.stats.dispatch_builds += 1
+            self._put(self._SHARD, key, d)
+        return d
+
+    def sharded_count(self) -> int:
+        """Number of cached sharded-dispatch entries."""
+        return sum(1 for (kind, _k) in self._entries if kind == self._SHARD)
+
+    def sharded_operand_bytes(self) -> dict:
+        """Analytic dense-operand memory over every cached sharded
+        dispatch: owned / halo / replicated-fallback bytes
+        (``ShardedDispatch.operand_bytes``) summed across entries, plus the
+        replicated baseline those entries would have cost.  Surfaced by
+        ``ServingEngine.dispatch_stats()``."""
+        out = {"entries": 0, "owned_bytes": 0, "halo_bytes": 0,
+               "fallback_bytes": 0, "replicated_bytes": 0}
+        for (kind, _k), (value, _nb) in list(self._entries.items()):
+            if kind != self._SHARD:
+                continue
+            ob = getattr(value, "operand_bytes", None)
+            if not ob:
+                continue
+            out["entries"] += 1
+            for f in ("owned_bytes", "halo_bytes", "fallback_bytes"):
+                out[f] += int(ob.get(f, 0))
+            out["replicated_bytes"] += (
+                int(ob.get("replicated_per_device_bytes", 0))
+                * int(getattr(value, "n_devices", 1)))
+        return out
 
     # ------------------------------------------- activation-dispatch level
     def activation_dispatch(self, key: tuple, compute: Callable[[], object]):

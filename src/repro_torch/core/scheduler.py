@@ -143,6 +143,32 @@ def simulate(stq: list[Task], dtq: list[Task], hw: HardwareModel) -> ScheduleRep
     )
 
 
+def simulate_sharded(
+    stq: list[Task],
+    dtq: list[Task],
+    placement,
+    hws: list[HardwareModel],
+) -> ScheduleReport:
+    """Simulate a device-placed plan: each device runs its band's queues
+    concurrently with every other device.  Combined makespan is the slowest
+    device; busy times / flops / data are totals; ``per_device`` carries the
+    per-device sub-reports for :attr:`EngineReport.by_device`."""
+    if placement.n_devices != len(hws):
+        raise ValueError(f"placement has {placement.n_devices} devices, "
+                         f"got {len(hws)} hardware models")
+    per_dev = [simulate([t for t in stq if t.device == d],
+                        [t for t in dtq if t.device == d], hw)
+               for d, hw in enumerate(hws)]
+    combined = ScheduleReport.zero()
+    for rep in per_dev:
+        combined = combined.merge(rep)
+    return dataclasses.replace(
+        combined,
+        makespan=max((r.makespan for r in per_dev), default=0.0),
+        per_device=tuple(per_dev),
+    )
+
+
 def execute_plan(
     part: KernelPartition,
     stq: list[Task],

@@ -1,3 +1,3 @@
 """Host-side control plane of the port: failure and straggler detection
-(:mod:`repro_torch.distributed.fault`).  Sharding comes with the
-multi-device slice."""
+(:mod:`repro_torch.distributed.fault`).  Sharding is single-controller
+(:mod:`repro_torch.core.shard_exec`, :mod:`repro_torch.launch.mesh`)."""

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dispatch as _dispatch
+from repro_torch.core import shard_exec as _shard_exec
 from repro_torch.core import sparsity
 from repro_torch.core.engine import DynasparseEngine, EngineReport
 from repro_torch.core.primitives import SparseCOO
@@ -189,6 +190,8 @@ class CompiledModel:
     stats: object | None = None   # CacheStats receiving call accounting
     faults: object | None = None  # FaultInjector probed at "compiled"
     device: torch.device = torch.device("cpu")
+    # a mesh engine's shard devices (empty for a single-device engine)
+    mesh_devices: tuple = ()
     calls: int = 0
     traces: int = 0               # distinct input signatures (captures)
     # per-activation-kernel telemetry of the LAST call: stored / capacity /
@@ -217,7 +220,14 @@ class CompiledModel:
         """Capture the replay body for ``h``'s signature
         (:func:`repro_torch.device.capture_graph`: one uncaptured run on a
         side stream, then the capture), counting the captured run's
-        launches."""
+        launches.  A mesh over several distinct cards is refused: a CUDA
+        graph belongs to one device."""
+        if len(set(self.mesh_devices)) > 1:
+            raise NotImplementedError(
+                "capturing a compiled model over a mesh of several cards "
+                f"({[str(d) for d in self.mesh_devices]}) is not supported "
+                "yet: a CUDA graph belongs to one device (ROADMAP, queue "
+                "1); run the mesh engine eagerly instead")
         static_h = h.clone()
         launched = []
 
@@ -274,7 +284,10 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
     plans, packs and lowers every adjacency kernel into the plan cache,
     while this function records each kernel's route.  The replay body then
     runs the model with every adjacency kernel as its compiled-dispatch
-    body (:func:`~repro_torch.core.dispatch.apply_dispatch`).
+    body (:func:`~repro_torch.core.dispatch.apply_dispatch`; on a mesh
+    engine the sharded body :func:`~repro_torch.core.shard_exec.
+    apply_sharded`, halo exchange included, which a mesh whose shards all
+    sit on one card captures into the same CUDA graph).
 
     Activation-side (dense X) kernels choose their route from the warmup
     plan: when its Analyzer routed tasks to the sparse engine, the kernel
@@ -293,7 +306,8 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
     """
     transport = transport if transport is not None else (lambda mm: mm)
     h = as_tensor(h, engine.device)
-    # ("sparse", geom) | ("act", geom) | ("gemm", None) per kernel
+    # ("sparse", geom) | ("shard", (geom, band_rows, halo)) | ("act", geom)
+    # | ("gemm", None) per kernel
     records: list[tuple[str, object]] = []
     payload: list = []
     compilable = [True]
@@ -302,6 +316,19 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
     def recording(x, y, name="kernel"):
         z, _ = engine.matmul(x, y, name=name)
         if isinstance(x, SparseCOO):
+            if engine.mesh is not None:
+                spair = engine.sharded_operands(engine.last_plan, x)
+                if spair is None:
+                    compilable[0] = False
+                    records.append(("gemm", None))
+                    payload.append(None)
+                else:
+                    sd, xd = spair
+                    records.append(("shard",
+                                    (sd.geom, sd.band_rows, sd.halo)))
+                    payload.append({"shards": sd.shards(engine.mesh.devices),
+                                    "xd": xd})
+                return z
             pair = engine.compiled_operands(engine.last_plan, x)
             if pair is None:
                 compilable[0] = False
@@ -343,6 +370,11 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
                     geom, p["arrays"], x, y)
                 act_diags.append(diag)
                 return z
+            if kind == "shard":
+                sgeom, band_rows, halo = geom
+                return _shard_exec.apply_sharded(
+                    sgeom, band_rows, p["shards"], p["xd"], y,
+                    devices=engine.mesh.devices, halo=halo)
             return _dispatch.apply_dispatch(geom, p["arrays"], p["xd"], y)
 
         out = APPLY[model](transport(mm), adj, hh, params)
@@ -357,10 +389,11 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
         model=model, run=replay, payload=payload, report=report,
         input_sketch=np.asarray(sketch), sketch_tile=tn,
         n_kernels=len(records),
-        n_sparse=sum(1 for k, _ in records if k == "sparse"),
+        n_sparse=sum(1 for k, _ in records if k in ("sparse", "shard")),
         n_act=sum(1 for k, _ in records if k == "act"),
         stats=engine.cache.stats, faults=engine.faults,
-        device=engine.device)
+        device=engine.device,
+        mesh_devices=() if engine.mesh is None else engine.mesh.devices)
 
 
 def run_inference(model: str, engine: DynasparseEngine, adj, h, params, *,

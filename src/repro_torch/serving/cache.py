@@ -18,7 +18,8 @@ to host numpy) plus the graph registry in the port's own format
 reader of :mod:`repro_torch.snapshot` and re-uploads packed structures and
 dispatch arrays to the cache's device once, so a serving restart skips
 re-analysis, re-packing and re-lowering entirely.  A snapshot of the JAX
-package is refused (a logged cold start).
+package is refused (a logged cold start), and a sharded dispatch of a mesh
+larger than the devices this host shows is skipped (``mesh_skipped``).
 """
 from __future__ import annotations
 
@@ -34,11 +35,15 @@ from repro_torch.core.plancache import (PlanCache, StructureEntry,
                                         coo_fingerprint, key_mentions)
 from repro_torch.core.primitives import SparseCOO
 from repro_torch.device import host, resolve_device
+from repro_torch.launch.mesh import visible_devices
 
 logger = logging.getLogger(__name__)
 
 _PERSIST_FORMAT = "repro_torch.plancache"
-_PERSIST_VERSION = 1
+# v2: mesh-sharded dispatch — KernelPlan carries a DevicePlacement and the
+# sharded-dispatch entry kind (ShardedDispatch, its ColumnSupports and
+# HaloGeometry) was added; v1 snapshots cold-start.
+_PERSIST_VERSION = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +153,14 @@ class SharedPlanCache(PlanCache):
     def dispatch(self, key, compute):
         with self._lock:
             return super().dispatch(key, compute)
+
+    def sharded_dispatch(self, key, compute):
+        with self._lock:
+            return super().sharded_dispatch(key, compute)
+
+    def sharded_count(self):
+        with self._lock:
+            return super().sharded_count()
 
     def dispatch_count(self):
         with self._lock:
@@ -285,8 +298,8 @@ class SharedPlanCache(PlanCache):
             logger.warning(
                 "plan-cache snapshot %s unusable (%s: %s) — cold start",
                 path, type(exc).__name__, exc)
-            return {"entries": 0, "stale_skipped": 0, "graphs": 0,
-                    "cold_start": True,
+            return {"entries": 0, "stale_skipped": 0, "mesh_skipped": 0,
+                    "graphs": 0, "cold_start": True,
                     "error": f"{type(exc).__name__}: {exc}"}
         with self._lock:
             # fingerprints the live registry has superseded — unless some
@@ -301,12 +314,20 @@ class SharedPlanCache(PlanCache):
             live = list(self.items())
             self._entries.clear()
             self.bytes_used = 0
-            loaded = skipped = 0
+            n_live = visible_devices(self.device.type)
+            loaded = skipped = mesh_skipped = 0
             for (kind, key), value in snap_entries:
                 if any(key_mentions(key, fp) for fp in stale):
                     skipped += 1
                     continue
-                if kind in (self._STRUCT, self._DISPATCH, self._ACT):
+                if kind == self._SHARD and value.n_devices > n_live:
+                    # a sharded dispatch of a bigger mesh than this host can
+                    # build: its keys carry the device count, so it could
+                    # never be hit — not resurrected into the byte budget
+                    mesh_skipped += 1
+                    continue
+                if kind in (self._STRUCT, self._DISPATCH, self._ACT,
+                            self._SHARD):
                     value = _to_device(value, self.device)
                 super()._put(kind, key, value)
                 loaded += 1
@@ -315,6 +336,7 @@ class SharedPlanCache(PlanCache):
             for gid, key in snap_graphs.items():
                 self._graphs.setdefault(gid, key)
             return {"entries": loaded, "stale_skipped": skipped,
+                    "mesh_skipped": mesh_skipped,
                     "graphs": len(snap_graphs), "cold_start": False}
 
 

@@ -60,9 +60,10 @@ column slices of a batch's logits, which a compiled program returns as a
 copy of its static output, so a later replay never overwrites an earlier
 caller's result.
 
-Multi-device serving (``ServingConfig.n_devices``, a non-default
-``operand_sharding``) comes with the multi-device slice of the port and
-raises ``NotImplementedError`` until then.
+``ServingConfig.n_devices`` serves through a mesh engine over the first
+``n_devices`` devices of the cache's type
+(:func:`repro_torch.launch.mesh.make_data_mesh`), literal and batched, with
+``operand_sharding`` as the dense operand's distribution.
 """
 from __future__ import annotations
 
@@ -77,10 +78,11 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.engine import DynasparseEngine, EngineReport, _later
+from repro_torch.core.engine import DynasparseEngine, EngineReport
 from repro_torch.core.primitives import SparseCOO
 from repro_torch.device import as_tensor
 from repro_torch.distributed.fault import FaultMonitor
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models import gnn
 from repro_torch.serving.cache import (GraphKey, SharedPlanCache,
                                        get_shared_cache)
@@ -132,10 +134,17 @@ class ServingConfig:
     # need × slack) instead of one uniform max-need budget — cuts padded-
     # slot waste on skewed activations; off restores the uniform budget.
     activation_per_stripe: bool = True
-    # Multi-device dispatch (shard each graph's row-stripe bands over this
-    # many devices) and its dense-operand distribution: the multi-device
-    # slice of the port.  Anything but the defaults raises until then.
+    # Multi-device dispatch: shard each graph's row-stripe bands over a 1-D
+    # ("data",) mesh of this many devices (None = single-device engine).
+    # The constructed engine is literal and batched (the sharded path is a
+    # compiled-dispatch route) and plans with a two-level (device, queue)
+    # placement.  Needs that many visible devices (``make_data_mesh``
+    # raises otherwise).
     n_devices: int | None = None
+    # Dense-operand distribution of the sharded executor: "halo" (default)
+    # ships each shard its owned block-rows plus the halo its band reads;
+    # "replicate" ships the whole operand (the bitwise oracle).  Ignored
+    # without ``n_devices``.
     operand_sharding: str = "halo"
     # ---- degraded-mode serving (fault tolerance policy) -----------------
     # Per-request retry budget once a request has been isolated by the
@@ -349,13 +358,27 @@ class ServingEngine:
         self.params = params
         self.config = config
         self.faults = config.faults
-        if config.n_devices is not None or config.operand_sharding != "halo":
-            raise _later("multi-device serving", "multi-device")
         if engine is None:
             # `is None`, not `or`: an empty PlanCache is falsy (__len__)
             shared = cache if cache is not None else get_shared_cache()
-            engine = DynasparseEngine(cache=shared, faults=config.faults,
-                                      device=shared.device)
+            if config.n_devices is not None:
+                # mesh serving implies the literal batched engine: a
+                # non-literal mesh engine would run single-device eagerly
+                engine = DynasparseEngine(
+                    cache=shared, faults=config.faults, device=shared.device,
+                    mesh=make_data_mesh(config.n_devices,
+                                        device=shared.device),
+                    literal=True, batched=True,
+                    operand_sharding=config.operand_sharding)
+            else:
+                engine = DynasparseEngine(cache=shared, faults=config.faults,
+                                          device=shared.device)
+        elif config.n_devices is not None and (
+                engine.n_devices != config.n_devices):
+            raise ValueError(
+                f"ServingConfig.n_devices={config.n_devices} conflicts with "
+                f"the supplied engine's mesh ({engine.n_devices} device(s)); "
+                f"pass one or the other")
         elif (isinstance(engine.cache, SharedPlanCache)
               and engine.cache.device != engine.device):
             raise ValueError(
@@ -409,6 +432,11 @@ class ServingEngine:
         return {
             "plans": self.engine.cache.plan_count(),
             "n_devices": self.engine.n_devices,
+            "sharded_dispatches": self.engine.cache.sharded_count(),
+            "operand_sharding": self.engine.operand_sharding,
+            # per-shard dense-operand memory of the sharded dispatches
+            # (owned / halo / replicated-fallback bytes)
+            "operand_bytes": self.engine.cache.sharded_operand_bytes(),
             "dispatch_builds": s.dispatch_builds,
             "dispatch_hits": s.dispatch_hits,
             "act_builds": s.act_builds,

@@ -18,10 +18,11 @@ Instrumented sites (``KNOWN_SITES``):
                       (``_packed_structure`` build,
                       ``build_activation_dispatch``)
 ``execute``           ``DynasparseEngine.execute`` entry (eager execute)
-``shard_lower``       sharded descriptor lowering (the multi-device slice
-                      of the port; nothing probes it yet)
-``shard_exec``        sharded compiled execute entry (the multi-device
-                      slice; nothing probes it yet)
+``shard_lower``       sharded descriptor lowering + halo-exchange schedule
+                      compilation (``build_sharded_dispatch``)
+``shard_exec``        sharded compiled execute entry
+                      (``shard_exec.execute_sharded``, a mesh engine's
+                      literal adjacency kernel)
 ``compiled``          ``CompiledModel.__call__`` (whole-model compiled
                       execute: a CUDA-graph replay on the card)
 ``request``           per-request probe inside the serving dispatch — the

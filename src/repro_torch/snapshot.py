@@ -24,6 +24,7 @@ _PORT = {
     ("repro_torch.core.perfmodel", "TaskShape"),
     ("repro_torch.core.partition", "Task"),
     ("repro_torch.core.partition", "KernelPartition"),
+    ("repro_torch.core.partition", "DevicePlacement"),
     ("repro_torch.core.scheduler", "ScheduleReport"),
     ("repro_torch.core.plancache", "KernelPlan"),
     ("repro_torch.core.plancache", "StructureEntry"),
@@ -31,6 +32,9 @@ _PORT = {
     ("repro_torch.core.dispatch", "CompiledDispatch"),
     ("repro_torch.core.dispatch", "ActivationGeometry"),
     ("repro_torch.core.dispatch", "ActivationDispatch"),
+    ("repro_torch.core.shard_exec", "ShardedDispatch"),
+    ("repro_torch.core.halo", "ColumnSupport"),
+    ("repro_torch.core.halo", "HaloGeometry"),
     ("repro_torch.kernels.formats", "BlockCSR"),
     ("repro_torch.serving.cache", "GraphKey"),
 }

@@ -38,7 +38,7 @@ from repro_torch.serving.faults import KNOWN_SITES
 
 RNG = np.random.default_rng(11)
 CPU = "cpu"
-# probed only by the multi-device slice
+# probed only by mesh engines (the serving engine below has none)
 SHARD_SITES = {"shard_lower", "shard_exec"}
 
 
@@ -284,6 +284,44 @@ def test_chaos_every_site_every_request_resolves(site):
     assert len(srv.stats.requests) == 8
     if site not in SHARD_SITES:
         assert fi.summary()[site]["fired"] >= 1
+    srv.close()
+
+
+@pytest.mark.parametrize("site", sorted(SHARD_SITES))
+def test_shard_sites_raise_at_their_site(site):
+    """On a 4-shard mesh engine an armed ``shard_lower`` fault raises from
+    the sharded lowering and ``shard_exec`` from the sharded execute; the
+    next call (count spent) lowers / runs and equals the unsharded
+    engine's result.  Mesh serving (``n_devices=1``) under the same fault
+    resolves every request."""
+    from repro_torch.launch.mesh import DataMesh
+
+    fi = FaultInjector(seed=3).arm(site, rate=1.0, count=1)
+    eng = DynasparseEngine(tile_m=16, tile_n=8, literal=True, device=CPU,
+                           mesh=DataMesh((CPU,) * 4), faults=fi)
+    h = torch.as_tensor(_feats(0)[:, :8].copy())
+    with pytest.raises(InjectedFault) as err:
+        eng.matmul(ADJ, h)
+    assert err.value.site == site
+    assert eng.cache.sharded_count() == (0 if site == "shard_lower" else 1)
+    z, _ = eng.matmul(ADJ, h)
+    plain = DynasparseEngine(tile_m=16, tile_n=8, literal=True, device=CPU)
+    assert torch.equal(z, plain.matmul(ADJ, h)[0])
+    assert fi.summary()[site]["fired"] == 1
+
+    fi = FaultInjector(seed=3).arm(site, rate=1.0, count=1)
+    srv = ServingEngine("GCN", PARAMS, cache=SharedPlanCache(device=CPU),
+                        config=ServingConfig(max_batch=4, n_devices=1,
+                                             activation_skip=False,
+                                             faults=fi))
+    srv.register_graph("g", ADJ)
+    outs = srv.serve((("g", _feats(i)) for i in range(8)),
+                     return_exceptions=True)
+    assert fi.summary()[site]["fired"] == 1
+    for i, z in enumerate(outs):
+        assert not isinstance(z, Exception), z
+        np.testing.assert_allclose(z.numpy(), ref8()[i].numpy(),
+                                   rtol=1e-4, atol=1e-5)
     srv.close()
 
 

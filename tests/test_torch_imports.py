@@ -11,6 +11,7 @@ import torch
 from repro_torch.core import DynasparseEngine, calibrate
 from repro_torch.core.perfmodel import runtime_fallback
 from repro_torch.data.graphs import load_graph
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models import gnn
 from repro_torch.serving import SharedPlanCache
 
@@ -47,6 +48,31 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {k: v for k, v in bad.items() if v} == {}
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.halo",
+                                    "repro_torch.core.shard_exec",
+                                    "repro_torch.launch.mesh"])
+def test_mesh_modules_import_no_jax_and_no_reference_package(module):
+    """The modules of the mesh path are among the files checked above, and
+    importing one in a fresh interpreter loads no JAX module and nothing
+    of the JAX package."""
+    import os
+    import subprocess
+    import sys
+
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+    code = (f"import sys, {module}; "
+            f"bad = sorted(m for m in sys.modules "
+            f"if m.split('.')[0] in {FORBIDDEN!r}); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA default is valid here")
@@ -68,3 +94,5 @@ def test_entry_points_default_to_the_card():
         calibrate.calibrate(runtime_fallback("cuda"))
     with pytest.raises(RuntimeError, match="CUDA"):
         gnn.run_serving("GCN", eng, None, [], {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_data_mesh(1)

@@ -106,9 +106,21 @@ def test_per_request_results_and_counters_equal_reference(model, max_batch):
 @pytest.mark.parametrize("config", [
     ServingConfig(n_devices=2), ServingConfig(operand_sharding="replicate")])
 def test_multi_device_serving_comes_later(config):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ServingEngine("GCN", _params("GCN", 12, 8, 5),
-                      engine=DynasparseEngine(device=CPU), config=config)
+    """The mesh knobs of ``ServingConfig`` beside a caller's engine, as in
+    the reference: ``n_devices`` must match the engine's mesh, and
+    ``operand_sharding`` is ignored without ``n_devices`` (the engine keeps
+    its own)."""
+    eng = DynasparseEngine(device=CPU)
+    if config.n_devices is not None:
+        with pytest.raises(ValueError, match="conflicts"):
+            ServingEngine("GCN", _params("GCN", 12, 8, 5), engine=eng,
+                          config=config)
+        return
+    srv = ServingEngine("GCN", _params("GCN", 12, 8, 5), engine=eng,
+                        config=config)
+    assert srv.engine is eng and srv.engine.mesh is None
+    assert srv.dispatch_stats()["operand_sharding"] == "halo"
+    srv.close()
 
 
 # ------------------------------------------------------------ equivalence

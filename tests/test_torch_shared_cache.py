@@ -2,9 +2,9 @@
 multi-graph keying, persistence round-trips that re-upload to the cache's
 device (the activation dispatch's ``act_caps`` included), the lazy-densify
 structure entries, the same cache keys as the JAX package's cache after the
-same inference, and a JAX package snapshot refused as a logged cold start.
-Ports every case of ``tests/test_shared_cache.py`` but the mesh one
-(``:278``), which comes with the multi-device slice."""
+same inference, a JAX package snapshot refused as a logged cold start, and
+the sharded dispatch of a mesh bigger than this host skipped on load.
+Ports every case of ``tests/test_shared_cache.py``."""
 import os
 import pickle
 import sys
@@ -325,6 +325,75 @@ def test_load_rejects_unknown_version(tmp_path):
     assert "snapshot version" in manifest["error"]
     assert cache.stats.snapshot_errors == 1
     assert len(cache) == 0
+
+
+def test_load_skips_sharded_dispatch_from_bigger_mesh(tmp_path):
+    """A snapshot carrying an 8-device sharded dispatch must not poison a
+    1-device restart: the oversized entry is skipped (and counted in the
+    manifest), while a mesh-1 sharded entry loads and is re-uploaded."""
+    from repro_torch.core.dispatch import DispatchGeometry
+    from repro_torch.core.shard_exec import ShardedDispatch
+
+    geom = DispatchGeometry(M=16, K=16, N=8, tm=8, tn=8, SM=8, SN=8, B=8,
+                            nrt=2, nct=1, has_gemm=False, has_spdmm=True,
+                            has_spmm=False)
+    arrays = {"sp_a": np.zeros((1, 3), np.int32)}
+
+    def shard(nd):
+        return ShardedDispatch(
+            geom=geom, n_devices=nd, band_starts=tuple(range(nd + 1)),
+            band_rows=(16,) * nd, M=16, arrays=dict(arrays),
+            fingerprint=f"fp{nd}")
+
+    path = os.fspath(tmp_path / "mesh.pkl")
+    entries = [(("sharddispatch", ("k8", "fp8", 8)), shard(8)),
+               (("sharddispatch", ("k1", "fp1", 1)), shard(1))]
+    with open(path, "wb") as f:
+        pickle.dump({"format": _PERSIST_FORMAT, "version": _PERSIST_VERSION,
+                     "entries": entries, "graphs": {}}, f)
+
+    cache = SharedPlanCache(device=CPU)
+    manifest = cache.load(path)
+    assert manifest["mesh_skipped"] == 1
+    assert manifest["entries"] == 1
+    kept = {key for (kind, key), _ in cache.items()
+            if kind == "sharddispatch"}
+    assert kept == {("k1", "fp1", 1)}
+    # the survivor's descriptor arrays were re-uploaded to the device
+    (value,) = [v for (kind, _), v in cache.items()
+                if kind == "sharddispatch"]
+    assert isinstance(value.arrays["sp_a"], torch.Tensor)
+    assert value.arrays["sp_a"].device == torch.device(CPU)
+
+
+def test_mesh8_snapshot_skipped_and_mesh1_snapshot_replayed(tmp_path):
+    """A real CPU snapshot holding the sharded dispatches of an 8-shard and
+    a 1-shard engine: on load (the CPU is one device) the 8-shard entry is
+    skipped, the 1-shard one restored, and a fresh mesh-1 engine over the
+    restored cache lowers nothing and is bitwise equal to a cold one."""
+    from repro_torch.launch.mesh import DataMesh
+
+    adj = _rand_graph(n=96, nnz=400, seed=123)
+    y = torch.as_tensor(RNG.normal(size=(96, 8)).astype(np.float32))
+    cache = SharedPlanCache(device=CPU)
+    for nd in (8, 1):
+        _engine(cache, mesh=DataMesh((CPU,) * nd)).matmul(adj, y)
+    cache.register_graph("g", adj)
+    assert cache.sharded_count() == 2
+    path = os.fspath(tmp_path / "snap.pkl")
+    cache.save(path)
+
+    fresh = SharedPlanCache(device=CPU)
+    manifest = fresh.load(path)
+    assert manifest["mesh_skipped"] == 1 and manifest["stale_skipped"] == 0
+    assert fresh.sharded_count() == 1
+    warm = _engine(fresh, mesh=DataMesh((CPU,)))
+    z_warm = warm.matmul(adj, y)[0]
+    assert fresh.stats.dispatch_builds == 0
+    assert fresh.stats.dispatch_hits == 1
+    z_cold = _engine(SharedPlanCache(device=CPU),
+                     mesh=DataMesh((CPU,))).matmul(adj, y)[0]
+    assert torch.equal(z_warm, z_cold)
 
 
 def test_jax_snapshot_is_a_logged_cold_start(tmp_path):
