@@ -40,13 +40,26 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    (the sharded ``spmm_fused``); the reference's eight pinned sharding
    cases and its block-diagonal case on 4 shards (ghost-tile pads through
    ``gemm_batch_scatter``; the block-diagonal case exchanges nothing);
-8. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
+8. serves LMs (``repro_torch.launch.serve``'s loop): ``qwen2.5-3b`` and
+   ``mamba2-780m`` at their published widths and depths and
+   ``deepseek-v2-lite-16b`` at its widths with 4 of its 27 layers, random
+   weights from a seeded generator, batch 4 x (16 prompt + 16 generated)
+   tokens in bfloat16: the serve loop eager, then through
+   ``CapturedDecode`` (one CUDA graph per cache), replays bitwise equal
+   to eager; per-step wall, tokens/s, the weight bytes a step reads and
+   their bound, peak memory, a profiled replayed step; float32 decode ==
+   ``forward`` (and ``make_prefill_step``) at 1e-3 for the two archs
+   without MoE; ``python -m repro_torch.launch.serve`` for each arch as a
+   subprocess; and the MoE block-sparse dispatch of
+   ``examples/moe_sparse_dispatch.py`` through ``spdmm`` (path
+   ``LM-MoE``);
+9. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
    card's kernels, every sample and fit logged; ``get_calibrated`` twice on
    a fresh ``SharedPlanCache`` (one build, one hit), saved, loaded into a
    fresh cache and resolved again with no measurement; then GCN on FL
    planned with the fitted model (``runtime_fallback("cuda")``), held
    against the ``literal=False`` logits;
-9. serves GCN on FL at full size (16 requests, ``max_batch`` 4) and GIN on
+10. serves GCN on FL at full size (16 requests, ``max_batch`` 4) and GIN on
    CO (8 requests) through ``ServingEngine`` over a literal engine and a
    ``SharedPlanCache`` on the card: every result against that request's
    single-request literal ``run_inference``, at least one compiled batch
@@ -56,12 +69,12 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    default 256 MiB, which evicts FL's structures); GIN on CO once more
    through the mesh engine of ``ServingConfig(n_devices=1)``, whose
    ``dispatch_stats()`` carry the sharded keys;
-10. chaos and restart on CO: a poison request (``FaultInjector(seed=0)`` at
+11. chaos and restart on CO: a poison request (``FaultInjector(seed=0)`` at
    ``request``, ``req:5;``) fails alone with every other result bitwise
    equal to a fault-free run, and ``python -m
    repro_torch.launch.gnn_serve --literal --cache-file`` run twice, the
    second with no packing and no analysis;
-11. holds every kernel against its plain PyTorch version on the operands the
+12. holds every kernel against its plain PyTorch version on the operands the
    paths gave it (recorded in an extra, uncounted run of each path: a
    second sweep, a second calibrated inference, a served batch of its
    own with its compiled body run uncaptured; chaos records its
@@ -78,7 +91,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    are logged, and the device copies and fills of the eager warm runs
    and of the compiled replays and bodies are named by the line of the
    port that makes them;
-12. prints the kernel summary as one JSON line, the card's name and power
+13. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a card, or
@@ -1806,6 +1819,303 @@ def summarize(torch, mods, paths):
     return summary
 
 
+
+# ------------------------------------------------------------ LM serving
+# the three archs examples/serve_lm.py serves, at their published widths:
+# (arch, layers kept (None: all), decode == forward checked in float32).
+# deepseek-v2-lite-16b keeps 4 of its 27 layers: all 27 are ~63 GB in
+# float32, too close to 80 GB beside a bfloat16 copy.
+LM_ARCHS = (("qwen2.5-3b", None, True), ("mamba2-780m", None, True),
+            ("deepseek-v2-lite-16b", 4, False))
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16          # the serve CLI's defaults
+# decode against forward, both float32 with TF32 off
+DECODE_FORWARD_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def lm_configs():
+    """(arch, config, check decode == forward) of the LM phase."""
+    from repro_torch.configs import ARCHS
+    return [(arch, ARCHS[arch] if n is None
+             else dataclasses.replace(ARCHS[arch], n_layers=n), check)
+            for arch, n, check in LM_ARCHS]
+
+
+def serve_loop(torch, bundle, model, decode, prompts, gen, cache):
+    """``launch/serve.py``'s loop: the prompt token by token through the
+    decode step, then greedy generation.  Returns each step's logits and
+    the generated tokens; ``cache`` is written in place."""
+    plen = prompts.shape[1]
+    logits, steps, toks = None, [], []
+    for t in range(plen + gen):
+        tok = prompts[:, t:t + 1] if t < plen else logits.argmax(-1)[:, None]
+        if t >= plen:
+            toks.append(tok)
+        logits, cache = decode(model, cache, tok, t)
+        steps.append(logits)
+    return steps, torch.cat(toks, dim=1)
+
+
+def step_weight_bytes(torch, model, batch: int) -> int:
+    """The bytes of weights one decode step must read: every parameter
+    once in the compute dtype, except the embedding table, of which the
+    step reads ``batch`` rows (all of it when it is also the head)."""
+    item = getattr(torch, model.cfg.dtype).itemsize
+    total = sum(p.numel() for n, p in model.named_parameters()
+                if n != "embed")
+    emb = model.embed
+    rows = emb.shape[0] if model.cfg.tie_embeddings else batch
+    return item * (total + rows * emb.shape[1])
+
+
+def profile_lm_step(torch, decode, model, cache, tok, pos):
+    """One replayed decode step: its time by CUDA events (back-to-back
+    calls), and under ``torch.profiler`` its device busy time, the top
+    device ops and the idle share (of the event-timed step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = lambda: decode(model, cache, tok, pos)
+    event_ms = device_ms(torch, step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_wall(torch, step)
+    rows = device_rows(prof)
+    log(f"  replayed step by CUDA events: {event_ms:.3f} ms")
+    if not rows:
+        log("  profiler recorded no device time: idle share not measured")
+        return dict(event_ms=event_ms)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    idle = 1 - busy_ms / event_ms
+    log(f"  profiled replayed step: device busy {busy_ms:.3f} ms in "
+        f"{len(rows)} kernel names, {sum(r[1] for r in rows)} launches "
+        f"({1e3 * wall:.3f} ms wall under the profiler): idle share "
+        f"{idle:.4f} of the event-timed step")
+    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    return dict(event_ms=event_ms, busy_ms=busy_ms,
+                launches=sum(r[1] for r in rows), idle=idle)
+
+
+def check_decode_forward(torch, bundle, tokens, plen, dev):
+    """Float32 decode logits at every position against ``forward`` over the
+    same tokens, and ``make_prefill_step``'s last-position logits against
+    the decode logits at the last prompt token."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = bundle.cfg
+    model = bundle.init(0, dev)
+    full = bundle.forward(model, {"tokens": tokens})[..., :cfg.vocab]
+    prefill = make_prefill_step(bundle)(
+        model, {"tokens": tokens[:, :plen]})[:, :cfg.vocab]
+    cache = bundle.init_cache(tokens.shape[0], tokens.shape[1], dev)
+    worst = 0.0
+    for t in range(tokens.shape[1]):
+        logits, cache = bundle.decode_step(model, cache, tokens[:, t:t + 1],
+                                           t)
+        for what, want in ((f"forward position {t}", full[:, t]),
+                           ("prefill", prefill if t == plen - 1 else None)):
+            if want is None:
+                continue
+            err = (logits - want).abs()
+            limit = (DECODE_FORWARD_TOL["atol"]
+                     + DECODE_FORWARD_TOL["rtol"] * want.abs())
+            if bool((err > limit).any()):
+                raise AssertionError(f"{cfg.name}: float32 decode disagrees "
+                                     f"with {what}: max abs "
+                                     f"{err.max().item():.3e}")
+            worst = max(worst, err.max().item())
+    log(f"  float32 decode == forward at all {tokens.shape[1]} positions "
+        f"and == make_prefill_step at position {plen - 1}: max abs "
+        f"{worst:.3e}, tolerance {DECODE_FORWARD_TOL}")
+    return worst
+
+
+def drive_lm_arch(torch, arch, cfg, dev, check_forward, batch=LM_BATCH,
+                  prompt_len=LM_PROMPT, gen=LM_GEN):
+    """One arch of the LM phase: the serve loop eager (twice, the second
+    timed) and through ``CapturedDecode`` (capture, then a timed run of
+    replays on the same cache), replays bitwise equal to eager, per-step
+    wall, tokens/s, the weight-byte bound, peak memory and a profiled
+    replayed step; then, where asked, decode == forward in float32."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.steps import CapturedDecode, cache_leaves
+    from repro_torch.models.registry import build_model
+
+    bundle = build_model(cfg)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = synced_wall(torch, lambda: bundle.init(0, dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"== LM serving: {arch} ({cfg.n_layers} of "
+        f"{ARCHS[arch].n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {cfg.dtype} compute): {n_params / 1e9:.3f} B float32 "
+        f"parameters, init {init_s:.2f} s, {held / 2**30:.2f} GiB held "
+        "before")
+    max_len = prompt_len + gen
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, prompt_len)), device=dev)
+
+    def loop(decode, cache=None):
+        cache = cache if cache is not None else bundle.init_cache(
+            batch, max_len, dev)
+        steps, toks = serve_loop(torch, bundle, model, decode, prompts, gen,
+                                 cache)
+        return steps, toks, cache
+
+    eager, toks, _ = loop(bundle.decode_step)
+    (eager2, toks2, _), eager_s = synced_wall(
+        torch, lambda: loop(bundle.decode_step))
+    decode = CapturedDecode(bundle)
+    (replay, rtoks, cache), first_s = synced_wall(torch, lambda: loop(decode))
+    for t in cache_leaves(cache):
+        t.zero_()
+    (replay2, rtoks2, _), replay_s = synced_wall(
+        torch, lambda: loop(decode, cache))
+    if decode.captures != (dev.type == "cuda"):    # the CPU runs uncaptured
+        raise AssertionError(f"{arch}: {decode.captures} captures")
+    for label, steps, tk in (("eager again", eager2, toks2),
+                             ("replayed", replay, rtoks),
+                             ("replayed again", replay2, rtoks2)):
+        if not (all(torch.equal(a, b) for a, b in zip(eager, steps))
+                and torch.equal(tk, toks)):
+            raise AssertionError(f"{arch}: {label} logits or tokens are not "
+                                 "bitwise the eager run's")
+    if not bool(torch.isfinite(eager[-1].float()).all()):
+        raise AssertionError(f"{arch}: non-finite logits")
+    n_steps = max_len
+    wbytes = step_weight_bytes(torch, model, batch)
+    bound_ms = 1e3 * wbytes / PEAK_HBM_BYTES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = dict(arch=arch, layers=cfg.n_layers, params=n_params,
+               held_gib=held / 2**30,
+               eager_step_ms=1e3 * eager_s / n_steps,
+               replay_step_ms=1e3 * replay_s / n_steps,
+               capture_run_s=first_s,
+               tokens_per_s=batch * n_steps / replay_s,
+               eager_tokens_per_s=batch * n_steps / eager_s,
+               weight_bytes=wbytes, bound_ms=bound_ms, peak_gib=peak)
+    log(f"  {batch} x ({prompt_len} + {gen}) tokens: replays and the second "
+        f"eager run bitwise equal to the eager run (logits at every step, "
+        f"tokens {toks[0, :8].tolist()}...)")
+    log(f"  per decode step: eager {out['eager_step_ms']:.3f} ms, replayed "
+        f"{out['replay_step_ms']:.3f} ms (host wall over {n_steps} steps); "
+        f"capture run {first_s:.3f} s; {out['tokens_per_s']:.1f} tokens/s "
+        f"replayed, {out['eager_tokens_per_s']:.1f} eager (prefill "
+        f"included); weights read per step {wbytes / 1e9:.3f} GB, bound "
+        f"{bound_ms:.3f} ms at {PEAK_HBM_BYTES / 1e12:.2f} TB/s "
+        f"({bound_ms / out['replay_step_ms']:.1%} of the replayed step); "
+        f"peak memory {peak:.2f} GiB")
+    out["profile"] = profile_lm_step(torch, decode, model, cache,
+                                     prompts[:, :1], max_len - 1)
+    del model, decode, cache, eager, eager2, replay, replay2
+    gc.collect()
+    torch.cuda.empty_cache()
+    if check_forward:
+        tokens = torch.cat([prompts, toks], dim=1)
+        out["decode_forward_max_abs"] = check_decode_forward(
+            torch, build_model(dataclasses.replace(cfg, dtype="float32")),
+            tokens, prompt_len, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_serve_cli(archs, *extra: str) -> None:
+    """``python -m repro_torch.launch.serve --arch <a> --batch 2
+    --prompt-len 8 --gen 8`` for each arch as a subprocess (as
+    ``examples/serve_lm.py`` runs the reference's), all at once; each must
+    exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--batch", "2", "--prompt-len", "8", "--gen", "8", *extra],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for arch in archs}
+    failed = []
+    for arch, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        for line in stdout.splitlines():
+            log(f"  {line}")
+        if proc.returncode != 0:
+            failed.append(f"{arch} exited {proc.returncode}:\n"
+                          f"{stderr[-3000:]}")
+    if failed:
+        raise AssertionError("serve CLI failed: " + "\n".join(failed))
+
+
+def moe_dispatch_operands():
+    """``examples/moe_sparse_dispatch.py``'s numbers: a block-sparse expert
+    activation (64 tokens, 8 experts, block 8, each token block on its top
+    2 experts) and a dense weight, from seed 0."""
+    rng = np.random.default_rng(0)
+    T, E, B = 64, 8, 8
+    mask = np.zeros((T // B, E), np.float32)
+    for i in range(T // B):
+        mask[i, rng.choice(E, 2, replace=False)] = 1.0
+    acts = (rng.normal(size=(T, E * B)).astype(np.float32)
+            * np.kron(mask, np.ones((B, B))))      # float64, as the example's
+    w = rng.normal(size=(E * B, 32)).astype(np.float32)
+    return acts.astype(np.float32), w, B
+
+
+def drive_moe_dispatch(torch, ops, dev, mods):
+    """The MoE sparse-dispatch demonstration on the card: the activation
+    packed by ``pack_blockcsr`` times the weight through ``ops.spdmm`` (the
+    CUDA kernel) against the dense product; its call recorded for the
+    kernel check."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.formats import pack_blockcsr
+    from repro_torch.models.ffn import moe_dispatch_report
+
+    log("== LM-MoE: block-sparse expert dispatch through spdmm")
+    rep = moe_dispatch_report(ARCHS["deepseek-v2-lite-16b"], tokens=4096)
+    log(f"  analyzer decision for deepseek-v2-lite dispatch (density "
+        f"{rep['density']:.3f}): {rep['primitive']} (TPU-model seconds, "
+        "not measured here)")
+    acts, w, B = moe_dispatch_operands()
+    x = torch.as_tensor(acts, device=dev)
+    a = pack_blockcsr(x, B)
+    y = torch.as_tensor(w, device=dev)
+    ops.reset_cuda_launch_counts()
+    z = ops.spdmm(a, y)
+    torch.cuda.synchronize()
+    launches = ops.cuda_launch_counts()
+    err = (z - x @ y).abs().max().item()
+    log(f"  block density {a.block_density():.3f} (stored {a.nnzb}/"
+        f"{a.n_block_rows * a.n_block_cols} blocks); sparse vs dense max abs "
+        f"{err:.3e}; launches {launches}")
+    if err > 1e-3:
+        raise AssertionError("the block-sparse MoE product disagrees with "
+                             "the dense one")
+    with Recorder(mods) as rec:
+        ops.spdmm(a, y)
+    return dict(launches=launches, calls=rec.calls)
+
+
+def drive_lm(torch, ops, dev, mods, configs, card="", cli_extra=()):
+    """The LM serving phase: each config's serve loop, the serve CLI for
+    each arch, and the MoE sparse-dispatch demonstration.  ``card`` (name
+    and power limit) goes on the phase's summary line."""
+    t0 = time.perf_counter()
+    results = [drive_lm_arch(torch, arch, cfg, dev, check)
+               for arch, cfg, check in configs]
+    log("== LM serving: the serve CLI (reduced configs) for each arch")
+    drive_serve_cli([arch for arch, _, _ in configs], *cli_extra)
+    moe = drive_moe_dispatch(torch, ops, dev, mods)
+    wall = time.perf_counter() - t0
+    log(f"LM serving phase: {wall:.1f} s on {card or 'no card'}; summary "
+        + json.dumps([{k: v for k, v in r.items() if k != "profile"}
+                      | (r["profile"] or {}) for r in results]))
+    return results, moe
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1827,6 +2137,7 @@ def main() -> int:
     from repro_torch.kernels import gemm, spdmm, spmm
     from repro_torch.models import gnn
 
+    t_start = time.perf_counter()
     mods = {"gemm": gemm, "spdmm": spdmm, "spmm": spmm}
     card = card_line()
     dev = torch.device("cuda", 0)
@@ -1878,6 +2189,8 @@ def main() -> int:
     batch = drive_gemm_batch(torch, ops, dev, mods)
     sharded = drive_sharded(torch, gnn, ops, DynasparseEngine, fl, co, dev,
                             fl_eager, co_eager, mods)
+    _, lm_moe = drive_lm(torch, ops, dev, mods, lm_configs(), card=card)
+    require_launched("LM-MoE", lm_moe["launches"], ("spdmm",))
 
     calib, fl_calib = drive_calibration(torch, gnn, ops, DynasparseEngine,
                                         fl, dev, fl_eager, mods)
@@ -1928,7 +2241,9 @@ def main() -> int:
                         + [(label, fl if "FL" in label else
                             co if "CO" in label else None, rec)
                            for label, rec in sharded.items()]
-                        + [("GIN-CO serving, mesh 1", co, co_mesh)])
+                        + [("GIN-CO serving, mesh 1", co, co_mesh),
+                           ("LM-MoE", None, lm_moe)])
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

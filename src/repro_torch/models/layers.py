@@ -1,0 +1,267 @@
+"""Shared transformer building blocks: the forward half of the reference's
+``repro/models/layers.py`` in PyTorch.
+
+Norms and RoPE run in float32 and cast back; attention is the reference's
+both-chunked online softmax (``flash_attention``) for full sequences and a
+masked softmax over the padded cache for one decode step, GQA in grouped
+form without repeating KV heads, every contraction in float32.  The
+flash custom VJP (``_flash_core``) belongs to the training slice: a
+config with ``flash_vjp`` set computes the same forward through
+:func:`flash_attention`.
+
+:class:`Weights` is the base of every layer with parameters: parameters
+stay float32 (``param_dtype``) and each is read in the compute dtype
+through :meth:`Weights.w`, from a copy made once by
+:func:`make_compute_copies` (the same rounding as the reference's
+``.astype(x.dtype)`` at every use).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG = -1e30          # the reference's fill for masked scores
+
+
+# --------------------------------------------------------------- weights
+class Weights(nn.Module):
+    """A layer whose float32 parameters are read in the compute dtype."""
+
+    def __init__(self):
+        super().__init__()
+        self._compute: dict[str, torch.Tensor] = {}
+
+    def param(self, name: str, *shape: int, device=None) -> None:
+        """Register an (uninitialised) float32 parameter without grad."""
+        self.register_parameter(name, nn.Parameter(
+            torch.empty(shape, dtype=torch.float32, device=device),
+            requires_grad=False))
+
+    def w(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """Parameter ``name`` in ``dtype``: itself, its compute copy, or a
+        cast made now."""
+        p = self._parameters[name]
+        if p.dtype == dtype:
+            return p
+        copy = self._compute.get(name)
+        if copy is not None and copy.dtype == dtype:
+            return copy
+        return p.to(dtype)
+
+
+@torch.no_grad()
+def make_compute_copies(model: nn.Module, dtype: torch.dtype) -> None:
+    """Give every :class:`Weights` layer of ``model`` a ``dtype`` copy of
+    each of its parameters (none when ``dtype`` is float32).  Call again
+    after the parameters change."""
+    for m in model.modules():
+        if isinstance(m, Weights):
+            m._compute = {n: p.to(dtype)
+                          for n, p in m.named_parameters(recurse=False)
+                          if p.dtype != dtype}
+
+
+def glorot(shape, gen: torch.Generator, device=None) -> torch.Tensor:
+    """Glorot-normal float32 tensor drawn from ``gen``."""
+    fan_in, fan_out = shape[-2], shape[-1]
+    s = np.sqrt(2.0 / (fan_in + fan_out))
+    return torch.randn(shape, generator=gen, device=device) * s
+
+
+# --------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * w.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dtype)
+
+
+# --------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=64)
+def _freqs_on(head_dim: int, theta: float,
+              device: torch.device) -> torch.Tensor:
+    """The float32 frequency table on ``device``, uploaded once (a CUDA
+    graph capture cannot upload it; the eager step before it does)."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: tuple[int, ...] | None = None) -> torch.Tensor:
+    """Rotary embedding.  ``x``: [B, L, H, Dh]; ``positions``: [B, L]
+    (classic) or [B, L, 3] (M-RoPE; ``sections`` splits the Dh/2
+    frequency slots over the temporal / height / width streams)."""
+    dh = x.shape[-1]
+    freqs = _freqs_on(dh, float(theta), x.device)               # (Dh/2,)
+    if sections is None:
+        angles = positions[..., None].float() * freqs          # [B,L,Dh/2]
+    else:
+        if positions.ndim != 3 or positions.shape[-1] != len(sections):
+            raise ValueError(f"M-RoPE positions {tuple(positions.shape)} "
+                             f"for sections {sections}")
+        if sum(sections) != dh // 2:
+            raise ValueError(f"sections {sections} for head dim {dh}")
+        parts, off = [], 0
+        for i, sec in enumerate(sections):
+            parts.append(positions[..., i:i + 1].float()
+                         * freqs[off:off + sec])
+            off += sec
+        angles = torch.cat(parts, dim=-1)                      # [B,L,Dh/2]
+    cos = torch.cos(angles)[:, :, None, :]                     # [B,L,1,Dh/2]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------- attention
+def flash_attention(
+    q: torch.Tensor,               # [B, Lq, Hq, Dh]
+    k: torch.Tensor,               # [B, Lk, Hkv, Dh]
+    v: torch.Tensor,               # [B, Lk, Hkv, Dh]
+    *,
+    causal: bool = True,
+    window: int | None = None,     # local attention: kv in (qpos-window, qpos]
+    q_offset: int = 0,             # global position of q[0]
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+    kv_len_mask: int | None = None,    # only the first N kv positions valid
+    causal_skip: bool = False,         # visit only kv blocks <= the q block
+) -> torch.Tensor:
+    """Both-chunked online-softmax attention with grouped (GQA) heads, the
+    reference's double scan as two Python loops over the blocks.
+
+    A fully masked kv block leaves the running max, denominator and
+    numerator exactly as they were (p is forced to 0, the correction is
+    exp(0) = 1), so ``causal_skip``, which never visits the blocks above
+    the diagonal, gives the same result."""
+    B, Lq, Hq, Dh = q.shape
+    _, Lk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(Dh)
+
+    qc = min(q_chunk, Lq)
+    kc = min(kv_chunk, Lk)
+    nq, nk = -(-Lq // qc), -(-Lk // kc)
+    q = F.pad(q, (0, 0, 0, 0, 0, nq * qc - Lq))
+    k = F.pad(k, (0, 0, 0, 0, 0, nk * kc - Lk))
+    v = F.pad(v, (0, 0, 0, 0, 0, nk * kc - Lk))
+    valid_k = kv_len_mask if kv_len_mask is not None else Lk
+
+    qb = q.reshape(B, nq, qc, Hkv, G, Dh).float()
+    kb = k.reshape(B, nk, kc, Hkv, Dh).float()
+    vb = v.reshape(B, nk, kc, Hkv, Dh).float()
+    dev = q.device
+    q_pos_base = torch.arange(qc, device=dev) + q_offset
+    k_pos_base = torch.arange(kc, device=dev)
+
+    blocks = []
+    for iq in range(nq):
+        q_pos = q_pos_base + iq * qc
+        m = torch.full((B, Hkv, G, qc), NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Hkv, G, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hkv, G, qc, Dh), dtype=torch.float32,
+                          device=dev)
+        n_vis = (min(nk, (iq * qc + qc + kc - 1) // kc)
+                 if causal and causal_skip else nk)
+        for ik in range(n_vis):
+            k_pos = k_pos_base + ik * kc
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb[:, iq], kb[:, ik]) * scale
+            mask = k_pos[None, :] < valid_k
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bhgqk,bkhd->bhgqd", p, vb[:, ik]))
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-20)[..., None]
+        blocks.append(out.permute(0, 3, 1, 2, 4))      # [B, qc, Hkv, G, Dh]
+    out = torch.cat(blocks, dim=1).reshape(B, nq * qc, Hq, Dh)
+    return out[:, :Lq].to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,           # [B, 1, Hq, Dh]: one new token
+    k_cache: torch.Tensor,     # [B, Lmax, Hkv, Dh]
+    v_cache: torch.Tensor,
+    cur_len,                   # valid cache length INCLUDING the new token
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-step attention over a (padded) KV cache.  ``cur_len`` is an
+    int or a 0-d tensor on the cache's device (never read on the host)."""
+    B, Lmax, Hkv, Dh = k_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(Dh)
+    qg = q.reshape(B, 1, Hkv, G, Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_cache.float()) * scale
+    pos = torch.arange(Lmax, device=q.device)
+    mask = pos < cur_len
+    if window is not None:
+        mask = mask & (pos > cur_len - 1 - window)
+    s = torch.where(mask, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
+    return out.reshape(B, 1, Hq, Dh).to(q.dtype)
+
+
+# --------------------------------------------------------------- activations
+# jax.nn's formulas written out op by op: in bfloat16 each op rounds, as the
+# reference's do on the CPU (torch's fused F.silu / F.gelu round once, and
+# then differ from the reference in a third to two fifths of the elements)
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation; its constants
+    are rounded to x's dtype as jax rounds them."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype)
+    s = c(float(np.float32(np.sqrt(2 / np.pi))))
+    return x * (0.5 * (1.0 + torch.tanh(s * (x + c(0.044715) * (x * x * x)))))
+
+
+# --------------------------------------------------------------- MLPs
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    return (silu(g) * u) @ w_down.to(x.dtype)
+
+
+def geglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+          w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    return (gelu(g) * u) @ w_down.to(x.dtype)

@@ -267,3 +267,42 @@ def test_sharded_phase_rehearses_on_the_cpu(smoke, monkeypatch):
         co, dev, co_eager, n_requests=8, max_batch=4, min_compiled=1,
         mods=mods, n_devices=1)
     assert served["calls"]["spmm_fused"] and served["calls"]["spdmm_fused"]
+
+
+def test_lm_serving_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """``chip_smoke.py``'s LM serving phase on reduced configs of its three
+    archs on the CPU (the decode step uncaptured; the calls that need the
+    card stubbed): the serve loops agree, float32 decode == forward for
+    the two archs without MoE, the serve CLI runs for each arch, and the
+    MoE dispatch demonstration records its ``spdmm`` call."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.kernels import gemm, ops, spdmm, spmm
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "profile_lm_step", lambda *a: None)
+    dev = torch.device("cpu")
+    assert [(a, c.n_layers, c.d_model, check)
+            for a, c, check in smoke.lm_configs()] == [
+        ("qwen2.5-3b", 36, 2048, True), ("mamba2-780m", 48, 1536, True),
+        ("deepseek-v2-lite-16b", 4, 2048, False)]
+    configs = [(arch, reduce_config(ARCHS[arch]), check)
+               for arch, _, check in smoke.LM_ARCHS]
+    mods = {"gemm": gemm, "spdmm": spdmm, "spmm": spmm}
+    results, moe = smoke.drive_lm(torch, ops, dev, mods, configs,
+                                  cli_extra=("--device", "cpu"))
+    assert [r["arch"] for r in results] == [a for a, _, _ in configs]
+    for r, (_, cfg, check) in zip(results, configs):
+        assert r["weight_bytes"] == 2 * (
+            r["params"] - cfg.padded_vocab * cfg.d_model
+            + (cfg.padded_vocab if cfg.tie_embeddings else smoke.LM_BATCH)
+            * cfg.d_model)
+        assert ("decode_forward_max_abs" in r) == check
+    assert len(moe["calls"]["spdmm"]) == 1
+    args, _ = moe["calls"]["spdmm"][0]
+    acts, w, block = smoke.moe_dispatch_operands()
+    assert args[0].block_size == block and args[0].nnzb == 16
+    np.testing.assert_allclose(args[0].todense().numpy(), acts)

@@ -8,11 +8,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS
+from repro_torch.configs.reduced import reduce_config
 from repro_torch.core import DynasparseEngine, calibrate
 from repro_torch.core.perfmodel import runtime_fallback
 from repro_torch.data.graphs import load_graph
+from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models import gnn
+from repro_torch.models.registry import build_model
 from repro_torch.serving import SharedPlanCache
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,6 +59,19 @@ def test_mesh_modules_import_no_jax_and_no_reference_package(module):
     """The modules of the mesh path are among the files checked above, and
     importing one in a fresh interpreter loads no JAX module and nothing
     of the JAX package."""
+    _fresh_import_loads_no_jax(module)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.lm",
+                                    "repro_torch.models.mixers",
+                                    "repro_torch.models.registry",
+                                    "repro_torch.launch.serve"])
+def test_lm_modules_import_no_jax_and_no_reference_package(module):
+    """The LM serving path's modules, checked as the mesh modules are."""
+    _fresh_import_loads_no_jax(module)
+
+
+def _fresh_import_loads_no_jax(module):
     import os
     import subprocess
     import sys
@@ -96,3 +113,10 @@ def test_entry_points_default_to_the_card():
         gnn.run_serving("GCN", eng, None, [], {})
     with pytest.raises(RuntimeError, match="CUDA"):
         make_data_mesh(1)
+    bundle = build_model(reduce_config(ARCHS["qwen2.5-3b"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bundle.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bundle.init_cache(1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen2.5-3b"])
