@@ -53,13 +53,31 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    subprocess; and the MoE block-sparse dispatch of
    ``examples/moe_sparse_dispatch.py`` through ``spdmm`` (path
    ``LM-MoE``);
-9. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
+9. trains LMs (``repro_torch.launch.steps``, ``launch/train.py``):
+   ``qwen2.5-3b`` and ``mamba2-780m`` at their published widths and
+   depths, bfloat16 compute with float32 parameters and moments, remat
+   per cycle and 4 microbatches as configured, batch 8 x 512 tokens of
+   the port's ``TokenPipeline``, six AdamW steps on one repeated batch:
+   finite loss and gradient norm at every step and the last loss below
+   the first; per step host wall, device ms (CUDA events), tokens/s and
+   peak memory, the step's bound (products at the bfloat16 peak plus
+   AdamW's bytes), a profiled step; the flash VJP at qwen2.5-3b's
+   attention (L 2048, 16 / 2 heads) in float32 and bfloat16, forward
+   bitwise ``flash_attention``'s, gradients against autograd through it,
+   both backwards' peak memory; one float32 step of every reduced arch on
+   the card against the same step on the CPU, two microbatches against
+   one (MoE: against the two halves) and ``remat="full"`` against none;
+   the restart: 2 steps + save + restore + 2 steps bitwise 4 straight
+   steps, and ``python -m repro_torch.launch.train`` as
+   ``examples/train_lm.py`` runs the reference's (12 steps, then
+   ``--steps 18 --resume``) beside a ``--compress-grads`` run;
+10. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
    card's kernels, every sample and fit logged; ``get_calibrated`` twice on
    a fresh ``SharedPlanCache`` (one build, one hit), saved, loaded into a
    fresh cache and resolved again with no measurement; then GCN on FL
    planned with the fitted model (``runtime_fallback("cuda")``), held
    against the ``literal=False`` logits;
-10. serves GCN on FL at full size (16 requests, ``max_batch`` 4) and GIN on
+11. serves GCN on FL at full size (16 requests, ``max_batch`` 4) and GIN on
    CO (8 requests) through ``ServingEngine`` over a literal engine and a
    ``SharedPlanCache`` on the card: every result against that request's
    single-request literal ``run_inference``, at least one compiled batch
@@ -69,12 +87,12 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    default 256 MiB, which evicts FL's structures); GIN on CO once more
    through the mesh engine of ``ServingConfig(n_devices=1)``, whose
    ``dispatch_stats()`` carry the sharded keys;
-11. chaos and restart on CO: a poison request (``FaultInjector(seed=0)`` at
+12. chaos and restart on CO: a poison request (``FaultInjector(seed=0)`` at
    ``request``, ``req:5;``) fails alone with every other result bitwise
    equal to a fault-free run, and ``python -m
    repro_torch.launch.gnn_serve --literal --cache-file`` run twice, the
    second with no packing and no analysis;
-12. holds every kernel against its plain PyTorch version on the operands the
+13. holds every kernel against its plain PyTorch version on the operands the
    paths gave it (recorded in an extra, uncounted run of each path: a
    second sweep, a second calibrated inference, a served batch of its
    own with its compiled body run uncaptured; chaos records its
@@ -91,7 +109,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    are logged, and the device copies and fills of the eager warm runs
    and of the compiled replays and bodies are named by the line of the
    port that makes them;
-13. prints the kernel summary as one JSON line, the card's name and power
+14. prints the kernel summary as one JSON line, the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.  Without a card, or
@@ -2116,6 +2134,536 @@ def drive_lm(torch, ops, dev, mods, configs, card="", cli_extra=()):
     return results, moe
 
 
+# ------------------------------------------------------------ LM training
+# the two archs of the LM phase that train at full width and depth on one
+# card (qwen2.5-3b's state is ~49.4 GB: float32 parameters, gradients and
+# two moments), batch 8 x 512 tokens from the port's TokenPipeline, six
+# steps on one repeated batch with a six-step cosine from lr 3e-4
+TRAIN_ARCHS = ("qwen2.5-3b", "mamba2-780m")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=0, total_steps=TRAIN_STEPS)
+# H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# the flash VJP at qwen2.5-3b's attention: (B, L, Hq, Hkv, Dh, chunk)
+FLASH_VJP_SHAPE = (1, 2048, 16, 2, 128, 512)
+# the VJP against autograd through flash_attention, |vjp - autograd| <=
+# atol + rtol |autograd| + of_max max|autograd|: float32 as the CPU tests
+# hold it; in bfloat16 the VJP (as the reference's) saves the output in
+# bfloat16, so its delta = rowsum(do * out) carries the output's rounding
+# where autograd differentiates the float32 normalization: the two then
+# differ by up to 0.41 % of the largest gradient on the CPU at this shape
+# (each is 0.3-0.6 % from float32 autograd), held at one bfloat16 ulp of
+# the largest, 2^-7
+FLASH_VJP_TOL = {"float32": dict(rtol=1e-5, atol=1e-5, of_max=0.0),
+                 "bfloat16": dict(rtol=0.0, atol=0.0, of_max=2 ** -7)}
+# one float32 train step of a reduced arch: card against CPU, two
+# microbatches against one, remat full against none
+TRAIN_STEP_TOL = dict(rtol=1e-4, atol=1e-5)
+REDUCED_ROWS, REDUCED_SEQ = 16, 16     # 16 rows: every arch's microbatches
+
+
+def train_configs():
+    """(arch, config) of the full-size training runs."""
+    from repro_torch.configs import ARCHS
+    return [(arch, ARCHS[arch]) for arch in TRAIN_ARCHS]
+
+
+def train_work(model, cfg, tokens: int, seq: int) -> dict:
+    """The least work of one train step: the products' FLOPs (forward 2
+    FLOPs a weight a token for every matrix, the head included and the
+    embedding lookup not; causal attention scores and values over (L+1)/2
+    keys on average; backward twice the forward; ``remat="full"`` one more
+    forward of the layers; the SSD scan's own FLOPs are not counted), and
+    AdamW's bytes (read p, g, mu, nu, write p, mu, nu).  Their bounds at
+    the bfloat16 peak and the HBM rate, and the step's bound, their sum
+    (the update cannot start before the last gradient)."""
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    layer_mm = sum(p.numel() for n, p in model.named_parameters()
+                   if p.ndim >= 2 and n not in ("embed", "lm_head"))
+    head_mm = getattr(model, head).numel()
+    attn_layers = sum(layer.mixer_type in ("attn", "mla")
+                      for layer in model.layers())
+    attn = (attn_layers * tokens * 4 * cfg.n_heads * cfg.resolved_head_dim
+            * (seq + 1) / 2)
+    fwd = 2.0 * (layer_mm + head_mm) * tokens + attn
+    flops = 3 * fwd + (fwd - 2.0 * head_mm * tokens
+                       if cfg.remat == "full" else 0.0)
+    m_item = {"float32": 4, "bfloat16": 2}[cfg.opt_dtype]
+    adamw_bytes = sum(p.numel() for p in model.parameters()) * (12 + 4 * m_item)
+    flop_ms = 1e3 * flops / PEAK_BF16_FLOPS
+    adamw_ms = 1e3 * adamw_bytes / PEAK_HBM_BYTES
+    return dict(flops=flops, flop_ms=flop_ms, adamw_bytes=adamw_bytes,
+                adamw_ms=adamw_ms, bound_ms=flop_ms + adamw_ms)
+
+
+def timed_step(torch, step, state, batch, dev):
+    """One train step between two synchronizations: (state, metrics, host
+    seconds, device ms by CUDA events or None off the card)."""
+    events = None
+    if dev.type == "cuda":
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if events:
+        events[0].record()
+    state, metrics = step(state, batch)
+    if events:
+        events[1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (state, metrics, wall,
+            events[0].elapsed_time(events[1]) if events else None)
+
+
+def profile_train_step(torch, step, state, batch, event_ms):
+    """One more step under ``torch.profiler``, device activity only (a
+    step is ~70-90 k launches; recording the host's ops as well made the
+    profile's processing take most of a minute a step): device busy time,
+    launches, the idle share of an event-timed step and the top device
+    ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = synced_wall(torch, lambda: step(state, batch))
+    rows = device_rows(prof)
+    profile_s = time.perf_counter() - t0
+    if not rows:
+        log("  profiler recorded no device time: idle share not measured")
+        return None
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    launches = sum(r[1] for r in rows)
+    idle = 1 - busy_ms / event_ms
+    log(f"  profiled step: device busy {busy_ms:.3f} ms in {len(rows)} "
+        f"kernel names, {launches} launches ({1e3 * wall:.1f} ms wall under "
+        f"the profiler, {profile_s:.1f} s with its processing): idle share "
+        f"{idle:.4f} of the event-timed step ({event_ms:.3f} ms)")
+    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"    {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return dict(busy_ms=busy_ms, launches=launches, idle=idle)
+
+
+def drive_train_arch(torch, arch, cfg, dev, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """One arch of the training phase: ``init_state`` from seed 0, then
+    ``steps`` steps of ``make_train_step`` on one repeated batch of the
+    port's ``TokenPipeline``: finite loss and gradient norm at every
+    step, the last loss below the first; per step host wall, device ms,
+    tokens/s and peak memory; the step's bound; a profiled step."""
+    import gc
+
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    t_arch = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg)
+    state, init_s = synced_wall(torch, lambda: init_state(bundle, 0, dev))
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq)
+    try:
+        tokens = next(pipe)["tokens"]
+    finally:
+        pipe.close()
+    feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    work = train_work(model, cfg, batch * seq, seq)
+    log(f"== LM training: {arch} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype} compute, float32 "
+        f"parameters, {cfg.opt_dtype} moments, {cfg.microbatches} "
+        f"microbatches, remat {cfg.remat}): {n_params / 1e9:.3f} B "
+        f"parameters, init {init_s:.2f} s, {held / 2**30:.2f} GiB held "
+        f"before; batch {batch} x {seq} tokens, repeated")
+    log(f"  step bound {work['bound_ms']:.3f} ms = products "
+        f"{work['flops'] / 1e12:.2f} TFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s ({work['flop_ms']:.3f} ms) + AdamW "
+        f"{work['adamw_bytes'] / 1e9:.2f} GB at {PEAK_HBM_BYTES / 1e12:.2f} "
+        f"TB/s ({work['adamw_ms']:.3f} ms)")
+    step = make_train_step(bundle, AdamWConfig(**TRAIN_OPT))
+    rows = []
+    for i in range(steps):
+        state, m, wall, event_ms = timed_step(torch, step, state, feed, dev)
+        row = dict(step=i, loss=m["loss"].item(),
+                   grad_norm=m["grad_norm"].item(), lr=m["lr"].item(),
+                   wall_s=wall, event_ms=event_ms,
+                   tokens_per_s=batch * seq / wall,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        rows.append(row)
+        ev = f"{event_ms:.1f} ms" if event_ms is not None else "not measured"
+        log(f"  step {i}: loss {row['loss']:.4f} gnorm "
+            f"{row['grad_norm']:.4f} lr {row['lr']:.3e}; wall "
+            f"{1e3 * wall:.1f} ms, device (events) {ev}, "
+            f"{row['tokens_per_s']:.1f} tokens/s, peak "
+            f"{row['peak_gib']:.2f} GiB")
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise AssertionError(f"{arch}: step {i} loss {row['loss']} "
+                                 f"gnorm {row['grad_norm']}")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        raise AssertionError(f"{arch}: the loss did not fall on the repeated "
+                             f"batch: {[r['loss'] for r in rows]}")
+    steady = rows[1:] if len(rows) > 1 else rows
+    wall = statistics.median(r["wall_s"] for r in steady)
+    event_ms = (statistics.median(r["event_ms"] for r in steady)
+                if rows[0]["event_ms"] is not None else None)
+    out = dict(arch=arch, layers=cfg.n_layers, params=n_params,
+               held_gib=held / 2**30, init_s=init_s,
+               losses=[r["loss"] for r in rows],
+               grad_norms=[r["grad_norm"] for r in rows],
+               step_wall_ms=1e3 * wall, step_event_ms=event_ms,
+               tokens_per_s=batch * seq / wall,
+               peak_gib=max(r["peak_gib"] for r in rows), **work)
+    log(f"  loss {rows[0]['loss']:.4f} -> {rows[-1]['loss']:.4f}; median "
+        f"step (steps 1..{steps - 1}): wall {1e3 * wall:.1f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s, device "
+        f"{event_ms if event_ms is None else round(event_ms, 3)} ms; bound "
+        f"{work['bound_ms']:.3f} ms"
+        + (f" ({work['bound_ms'] / event_ms:.1%} of the device time, "
+           f"{work['bound_ms'] / (1e3 * wall):.1%} of the wall)"
+           if event_ms else ""))
+    out["profile"] = (profile_train_step(torch, step, state, feed, event_ms)
+                      if event_ms else None)
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_arch
+    log(f"  {arch}: {out['wall_s']:.1f} s for this arch")
+    return out
+
+
+def drive_flash_vjp(torch, dev, shape=FLASH_VJP_SHAPE):
+    """``flash_attention_vjp`` against autograd through ``flash_attention``
+    on random inputs at ``shape``, causal, in float32 and bfloat16: the
+    forward bitwise, dq / dk / dv within ``FLASH_VJP_TOL``; each backward's
+    peak memory above the inputs and its device time."""
+    from repro_torch.models.layers import flash_attention, flash_attention_vjp
+
+    B, L, Hq, Hkv, Dh, chunk = shape
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        q, k, v = (draw(B, L, Hq, Dh).to(dtype), draw(B, L, Hkv, Dh).to(dtype),
+                   draw(B, L, Hkv, Dh).to(dtype))
+        w = draw(B, L, Hq, Dh)
+
+        def run(fn):
+            """Forward and backward twice (the first warms up): the
+            second's output, gradients and host walls, the first's peak
+            memory above the inputs."""
+            peak = None
+            for _ in range(2):
+                ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                y, fwd_s = synced_wall(torch, lambda: fn(
+                    *ts, causal=True, q_chunk=chunk, kv_chunk=chunk))
+                _, bwd_s = synced_wall(
+                    torch, lambda: (y.float() * w).sum().backward())
+                if peak is None:
+                    peak = torch.cuda.max_memory_allocated() - base
+            return y.detach(), [t.grad for t in ts], peak, fwd_s, bwd_s
+
+        y, grads, peak, fwd_s, bwd_s = run(flash_attention_vjp)
+        ya, agrads, apeak, afwd_s, abwd_s = run(flash_attention)
+        if not torch.equal(y, ya):
+            raise AssertionError(f"flash VJP {name}: the forward is not "
+                                 "flash_attention's")
+        tol = FLASH_VJP_TOL[name]
+        errs = {}
+        for g_name, g, a in zip(("dq", "dk", "dv"), grads, agrads):
+            g, a = g.float(), a.float()
+            err = (g - a).abs()
+            limit = (tol["atol"] + tol["rtol"] * a.abs()
+                     + tol["of_max"] * a.abs().max())
+            if bool((err > limit).any()):
+                raise AssertionError(f"flash VJP {name}: {g_name} differs "
+                                     f"from autograd by {err.max().item()}")
+            errs[g_name] = err.max().item()
+        out[name] = dict(max_abs=errs, vjp_peak_gib=peak / 2**30,
+                         autograd_peak_gib=apeak / 2**30,
+                         vjp_s=(fwd_s, bwd_s), autograd_s=(afwd_s, abwd_s))
+        log(f"== flash VJP, {name}, B {B} L {L} Hq {Hq} Hkv {Hkv} Dh {Dh} "
+            f"chunks {chunk}, causal: forward bitwise flash_attention's; "
+            f"max abs against autograd {errs} (tolerance {tol}); peak "
+            f"memory of forward + backward above the inputs: VJP "
+            f"{peak / 2**30:.3f} GiB, autograd {apeak / 2**30:.3f} GiB; "
+            f"host wall forward / backward (a second run, each ending in a "
+            f"synchronization): VJP {1e3 * fwd_s:.1f} / "
+            f"{1e3 * bwd_s:.1f} ms, autograd {1e3 * afwd_s:.1f} / "
+            f"{1e3 * abwd_s:.1f} ms")
+    return out
+
+
+def reduced_batch(cfg, rows=REDUCED_ROWS, seq=REDUCED_SEQ, seed=0):
+    """numpy inputs of a reduced arch (as the CPU tests make them): frames
+    for the enc-dec arch, a frontend-stub prefix and M-RoPE positions for
+    the VLM."""
+    rng = np.random.default_rng(seed)
+    if cfg.n_enc_layers:
+        return {"frames": rng.normal(size=(rows, seq, cfg.d_model))
+                .astype(np.float32),
+                "tokens": rng.integers(0, cfg.vocab, (rows, seq))}
+    if cfg.frontend_prefix > 0:
+        lp = int(seq * cfg.frontend_prefix)
+        pos = np.broadcast_to(np.arange(seq)[None, :, None], (rows, seq, 3))
+        return {"embeds": rng.normal(size=(rows, lp, cfg.d_model))
+                .astype(np.float32),
+                "tokens": rng.integers(0, cfg.vocab, (rows, seq - lp)),
+                "positions": pos.copy()}
+    return {"tokens": rng.integers(0, cfg.vocab, (rows, seq))}
+
+
+def step_diff(x, y) -> tuple[float, bool]:
+    """(max abs of x - y, whether every element is within
+    ``TRAIN_STEP_TOL`` of ``y``), on the host."""
+    x, y = x.detach().float().cpu(), y.detach().float().cpu()
+    d = (x - y).abs()
+    lim = TRAIN_STEP_TOL["atol"] + TRAIN_STEP_TOL["rtol"] * y.abs()
+    return d.max().item(), bool((d <= lim).all())
+
+
+def step_error(a, b) -> dict:
+    """Max abs differences of two (metrics, model) step results, and
+    whether each is within ``TRAIN_STEP_TOL`` (``b`` the reference)."""
+    (ma, pa), (mb, pb) = a, b
+    out = {k: step_diff(ma[k], mb[k]) for k in ("loss", "grad_norm")}
+    params = [step_diff(x, y) for (_, x), (_, y)
+              in zip(pa.named_parameters(), pb.named_parameters())]
+    out["params"] = (max(e for e, _ in params), all(ok for _, ok in params))
+    return out
+
+
+def halves_error(bundle, init, feed, dev) -> dict:
+    """Two microbatches of an MoE arch against the two halves of the
+    batch run as one microbatch each and averaged: the loss and every
+    gradient (max abs, within ``TRAIN_STEP_TOL``).  MoE capacity is per
+    microbatch, in the reference as here, so two microbatches route
+    otherwise than one; each half routes as its microbatch does."""
+    import copy
+
+    from repro_torch.launch.steps import loss_and_grads, split_batch
+    from repro_torch.models.layers import trainable
+
+    model = trainable(copy.deepcopy(init).to(dev))
+    loss = loss_and_grads(bundle, model, feed, 2)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    halves = trainable(copy.deepcopy(init).to(dev))
+    total, acc = 0.0, {}
+    for part in split_batch(feed, 2):
+        total = total + loss_and_grads(bundle, halves, part)
+        for n, p in halves.named_parameters():
+            if p.grad is not None:
+                acc[n] = acc[n] + p.grad if n in acc else p.grad.clone()
+
+    out = {"loss": step_diff(loss, total / 2)}
+    errs = [step_diff(grads[n], acc[n] / 2) for n in acc]
+    if sorted(acc) != sorted(n for n, g in grads.items() if g is not None):
+        raise AssertionError(f"{bundle.cfg.name}: two microbatches give "
+                             "gradients to other parameters than the halves")
+    out["grads"] = (max(e for e, _ in errs), all(ok for _, ok in errs))
+    return out
+
+
+def drive_train_reduced(torch, dev, archs=None):
+    """Every arch of ``ARCHS`` at ``reduce_config`` in float32: one train
+    step on the card equals the same step on the CPU (the config's
+    microbatches), two microbatches equal one (an MoE arch: the two
+    halves, see ``halves_error``) and ``remat="full"`` equals none on the
+    card; each from the same seeded parameters and batch."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.launch.steps import make_train_step, train_state
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cpu = torch.device("cpu")
+    results = {}
+    for arch in archs or ARCHS:
+        base = dataclasses.replace(reduce_config(ARCHS[arch]),
+                                   dtype="float32")
+        batch = reduced_batch(base)
+        init = build_model(base).init(0, cpu)
+
+        def step(cfg, device):
+            bundle = build_model(cfg)
+            state = train_state(bundle, copy.deepcopy(init).to(device))
+            feed = {k: torch.as_tensor(v, device=device)
+                    for k, v in batch.items()}
+            _, m = make_train_step(bundle, AdamWConfig())(state, feed)
+            return m, state["params"]
+
+        one = dataclasses.replace(base, microbatches=1)
+        checks = {"card == cpu": (step(base, dev), step(base, cpu))}
+        if base.ffn != "moe":
+            checks["microbatches 2 == 1"] = (
+                step(dataclasses.replace(one, microbatches=2), dev),
+                step(one, dev))
+        checks["remat full == none"] = (
+            step(dataclasses.replace(one, remat="full"), dev),
+            step(dataclasses.replace(one, remat="none"), dev))
+        errs = {label: step_error(a, b)
+                for label, (a, b) in checks.items()}
+        if base.ffn == "moe":
+            errs["microbatches 2 == the halves"] = halves_error(
+                build_model(one), init,
+                {k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+                dev)
+        log(f"  {arch} (reduced, float32, {base.microbatches} microbatches): "
+            + "; ".join(f"{label}: " + ", ".join(
+                f"{k} {v[0]:.2e}" for k, v in e.items())
+                for label, e in errs.items()))
+        bad = [f"{label} {k}" for label, e in errs.items()
+               for k, (_, ok) in e.items() if not ok]
+        if bad:
+            raise AssertionError(f"{arch}: outside {TRAIN_STEP_TOL}: {bad}")
+        results[arch] = {label: {k: v[0] for k, v in e.items()}
+                         for label, e in errs.items()}
+    return results
+
+
+def drive_train_restart(torch, dev, tmp_dir: str, cli_extra=()):
+    """Restart: on reduced qwen2.5-3b in process, 4 steps straight equal 2
+    steps, a non-blocking ``save``, ``restore`` into a state from another
+    seed and 2 more steps, bitwise (every parameter, moment and the step);
+    then ``python -m repro_torch.launch.train`` as the reference's
+    example runs it (phi3-mini-3.8b, 12 steps with a checkpoint every 6,
+    then ``--steps 18 --resume``, which must resume from step 12), beside
+    one ``--compress-grads`` run."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import state_leaves
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = reduce_config(ARCHS["qwen2.5-3b"])
+    bundle = build_model(cfg)
+    step = make_train_step(bundle, AdamWConfig(total_steps=4))
+
+    def run(state, start, stop):
+        pipe = TokenPipeline(vocab=cfg.vocab, batch=8, seq_len=64,
+                             start_step=start)
+        losses = []
+        try:
+            for _ in range(start, stop):
+                feed = {"tokens": torch.as_tensor(next(pipe)["tokens"],
+                                                  device=dev).long()}
+                state, m = step(state, feed)
+                losses.append(m["loss"].item())
+        finally:
+            pipe.close()
+        return losses
+
+    straight = init_state(bundle, 0, dev)
+    want = run(straight, 0, 4)
+    resumed = init_state(bundle, 0, dev)
+    got = run(resumed, 0, 2)
+    mgr = CheckpointManager(Path(tmp_dir) / "in_process", cfg=cfg)
+    mgr.save(2, resumed)
+    mgr.wait()
+    start, resumed = mgr.restore(init_state(bundle, 1, dev))
+    got += run(resumed, start, 4)
+    leaves = list(zip(state_leaves(resumed), state_leaves(straight)))
+    same = all(torch.equal(a, b) for (_, a), (_, b) in leaves)
+    log(f"== LM training restart (reduced qwen2.5-3b, {cfg.dtype}): 4 steps "
+        f"straight {want}; 2 + save + restore (step {start}) + 2 {got}; "
+        f"{len(leaves)} leaves bitwise equal: {same}")
+    if start != 2 or got != want or not same:
+        raise AssertionError("the restarted run is not bitwise the straight "
+                             "one")
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+
+    def cli(*args):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--batch",
+             "8", "--seq", "64", *args, *cli_extra], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(label, proc):
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        for line in stdout.splitlines():
+            log(f"  {label}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI ({label}) exited "
+                                 f"{proc.returncode}:\n{stderr[-3000:]}")
+        return stdout.splitlines()
+
+    demo = ["--arch", "phi3-mini-3.8b", "--ckpt-every", "6", "--ckpt-dir",
+            str(Path(tmp_dir) / "demo")]
+    first = cli(*demo, "--steps", "12")
+    comp = cli("--arch", "qwen2.5-3b", "--steps", "6", "--ckpt-every", "3",
+               "--compress-grads", "--ckpt-dir",
+               str(Path(tmp_dir) / "compressed"))
+    t0 = time.perf_counter()
+    lines = {"first": finish("train 12", first)}
+    second = cli(*demo, "--steps", "18", "--resume")
+    lines["compressed"] = finish("compress-grads", comp)
+    lines["resumed"] = finish("resume to 18", second)
+    wall = time.perf_counter() - t0
+    if lines["resumed"][0] != "[train] resumed from step 12":
+        raise AssertionError(f"the resumed run printed {lines['resumed'][0]!r}")
+    return dict(losses=got, cli_wall_s=wall, lines=lines)
+
+
+def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
+                reduced_archs=None, cli_extra=(), **arch_kw):
+    """The LM training phase: full-size training of each config, the flash
+    VJP at qwen2.5-3b's attention, one step of every reduced arch on the
+    card against the CPU, and the restart checks.  ``card`` (name and
+    power limit) goes on the phase's summary line."""
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t
+        return out
+
+    full = part("full", lambda: [drive_train_arch(torch, arch, cfg, dev,
+                                                  **arch_kw)
+                                 for arch, cfg in configs])
+    flash = part("flash_vjp", lambda: drive_flash_vjp(torch, dev,
+                                                      flash_shape))
+    log("== LM training: one float32 step of each reduced arch, card "
+        f"against the CPU and variants (tolerance {TRAIN_STEP_TOL}); max "
+        "abs differences")
+    reduced = part("reduced", lambda: drive_train_reduced(torch, dev,
+                                                          reduced_archs))
+    with tempfile.TemporaryDirectory() as tmp:
+        restart = part("restart", lambda: drive_train_restart(
+            torch, dev, tmp, cli_extra))
+    wall = time.perf_counter() - t0
+    log(f"LM training phase: {wall:.1f} s on {card or 'no card'} (parts, "
+        "s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + "); summary "
+        + json.dumps([{k: v for k, v in r.items() if k != "profile"}
+                      | (r["profile"] or {}) for r in full]))
+    return dict(full=full, flash=flash, reduced=reduced, restart=restart,
+                wall_s=wall, part_s=walls)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2191,6 +2739,7 @@ def main() -> int:
                             fl_eager, co_eager, mods)
     _, lm_moe = drive_lm(torch, ops, dev, mods, lm_configs(), card=card)
     require_launched("LM-MoE", lm_moe["launches"], ("spdmm",))
+    drive_train(torch, dev, train_configs(), card=card)
 
     calib, fl_calib = drive_calibration(torch, gnn, ops, DynasparseEngine,
                                         fl, dev, fl_eager, mods)

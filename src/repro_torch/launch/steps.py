@@ -1,9 +1,13 @@
-"""Serving step functions: the counterparts of the reference's
-``make_prefill_step`` / ``make_serve_step`` (``repro/launch/steps.py``)
-and of its ``jax.jit(bundle.decode_step, donate_argnums=1)``:
-:class:`CapturedDecode`, the decode step as one CUDA graph per cache.
+"""Step functions: the counterparts of the reference's
+``make_train_step`` / ``init_state`` / ``make_prefill_step`` /
+``make_serve_step`` (``repro/launch/steps.py``) and of its
+``jax.jit(bundle.decode_step, donate_argnums=1)``: :class:`CapturedDecode`,
+the decode step as one CUDA graph per cache.
 
-The train step and the state helpers come with the training slice.
+A training state is ``{"params": model, "opt": adamw state}`` (plus
+``"ef"`` with compressed gradients); the train step updates it in place,
+the counterpart of the reference's donated state.  ``abstract_state``
+comes with the dry-run slice.
 """
 from __future__ import annotations
 
@@ -12,7 +16,76 @@ import torch
 from repro_torch.device import capture_graph
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm as lm_lib
+from repro_torch.models.layers import trainable
 from repro_torch.models.registry import ModelBundle
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+
+def split_batch(batch: dict, mb: int) -> list[dict]:
+    """``mb`` microbatches of consecutive rows, the reference's
+    ``x.reshape(mb, B // mb, ...)``."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % mb:
+        raise ValueError(f"batch of {rows} rows in {mb} microbatches")
+    return [{k: v.reshape(mb, rows // mb, *v.shape[1:])[i]
+             for k, v in batch.items()} for i in range(mb)]
+
+
+def loss_and_grads(bundle: ModelBundle, model, batch: dict,
+                   mb: int = 1) -> torch.Tensor:
+    """The loss of ``batch`` (a float32 0-d tensor, detached) with its
+    gradients left in each parameter's ``.grad``.  With ``mb`` > 1 the
+    batch is cut into microbatches run one after another: their losses
+    and gradients add from zero in slice order (``.grad`` accumulates
+    across the backward calls), then both are divided by ``mb``."""
+    model.zero_grad(set_to_none=True)
+    if mb == 1:
+        loss = bundle.loss(model, batch)
+        loss.backward()
+        return loss.detach()
+    total = torch.zeros((), dtype=torch.float32,
+                        device=next(iter(batch.values())).device)
+    for micro in split_batch(batch, mb):
+        loss = bundle.loss(model, micro)
+        loss.backward()
+        total = total + loss.detach()
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(mb)
+    return total / mb
+
+
+def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig):
+    """``train_step(state, batch) -> (state, metrics)``: the loss and
+    gradients (microbatched by ``cfg.microbatches``), then AdamW, all in
+    place.  ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d
+    device tensors (nothing is read back to the host)."""
+    mb = max(1, bundle.cfg.microbatches)
+
+    def train_step(state: dict, batch: dict):
+        model = state["params"]
+        loss = loss_and_grads(bundle, model, batch, mb)
+        params = dict(model.named_parameters())
+        metrics = adamw_update({n: p.grad for n, p in params.items()},
+                               state["opt"], params, opt_cfg)
+        return state, dict(metrics, loss=loss)
+    return train_step
+
+
+def train_state(bundle: ModelBundle, model) -> dict:
+    """``{"params", "opt"}`` around ``model``, turned trainable (grads on,
+    compute copies dropped), with zero moments in ``cfg.opt_dtype``."""
+    trainable(model)
+    return {"params": model,
+            "opt": adamw_init(dict(model.named_parameters()),
+                              getattr(torch, bundle.cfg.opt_dtype))}
+
+
+def init_state(bundle: ModelBundle, seed: int = 0, device="cuda") -> dict:
+    """A fresh training state: the model from ``seed`` (a
+    ``torch.Generator`` on ``device``) and its optimizer state."""
+    return train_state(bundle, bundle.init(seed, device))
 
 
 def make_prefill_step(bundle: ModelBundle):

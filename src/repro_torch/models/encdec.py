@@ -1,12 +1,14 @@
-"""Encoder-decoder backbone (Seamless-M4T medium): the serving half of the
-reference's ``repro/models/encdec.py``.
+"""Encoder-decoder backbone (Seamless-M4T medium): the reference's
+``repro/models/encdec.py``.
 
 The audio frontend is a stub as in the reference: the encoder consumes
 precomputed frame embeddings [B, L_src, D].  Encoder = bidirectional
 self-attention stack; decoder = causal self-attention + cross-attention
 stack.  The decode cache holds the self-attention KV and the cross KV;
 like the reference's serve loop, nothing here fills ``cross_k`` /
-``cross_v`` (they stay the zeros of ``init_cache``).
+``cross_v`` (they stay the zeros of ``init_cache``).  ``cfg.remat ==
+"full"`` recomputes each encoder and decoder layer in the backward, as
+the reference checkpoints each scanned layer.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.models.layers import (Weights, decode_attention,
                                        flash_attention, glorot,
                                        make_compute_copies, rms_norm)
 from repro_torch.models.lm import (compute_dtype, generator, load_reference,
-                                   step_position)
+                                   remat_call, sharded_xent, step_position)
 from repro_torch.models.mixers import Attention
 
 
@@ -155,7 +157,7 @@ class EncDec(Weights):
         B, L, _ = x.shape
         positions = torch.arange(L, device=x.device).expand(B, L)
         for layer in self.enc_layers:
-            x = layer(x, positions)
+            x = remat_call(self.cfg, layer, x, positions)
         return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
 
     def forward(self, batch: dict) -> torch.Tensor:
@@ -166,7 +168,7 @@ class EncDec(Weights):
         B, Lt, _ = x.shape
         positions = torch.arange(Lt, device=x.device).expand(B, Lt)
         for layer in self.dec_layers:
-            x = layer(x, positions, enc_out)
+            x = remat_call(self.cfg, layer, x, positions, enc_out)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self.w("lm_head", x.dtype)
 
@@ -190,6 +192,13 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, device="cuda") -> EncDec:
 
 def forward(model: EncDec, batch: dict) -> torch.Tensor:
     return model(batch)
+
+
+def lm_loss(model: EncDec, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy of the decoder (the last position
+    excluded), a float32 scalar."""
+    logits = model(batch)
+    return sharded_xent(logits[:, :-1], batch["tokens"][:, 1:]).mean()
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_src: int, max_tgt: int,

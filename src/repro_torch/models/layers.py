@@ -1,19 +1,24 @@
-"""Shared transformer building blocks: the forward half of the reference's
+"""Shared transformer building blocks: the reference's
 ``repro/models/layers.py`` in PyTorch.
 
 Norms and RoPE run in float32 and cast back; attention is the reference's
 both-chunked online softmax (``flash_attention``) for full sequences and a
 masked softmax over the padded cache for one decode step, GQA in grouped
-form without repeating KV heads, every contraction in float32.  The
-flash custom VJP (``_flash_core``) belongs to the training slice: a
-config with ``flash_vjp`` set computes the same forward through
-:func:`flash_attention`.
+form without repeating KV heads, every contraction in float32.
+``flash_attention`` is differentiated by autograd, which keeps every
+block's probabilities for the backward; ``flash_attention_vjp`` (chosen
+by ``cfg.flash_vjp``) is the same forward with the reference's
+recompute-based backward (``_FlashCore``), which keeps only q, k, v, the
+output and the logsumexp.
 
 :class:`Weights` is the base of every layer with parameters: parameters
 stay float32 (``param_dtype``) and each is read in the compute dtype
-through :meth:`Weights.w`, from a copy made once by
-:func:`make_compute_copies` (the same rounding as the reference's
-``.astype(x.dtype)`` at every use).
+through :meth:`Weights.w`.  For serving, that read comes from a copy made
+once by :func:`make_compute_copies` (the same rounding as the
+reference's ``.astype(x.dtype)`` at every use).  A parameter that
+requires grad is always cast at its use instead, so its gradient flows
+into the float32 parameter; :func:`trainable` turns a model to that mode
+and drops its copies.
 """
 from __future__ import annotations
 
@@ -36,33 +41,49 @@ class Weights(nn.Module):
         self._compute: dict[str, torch.Tensor] = {}
 
     def param(self, name: str, *shape: int, device=None) -> None:
-        """Register an (uninitialised) float32 parameter without grad."""
+        """Register an (uninitialised) float32 parameter without grad
+        (:func:`trainable` turns grad on)."""
         self.register_parameter(name, nn.Parameter(
             torch.empty(shape, dtype=torch.float32, device=device),
             requires_grad=False))
 
     def w(self, name: str, dtype: torch.dtype) -> torch.Tensor:
-        """Parameter ``name`` in ``dtype``: itself, its compute copy, or a
-        cast made now."""
+        """Parameter ``name`` in ``dtype``: itself, its compute copy (only
+        while it requires no grad: a copy carries no gradient and goes
+        stale at the first update), or a cast made now."""
         p = self._parameters[name]
         if p.dtype == dtype:
             return p
         copy = self._compute.get(name)
-        if copy is not None and copy.dtype == dtype:
+        if copy is not None and copy.dtype == dtype and not p.requires_grad:
             return copy
         return p.to(dtype)
 
 
 @torch.no_grad()
 def make_compute_copies(model: nn.Module, dtype: torch.dtype) -> None:
-    """Give every :class:`Weights` layer of ``model`` a ``dtype`` copy of
-    each of its parameters (none when ``dtype`` is float32).  Call again
-    after the parameters change."""
+    """Turn ``model`` to serving: its parameters require no grad, and every
+    :class:`Weights` layer gets a ``dtype`` copy of each of its parameters
+    (none when ``dtype`` is float32).  Call again after the parameters
+    change (after training: the counterpart of :func:`trainable`)."""
+    model.requires_grad_(False)
     for m in model.modules():
         if isinstance(m, Weights):
             m._compute = {n: p.to(dtype)
                           for n, p in m.named_parameters(recurse=False)
                           if p.dtype != dtype}
+
+
+def trainable(model: nn.Module) -> nn.Module:
+    """Turn ``model`` to training: every parameter requires grad and every
+    compute copy is dropped (their memory freed; each use casts the
+    float32 parameter).  A trained model that is served again goes back
+    through :func:`make_compute_copies`."""
+    model.requires_grad_(True)
+    for m in model.modules():
+        if isinstance(m, Weights):
+            m._compute = {}
+    return model
 
 
 def glorot(shape, gen: torch.Generator, device=None) -> torch.Tensor:
@@ -154,29 +175,73 @@ def flash_attention(
     numerator exactly as they were (p is forced to 0, the correction is
     exp(0) = 1), so ``causal_skip``, which never visits the blocks above
     the diagonal, gives the same result."""
+    opts = _flash_opts(q, k, causal, window, q_offset, q_chunk, kv_chunk,
+                       kv_len_mask, causal_skip)
+    return _flash_pieces(q, k, v, opts)[0]
+
+
+def flash_attention_vjp(q, k, v, *, causal=True, window=None, q_offset=0,
+                        q_chunk=512, kv_chunk=512, kv_len_mask=None,
+                        causal_skip=False):
+    """:func:`flash_attention` with the recompute-based custom backward
+    (``_FlashCore``): the same forward, bitwise."""
+    opts = _flash_opts(q, k, causal, window, q_offset, q_chunk, kv_chunk,
+                       kv_len_mask, causal_skip)
+    return _FlashCore.apply(q, k, v, opts)
+
+
+def _flash_opts(q, k, causal, window, q_offset, q_chunk, kv_chunk,
+                kv_len_mask, causal_skip) -> tuple:
+    """The reference's ``opts``: (causal, window, q_offset, q chunk, kv
+    chunk, valid kv length, causal_skip)."""
+    Lk = k.shape[1]
+    return (causal, window, q_offset, min(q_chunk, q.shape[1]),
+            min(kv_chunk, Lk), kv_len_mask if kv_len_mask is not None else Lk,
+            causal_skip)
+
+
+def _flash_blocks(q, k, v, qc: int, kc: int):
+    """q, k, v padded to whole chunks, in float32 blocks: q [B, nq, qc,
+    Hkv, G, Dh], k and v [B, nk, kc, Hkv, Dh]."""
     B, Lq, Hq, Dh = q.shape
     _, Lk, Hkv, _ = k.shape
+    nq, nk = -(-Lq // qc), -(-Lk // kc)
+    qb = F.pad(q, (0, 0, 0, 0, 0, nq * qc - Lq)).reshape(
+        B, nq, qc, Hkv, Hq // Hkv, Dh).float()
+    kb = F.pad(k, (0, 0, 0, 0, 0, nk * kc - Lk)).reshape(
+        B, nk, kc, Hkv, Dh).float()
+    vb = F.pad(v, (0, 0, 0, 0, 0, nk * kc - Lk)).reshape(
+        B, nk, kc, Hkv, Dh).float()
+    return qb, kb, vb
+
+
+def _flash_mask(opts, iq: int, ik: int, device) -> torch.Tensor:
+    """[qc, kc] visibility of kv block ``ik`` from q block ``iq``."""
+    causal, window, q_offset, qc, kc, valid_k, _ = opts
+    q_pos = torch.arange(qc, device=device) + (iq * qc + q_offset)
+    k_pos = torch.arange(kc, device=device) + ik * kc
+    mask = k_pos[None, :] < valid_k
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return mask
+
+
+def _flash_pieces(q, k, v, opts):
+    """The shared forward: the output [B, Lq, Hq, Dh] in q's dtype and the
+    logsumexp of every row, [nq, B, Hkv, G, qc] in float32."""
+    causal, _, _, qc, kc, _, causal_skip = opts
+    B, Lq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
     G = Hq // Hkv
     scale = 1.0 / np.sqrt(Dh)
-
-    qc = min(q_chunk, Lq)
-    kc = min(kv_chunk, Lk)
-    nq, nk = -(-Lq // qc), -(-Lk // kc)
-    q = F.pad(q, (0, 0, 0, 0, 0, nq * qc - Lq))
-    k = F.pad(k, (0, 0, 0, 0, 0, nk * kc - Lk))
-    v = F.pad(v, (0, 0, 0, 0, 0, nk * kc - Lk))
-    valid_k = kv_len_mask if kv_len_mask is not None else Lk
-
-    qb = q.reshape(B, nq, qc, Hkv, G, Dh).float()
-    kb = k.reshape(B, nk, kc, Hkv, Dh).float()
-    vb = v.reshape(B, nk, kc, Hkv, Dh).float()
+    qb, kb, vb = _flash_blocks(q, k, v, qc, kc)
+    nq, nk = qb.shape[1], kb.shape[1]
     dev = q.device
-    q_pos_base = torch.arange(qc, device=dev) + q_offset
-    k_pos_base = torch.arange(kc, device=dev)
 
-    blocks = []
+    blocks, lses = [], []
     for iq in range(nq):
-        q_pos = q_pos_base + iq * qc
         m = torch.full((B, Hkv, G, qc), NEG, dtype=torch.float32, device=dev)
         l = torch.zeros((B, Hkv, G, qc), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, Hkv, G, qc, Dh), dtype=torch.float32,
@@ -184,13 +249,8 @@ def flash_attention(
         n_vis = (min(nk, (iq * qc + qc + kc - 1) // kc)
                  if causal and causal_skip else nk)
         for ik in range(n_vis):
-            k_pos = k_pos_base + ik * kc
             s = torch.einsum("bqhgd,bkhd->bhgqk", qb[:, iq], kb[:, ik]) * scale
-            mask = k_pos[None, :] < valid_k
-            if causal:
-                mask = mask & (k_pos[None, :] <= q_pos[:, None])
-            if window is not None:
-                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            mask = _flash_mask(opts, iq, ik, dev)
             s = torch.where(mask, s, NEG)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
@@ -199,10 +259,86 @@ def flash_attention(
             acc = (acc * corr[..., None]
                    + torch.einsum("bhgqk,bkhd->bhgqd", p, vb[:, ik]))
             m = m_new
-        out = acc / torch.clamp(l, min=1e-20)[..., None]
-        blocks.append(out.permute(0, 3, 1, 2, 4))      # [B, qc, Hkv, G, Dh]
+        l = torch.clamp(l, min=1e-20)
+        blocks.append((acc / l[..., None]).permute(0, 3, 1, 2, 4))
+        lses.append(m + torch.log(l))
     out = torch.cat(blocks, dim=1).reshape(B, nq * qc, Hq, Dh)
-    return out[:, :Lq].to(q.dtype)
+    return out[:, :Lq].to(q.dtype), torch.stack(lses)
+
+
+class _FlashCore(torch.autograd.Function):
+    """Flash attention whose backward recomputes each block's
+    probabilities from the saved logsumexp (the reference's
+    ``_flash_core`` custom VJP): it saves (q, k, v, out, lse), O(L) per
+    head, where autograd through :func:`flash_attention` keeps a
+    [qc, kc] float32 block for every (q, kv) block pair."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        out, lse = _flash_pieces(q, k, v, opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_backward(ctx.opts, q, k, v, out, lse, g), None)
+
+
+def _flash_backward(opts, q, k, v, out, lse, g):
+    """The reference's two passes: dq over q blocks (each against every kv
+    block), then dk and dv over kv blocks (each against every q block);
+    p = exp(s - lse) under the mask, ds = p (dp - delta) with delta =
+    rowsum(do * out)."""
+    _, _, _, qc, kc, _, _ = opts
+    B, Lq, Hq, Dh = q.shape
+    _, Lk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(Dh)
+    qb, kb, vb = _flash_blocks(q, k, v, qc, kc)
+    nq, nk = qb.shape[1], kb.shape[1]
+    dev = q.device
+    pad_q = (0, 0, 0, 0, 0, nq * qc - Lq)
+    dop = F.pad(g.float(), pad_q)
+    outp = F.pad(out.float(), pad_q)
+    dob = dop.reshape(B, nq, qc, Hkv, G, Dh)
+    delta = ((dop * outp).sum(-1).reshape(B, nq, qc, Hkv, G)
+             .permute(1, 0, 3, 4, 2))                     # [nq, B, Hkv, G, qc]
+
+    def p_of(iq, ik):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb[:, iq], kb[:, ik]) * scale
+        return torch.where(_flash_mask(opts, iq, ik, dev),
+                           torch.exp(s - lse[iq][..., None]), 0.0)
+
+    def ds_of(iq, ik, p):
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dob[:, iq], vb[:, ik])
+        return p * (dp - delta[iq][..., None])
+
+    dq_blocks = []
+    for iq in range(nq):
+        dq = torch.zeros((B, qc, Hkv, G, Dh), dtype=torch.float32, device=dev)
+        for ik in range(nk):
+            ds = ds_of(iq, ik, p_of(iq, ik))
+            dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", ds, kb[:, ik]) * scale
+        dq_blocks.append(dq)
+
+    dk_blocks, dv_blocks = [], []
+    for ik in range(nk):
+        dk = torch.zeros((B, kc, Hkv, Dh), dtype=torch.float32, device=dev)
+        dv = torch.zeros_like(dk)
+        for iq in range(nq):
+            p = p_of(iq, ik)
+            dv = dv + torch.einsum("bhgqk,bqhgd->bkhd", p, dob[:, iq])
+            dk = dk + torch.einsum("bhgqk,bqhgd->bkhd", ds_of(iq, ik, p),
+                                   qb[:, iq]) * scale
+        dk_blocks.append(dk)
+        dv_blocks.append(dv)
+
+    dq = torch.cat(dq_blocks, dim=1).reshape(B, nq * qc, Hq, Dh)[:, :Lq]
+    dk = torch.cat(dk_blocks, dim=1)[:, :Lk]
+    dv = torch.cat(dv_blocks, dim=1)[:, :Lk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(

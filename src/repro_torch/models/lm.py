@@ -1,6 +1,5 @@
 """Generic decoder-only LM covering the dense / MoE / MLA / hybrid / SSM /
-VLM architectures: the serving half of the reference's
-``repro/models/lm.py``.
+VLM architectures: the reference's ``repro/models/lm.py``.
 
 Layers are grouped into *cycles* (one pass over ``cfg.mixer_pattern``,
 e.g. RecurrentGemma's (rglru, rglru, attn)).  The reference stacks the
@@ -12,11 +11,15 @@ Modality frontends are stubs as in the reference: ``batch["embeds"]``
 (precomputed frame / patch embeddings) is put ahead of the token
 embeddings, with M-RoPE positions from ``batch["positions"]``.
 
-Parameters are float32; activations run in ``cfg.dtype`` with bfloat16
-copies of the weights made once (:func:`make_compute_copies`).  Logits
-of ``forward`` keep the padded vocabulary; ``decode_step`` slices them
-to ``cfg.vocab``.  ``lm_loss`` / ``sharded_xent`` belong to the training
-slice.
+Parameters are float32; activations run in ``cfg.dtype``, for serving
+with bfloat16 copies of the weights made once (:func:`make_compute_copies`;
+a model turned :func:`~repro_torch.models.layers.trainable` casts at every
+use instead).  ``cfg.remat == "full"`` recomputes each cycle in the
+backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+around its scanned cycle); the tail layers are not checkpointed, as in
+the reference.  Logits of ``forward`` keep the padded vocabulary, and
+``lm_loss`` takes its cross-entropy over all of it, as the reference
+does; ``decode_step`` slices them to ``cfg.vocab``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -138,11 +142,13 @@ class LM(Weights):
         return x, positions
 
     def forward(self, batch: dict, last_only: bool = False) -> torch.Tensor:
-        """Full-sequence forward (prefill).  Logits [B, L, padded_vocab],
-        or [B, 1, padded_vocab] with ``last_only`` (sliced before the
-        unembedding)."""
+        """Full-sequence forward (training and prefill).  Logits [B, L,
+        padded_vocab], or [B, 1, padded_vocab] with ``last_only`` (sliced
+        before the unembedding)."""
         x, positions = self.embed_inputs(batch)
-        for layer in self.layers():
+        for cycle in self.cycles:
+            x = remat_call(self.cfg, run_cycle, cycle, x, positions)
+        for layer in self.tail:
             x = layer(x, positions)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if last_only:
@@ -160,6 +166,46 @@ class LM(Weights):
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = x @ self.head(x.dtype)
         return logits[:, 0, :cfg.vocab]
+
+
+def run_cycle(cycle: nn.ModuleDict, x, positions):
+    """One pass over the mixer pattern."""
+    for j in range(len(cycle)):
+        x = cycle[f"layer{j}"](x, positions)
+    return x
+
+
+def remat_call(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward when ``cfg.remat`` is
+    "full" and autograd is recording."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# ------------------------------------------------------------------ loss
+def sharded_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position cross-entropy in float32: the reference's logsumexp
+    with a max that carries no gradient, over every column of ``logits``.
+    The reference picks the target logit with a one-hot contraction (which
+    keeps a vocab axis sharded); here it is a ``gather``, the same number
+    for finite logits (the one-hot sum adds exact zeros) without a
+    [B, L, V] one-hot.  The port has no vocab sharding; the name is the
+    reference's."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m.squeeze(-1) + torch.log(torch.exp(logits - m).sum(dim=-1))
+    tgt = torch.gather(logits, -1, targets.long()[..., None]).squeeze(-1)
+    return lse - tgt
+
+
+def lm_loss(model: LM, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy on token positions (frontend prefix and
+    the final position excluded), a float32 scalar."""
+    logits = model(batch)
+    n_prefix = 0 if batch.get("embeds") is None else batch["embeds"].shape[1]
+    targets = batch["tokens"][:, 1:]
+    return sharded_xent(logits[:, n_prefix:-1], targets).mean()
 
 
 # ------------------------------------------------------------------ API

@@ -24,7 +24,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (NEG, Weights, apply_rope,
                                        decode_attention, flash_attention,
-                                       gelu, glorot, rms_norm, silu)
+                                       flash_attention_vjp, gelu, glorot,
+                                       rms_norm, silu)
+
+
+def _attention(cfg: ModelConfig):
+    """The full-sequence attention of ``cfg``: with the recompute-based
+    custom backward when ``cfg.flash_vjp`` is set."""
+    return flash_attention_vjp if cfg.flash_vjp else flash_attention
 
 
 def _step_positions(pos: torch.Tensor, batch: int,
@@ -81,7 +88,7 @@ class Attention(Weights):
     def forward(self, x, positions):
         cfg = self.cfg
         q, k, v = self._qkv(x, positions)
-        out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
+        out = _attention(cfg)(q, k, v, causal=cfg.causal, window=cfg.window,
                               causal_skip=cfg.flash_causal_skip)
         B, L = x.shape[:2]
         return out.reshape(B, L, -1) @ self.w("wo", x.dtype)
@@ -169,7 +176,7 @@ class MLA(Weights):
         # pad V's head dim up to QK's for the shared flash attention
         qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
         v_p = F.pad(v, (0, qd - cfg.v_head_dim))
-        out = flash_attention(q, k, v_p, causal=True,
+        out = _attention(cfg)(q, k, v_p, causal=True,
                               causal_skip=cfg.flash_causal_skip)
         out = out[..., :cfg.v_head_dim].reshape(B, L, H * cfg.v_head_dim)
         return out @ self.w("wo", x.dtype)

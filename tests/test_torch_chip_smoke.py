@@ -306,3 +306,75 @@ def test_lm_serving_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     acts, w, block = smoke.moe_dispatch_operands()
     assert args[0].block_size == block and args[0].nnzb == 16
     np.testing.assert_allclose(args[0].todense().numpy(), acts)
+
+
+def test_lm_training_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """``chip_smoke.py``'s LM training phase on the CPU at reduced size
+    (the calls that need the card stubbed): six steps of reduced
+    qwen2.5-3b and mamba2-780m with the loss falling, the flash VJP at a
+    small shape in float32 and bfloat16, one step of four reduced archs
+    (dense, MoE, enc-dec, VLM) against itself and its variants (the MoE
+    arch's two microbatches against their halves), the in-process restart
+    bitwise and the train CLI resumed from step 12 plus a
+    ``--compress-grads`` run."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.reduced import reduce_config
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    assert [(a, c.n_layers, c.d_model, c.remat, c.microbatches)
+            for a, c in smoke.train_configs()] == [
+        ("qwen2.5-3b", 36, 2048, "full", 4),
+        ("mamba2-780m", 48, 1536, "full", 4)]
+    configs = [(arch, reduce_config(ARCHS[arch]))
+               for arch in smoke.TRAIN_ARCHS]
+    reduced = ["qwen2.5-3b", "deepseek-v2-lite-16b", "seamless-m4t-medium",
+               "qwen2-vl-72b"]
+    out = smoke.drive_train(torch, torch.device("cpu"), configs,
+                            flash_shape=(1, 40, 4, 2, 16, 16),
+                            reduced_archs=reduced,
+                            cli_extra=("--device", "cpu"), batch=8, seq=32)
+    for r in out["full"]:
+        assert len(r["losses"]) == smoke.TRAIN_STEPS
+        assert r["losses"][-1] < r["losses"][0]
+        assert r["step_event_ms"] is None and r["profile"] is None
+        assert r["bound_ms"] == r["flop_ms"] + r["adamw_ms"] > 0
+    assert set(out["flash"]) == {"float32", "bfloat16"}
+    assert list(out["reduced"]) == reduced
+    moe = [a for a in ARCHS if ARCHS[a].ffn == "moe"]
+    for arch, checks in out["reduced"].items():
+        assert ("microbatches 2 == the halves" in checks) == (arch in moe)
+        assert ("microbatches 2 == 1" in checks) == (arch not in moe)
+    assert out["restart"]["lines"]["resumed"][0] == (
+        "[train] resumed from step 12")
+    assert any("compress" not in l for l in out["restart"]["lines"][
+        "compressed"])
+
+
+def test_train_work_counts_the_step(smoke):
+    """The step's bound from shapes: full qwen2.5-3b on ``meta`` tensors
+    (no memory), batch 8 x 512: products 2 FLOPs a weight a token (the
+    tied head once, no lookup), causal attention over (L + 1) / 2 keys,
+    times 3 for the backward plus one recomputed forward of the layers;
+    AdamW 28 bytes a parameter with float32 moments."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.lm import LM
+
+    cfg = ARCHS["qwen2.5-3b"]
+    model = LM(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    assert n == pytest.approx(cfg.param_count(), rel=1e-3)   # padded vocab
+    tokens, seq = 8 * 512, 512
+    layer_mm = sum(p.numel() for name, p in model.named_parameters()
+                   if p.ndim == 2 and name != "embed")
+    head = cfg.padded_vocab * cfg.d_model
+    attn = 36 * tokens * 4 * 16 * 128 * (seq + 1) / 2
+    fwd = 2.0 * (layer_mm + head) * tokens + attn
+    work = smoke.train_work(model, cfg, tokens, seq)
+    assert work["flops"] == 4 * fwd - 2.0 * head * tokens
+    assert work["adamw_bytes"] == 28 * n
+    assert work["flops"] / 1e12 == pytest.approx(99.81, abs=0.01)
+    assert work["bound_ms"] == pytest.approx(
+        1e3 * (work["flops"] / 989e12 + 28 * n / 3.35e12), rel=1e-12)

@@ -13,7 +13,7 @@ from repro_torch.configs.reduced import reduce_config
 from repro_torch.core import DynasparseEngine, calibrate
 from repro_torch.core.perfmodel import runtime_fallback
 from repro_torch.data.graphs import load_graph
-from repro_torch.launch import serve
+from repro_torch.launch import serve, steps, train
 from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models import gnn
 from repro_torch.models.registry import build_model
@@ -71,14 +71,25 @@ def test_lm_modules_import_no_jax_and_no_reference_package(module):
     _fresh_import_loads_no_jax(module)
 
 
-def _fresh_import_loads_no_jax(module):
+def test_training_modules_import_no_jax_and_no_reference_package():
+    """The LM training path's modules, checked as the mesh modules are,
+    all imported in one fresh interpreter."""
+    _fresh_import_loads_no_jax(
+        "repro_torch.launch.train", "repro_torch.launch.steps",
+        "repro_torch.optim.adamw", "repro_torch.optim.compression",
+        "repro_torch.checkpoint.manager", "repro_torch.data.lm")
+
+
+def _fresh_import_loads_no_jax(*modules):
     import os
     import subprocess
     import sys
 
-    path = ROOT / "src" / (module.replace(".", "/") + ".py")
-    assert path in _port_files()
-    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+    for module in modules:
+        path = ROOT / "src" / (module.replace(".", "/") + ".py")
+        assert path in _port_files()
+        assert not set(_imported_roots(path)) & set(FORBIDDEN)
+    module = ", ".join(modules)
     code = (f"import sys, {module}; "
             f"bad = sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}); "
@@ -120,3 +131,7 @@ def test_entry_points_default_to_the_card():
         bundle.init_cache(1, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "qwen2.5-3b"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.init_state(bundle)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen2.5-3b"])

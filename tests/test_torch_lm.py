@@ -301,10 +301,15 @@ def test_captured_decode_runs_the_step_body_on_the_cpu():
 
 
 def test_bundle_leaves_training_to_a_later_slice():
+    """The dry-run members still name their slice; ``loss`` (the training
+    slice) is the model's ``lm_loss``."""
+    from repro_torch.models import lm
+
     bundle = build_model(reduce_config(ARCHS["qwen2.5-3b"]))
-    for name in ("loss", "abstract_params", "abstract_cache"):
+    for name in ("abstract_params", "abstract_cache"):
         with pytest.raises(NotImplementedError, match="slice"):
             getattr(bundle, name)
+    assert bundle.loss is lm.lm_loss
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
