@@ -50,7 +50,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    their bound, peak memory, a profiled replayed step; float32 decode ==
    ``forward`` (and ``make_prefill_step``) at 1e-3 for the two archs
    without MoE; ``python -m repro_torch.launch.serve`` for each arch as a
-   subprocess; and the MoE block-sparse dispatch of
+   subprocess, then ``examples_torch/serve_lm.py``; and the MoE
+   block-sparse dispatch of
    ``examples/moe_sparse_dispatch.py`` through ``spdmm`` (path
    ``LM-MoE``);
 9. trains LMs (``repro_torch.launch.steps``, ``launch/train.py``):
@@ -68,9 +69,26 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    the card against the same step on the CPU, two microbatches against
    one (MoE: against the two halves) and ``remat="full"`` against none;
    the restart: 2 steps + save + restore + 2 steps bitwise 4 straight
-   steps, and ``python -m repro_torch.launch.train`` as
-   ``examples/train_lm.py`` runs the reference's (12 steps, then
-   ``--steps 18 --resume``) beside a ``--compress-grads`` run;
+   steps, and ``examples_torch/train_lm.py`` (``python -m
+   repro_torch.launch.train`` as ``examples/train_lm.py`` runs the
+   reference's: 12 steps, then ``--steps 18 --resume``) beside a
+   ``--compress-grads`` run; then the LM distribution layer:
+   ``qwen2.5-3b`` at its published widths and depth on a (data 2, model
+   2) mesh whose four coordinates share the card (``init_state`` /
+   ``make_train_step`` with ``mesh=``, the state stored by the sharding
+   rules): every shard's bytes as its spec predicts, four steps of the
+   same batch as above (finite, falling, step 0 within 1e-3 of the
+   single-device step 0), per step wall, events, tokens/s and peak
+   memory, a profiled step; ``psum8`` over the embedding gradients of the
+   batch's four microbatches against their float32 sum (the quantisation
+   budget; both timed); ``pipeline_apply`` of four full-width layers
+   over eight microbatches, bitwise the serial run; the elastic path
+   (save, ``plan_remesh(2, model_parallel=2, original_data=2)``, restore
+   onto (data 1, model 2) bitwise with every shard by the new spec, one
+   finite step with the microbatches doubled); two steps of reduced
+   qwen2.5-3b on the (1, 1) mesh bitwise ``make_train_step``'s; and
+   ``examples_torch/quickstart.py`` and ``gnn_inference.py`` at their
+   defaults;
 10. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
    card's kernels, every sample and fit logged; ``get_calibrated`` twice on
    a fresh ``SharedPlanCache`` (one build, one hit), saved, loaded into a
@@ -117,7 +135,9 @@ outside a checkout, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import logging
 import os
@@ -1451,9 +1471,7 @@ def drive_restart(tmp_dir: str, *extra: str) -> list[dict]:
     cmd = [sys.executable, "-m", "repro_torch.launch.gnn_serve",
            "--dataset", "CO", "--scale", "1", "--literal", "--requests",
            "16", "--max-batch", "4", "--cache-file", path, *extra]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
-                               if p]))
+    env = cli_env()
     runs = []
     for i in range(2):
         t0 = time.perf_counter()
@@ -2044,9 +2062,7 @@ def drive_serve_cli(archs, *extra: str) -> None:
     --prompt-len 8 --gen 8`` for each arch as a subprocess (as
     ``examples/serve_lm.py`` runs the reference's), all at once; each must
     exit 0."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
-                               if p]))
+    env = cli_env()
     procs = {arch: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--batch", "2", "--prompt-len", "8", "--gen", "8", *extra],
@@ -2117,6 +2133,28 @@ def drive_moe_dispatch(torch, ops, dev, mods):
     return dict(launches=launches, calls=rec.calls)
 
 
+def drive_serve_example(cli_extra=()) -> None:
+    """``examples_torch/serve_lm.py`` (its three archs through the serve
+    CLI, one after another) as a subprocess; it must exit 0."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples_torch" / "serve_lm.py"),
+         *cli_extra], env=cli_env(), cwd=ROOT, capture_output=True,
+        text=True, timeout=900)
+    log("== LM serving: examples_torch/serve_lm.py")
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"examples_torch/serve_lm.py exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+
+
+def cli_env() -> dict:
+    """The environment of a launcher subprocess: ``src`` on its path."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+
+
 def drive_lm(torch, ops, dev, mods, configs, card="", cli_extra=()):
     """The LM serving phase: each config's serve loop, the serve CLI for
     each arch, and the MoE sparse-dispatch demonstration.  ``card`` (name
@@ -2126,6 +2164,7 @@ def drive_lm(torch, ops, dev, mods, configs, card="", cli_extra=()):
                for arch, cfg, check in configs]
     log("== LM serving: the serve CLI (reduced configs) for each arch")
     drive_serve_cli([arch for arch, _, _ in configs], *cli_extra)
+    drive_serve_example(cli_extra)
     moe = drive_moe_dispatch(torch, ops, dev, mods)
     wall = time.perf_counter() - t0
     log(f"LM serving phase: {wall:.1f} s on {card or 'no card'}; summary "
@@ -2537,10 +2576,11 @@ def drive_train_restart(torch, dev, tmp_dir: str, cli_extra=()):
     """Restart: on reduced qwen2.5-3b in process, 4 steps straight equal 2
     steps, a non-blocking ``save``, ``restore`` into a state from another
     seed and 2 more steps, bitwise (every parameter, moment and the step);
-    then ``python -m repro_torch.launch.train`` as the reference's
-    example runs it (phi3-mini-3.8b, 12 steps with a checkpoint every 6,
-    then ``--steps 18 --resume``, which must resume from step 12), beside
-    one ``--compress-grads`` run."""
+    then ``examples_torch/train_lm.py`` (``python -m
+    repro_torch.launch.train`` as the reference's example runs it:
+    phi3-mini-3.8b, 12 steps with a checkpoint every 6, then ``--steps 18
+    --resume``, which must resume from step 12), beside one
+    ``--compress-grads`` run of the launcher."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import state_leaves
     from repro_torch.configs import ARCHS
@@ -2586,41 +2626,35 @@ def drive_train_restart(torch, dev, tmp_dir: str, cli_extra=()):
         raise AssertionError("the restarted run is not bitwise the straight "
                              "one")
 
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
-                               if p]))
-
-    def cli(*args):
-        return subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.train", "--batch",
-             "8", "--seq", "64", *args, *cli_extra], env=env, cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-    def finish(label, proc):
-        try:
-            stdout, stderr = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            stdout, stderr = proc.communicate()
-        for line in stdout.splitlines():
-            log(f"  {label}: {line}")
-        if proc.returncode != 0:
-            raise AssertionError(f"train CLI ({label}) exited "
-                                 f"{proc.returncode}:\n{stderr[-3000:]}")
-        return stdout.splitlines()
-
-    demo = ["--arch", "phi3-mini-3.8b", "--ckpt-every", "6", "--ckpt-dir",
-            str(Path(tmp_dir) / "demo")]
-    first = cli(*demo, "--steps", "12")
-    comp = cli("--arch", "qwen2.5-3b", "--steps", "6", "--ckpt-every", "3",
-               "--compress-grads", "--ckpt-dir",
-               str(Path(tmp_dir) / "compressed"))
+    comp = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--batch", "8",
+         "--seq", "64", "--arch", "qwen2.5-3b", "--steps", "6",
+         "--ckpt-every", "3", "--compress-grads", "--ckpt-dir",
+         str(Path(tmp_dir) / "compressed"), *cli_extra], env=cli_env(),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     t0 = time.perf_counter()
-    lines = {"first": finish("train 12", first)}
-    second = cli(*demo, "--steps", "18", "--resume")
-    lines["compressed"] = finish("compress-grads", comp)
-    lines["resumed"] = finish("resume to 18", second)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):   # logged below
+            demo = example("train_lm").main(
+                ["--ckpt-dir", str(Path(tmp_dir) / "demo"), *cli_extra])
+    finally:
+        try:
+            stdout, stderr = comp.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            comp.kill()
+            stdout, stderr = comp.communicate()
     wall = time.perf_counter() - t0
+    for line in demo:
+        log(f"  examples_torch/train_lm.py: {line}")
+    for line in stdout.splitlines():
+        log(f"  compress-grads: {line}")
+    if comp.returncode != 0:
+        raise AssertionError(f"train CLI (compress-grads) exited "
+                             f"{comp.returncode}:\n{stderr[-3000:]}")
+    cut = next(i for i, line in enumerate(demo)
+               if line.startswith(">> simulate preemption"))
+    lines = {"first": demo[1:cut], "compressed": stdout.splitlines(),
+             "resumed": demo[cut + 1:]}
     if lines["resumed"][0] != "[train] resumed from step 12":
         raise AssertionError(f"the resumed run printed {lines['resumed'][0]!r}")
     return dict(losses=got, cli_wall_s=wall, lines=lines)
@@ -2664,6 +2698,443 @@ def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
                 wall_s=wall, part_s=walls)
 
 
+# ------------------------------------------------------ LM distribution
+# qwen2.5-3b trained on a (data 2, model 2) mesh whose coordinates all sit
+# on the one card, with the training phase's batch (8 x 512, 4
+# microbatches, remat, bfloat16 compute over float32 state), four steps
+# on the repeated batch;
+# psum8 over 4 ranks; a 4-stage pipeline of full-width layers over 8
+# microbatches; the elastic restore onto plan_remesh(2, model_parallel=2,
+# original_data=2)'s (data 1, model 2) mesh
+DIST_ARCH = "qwen2.5-3b"
+DIST_MESH = (2, 2)
+DIST_STEPS = 4
+# the sharded step-0 loss against the single-device one (the reference's
+# sharded-vs-single gate, tests/test_sharding_multidev.py:115)
+DIST_LOSS_TOL = 1e-3
+PSUM8_RANKS = 4
+PIPE_STAGES, PIPE_MICRO = 4, 8
+
+
+def example(name: str):
+    """``examples_torch/<name>.py`` loaded as a module (its ``main`` not
+    run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mesh_on(dev, shape):
+    """A ``("data", "model")`` mesh of ``shape`` whose every coordinate is
+    ``dev``."""
+    from repro_torch.launch.mesh import Mesh
+    return Mesh.on(dev, shape, ("data", "model"))
+
+
+def check_shard_bytes(state) -> dict:
+    """Every shard of the parameters and both moments holds the bytes its
+    spec predicts (the leaf's bytes over the product of the spec's axis
+    sizes); returns the bytes each coordinate holds and the distinct
+    bytes on the card."""
+    from repro_torch.distributed import sharding
+
+    groups = [state["params"], state["opt"]["mu"], state["opt"]["nu"]]
+    leaf = next(iter(state["params"].values()))
+    per_coord = dict.fromkeys(leaf.mesh.coords(), 0)
+    distinct = 0
+    for tree in groups:
+        for name, lf in tree.items():
+            item = lf.dtype.itemsize
+            want = (int(np.prod(lf.shape)) * item
+                    // int(np.prod([sharding._size(lf.mesh, e)
+                                    for e in lf.spec])))
+            for coord in lf.mesh.coords():
+                got = lf.nbytes(coord)
+                if got != want:
+                    raise AssertionError(f"{name} at {coord}: {got} bytes, "
+                                         f"its spec {lf.spec} predicts {want}")
+                per_coord[coord] += got
+            distinct += sum(t.numel() * t.element_size()
+                            for t in lf.tensors.values())
+    return dict(per_coord={str(k): v for k, v in per_coord.items()},
+                distinct=distinct)
+
+
+def drive_sharded_train(torch, dev, cfg, single_loss0, batch, seq, steps):
+    """``init_state`` / ``make_train_step`` with ``mesh=`` a ``DIST_MESH``
+    mesh on ``dev``: the shard bytes, ``steps`` steps on one repeated
+    batch (finite loss and gradient norm, the loss falling, step 0 within
+    ``DIST_LOSS_TOL`` of the single-device step's), per step wall, events,
+    tokens/s and peak memory, the bound, a profiled step."""
+    import gc
+
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_on(dev, DIST_MESH)
+    bundle = build_model(cfg)
+    state, init_s = synced_wall(
+        torch, lambda: init_state(bundle, 0, dev, mesh=mesh))
+    shard_bytes = check_shard_bytes(state)
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq)
+    try:
+        tokens = next(pipe)["tokens"]
+    finally:
+        pipe.close()
+    feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    work = train_work(LM(cfg, device="meta"), cfg, batch * seq, seq)
+    log(f"== LM distribution: {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.microbatches} microbatches, remat "
+        f"{cfg.remat}, {cfg.dtype} compute) on a (data {DIST_MESH[0]}, "
+        f"model {DIST_MESH[1]}) mesh of {dev} x {mesh.size}: init "
+        f"{init_s:.2f} s (peak {init_peak:.2f} GiB), {held / 2**30:.2f} GiB "
+        f"held before; every shard's bytes as its spec predicts; per "
+        f"coordinate {sorted(set(shard_bytes['per_coord'].values()))} B, "
+        f"distinct on the card {shard_bytes['distinct'] / 1e9:.3f} GB; "
+        f"batch {batch} x {seq}, repeated; step bound "
+        f"{work['bound_ms']:.3f} ms")
+    step = make_train_step(bundle, AdamWConfig(**TRAIN_OPT), mesh=mesh)
+    rows = []
+    for i in range(steps):
+        state, m, wall, event_ms = timed_step(torch, step, state, feed, dev)
+        row = dict(step=i, loss=m["loss"].item(),
+                   grad_norm=m["grad_norm"].item(), wall_s=wall,
+                   event_ms=event_ms, tokens_per_s=batch * seq / wall,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        rows.append(row)
+        ev = f"{event_ms:.1f} ms" if event_ms is not None else "not measured"
+        log(f"  step {i}: loss {row['loss']:.4f} gnorm "
+            f"{row['grad_norm']:.4f}; wall {1e3 * wall:.1f} ms, device "
+            f"(events) {ev}, {row['tokens_per_s']:.1f} tokens/s, peak "
+            f"{row['peak_gib']:.2f} GiB")
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise AssertionError(f"sharded step {i}: loss {row['loss']} "
+                                 f"gnorm {row['grad_norm']}")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        raise AssertionError("the sharded loss did not fall: "
+                             f"{[r['loss'] for r in rows]}")
+    d0 = (abs(rows[0]["loss"] - single_loss0) if single_loss0 is not None
+          else None)
+    log(f"  step-0 loss {rows[0]['loss']:.6f}, single-device "
+        f"{single_loss0}: |diff| {d0}")
+    if d0 is not None and not d0 < DIST_LOSS_TOL:
+        raise AssertionError(f"sharded step-0 loss {rows[0]['loss']} vs "
+                             f"single-device {single_loss0}")
+    steady = rows[1:] if len(rows) > 1 else rows
+    wall = statistics.median(r["wall_s"] for r in steady)
+    event_ms = (statistics.median(r["event_ms"] for r in steady)
+                if rows[0]["event_ms"] is not None else None)
+    out = dict(arch=cfg.name, mesh=DIST_MESH, layers=cfg.n_layers,
+               losses=[r["loss"] for r in rows],
+               grad_norms=[r["grad_norm"] for r in rows],
+               step0_vs_single=d0, step_wall_ms=1e3 * wall,
+               step_event_ms=event_ms, tokens_per_s=batch * seq / wall,
+               peak_gib=max(r["peak_gib"] for r in rows), init_s=init_s,
+               init_peak_gib=init_peak, held_gib=held / 2**30,
+               shard_bytes=shard_bytes, bound_ms=work["bound_ms"])
+    log(f"  median step (steps 1..{steps - 1}): wall {1e3 * wall:.1f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s, device "
+        f"{event_ms if event_ms is None else round(event_ms, 3)} ms; bound "
+        f"{work['bound_ms']:.3f} ms")
+    out["profile"] = (profile_train_step(torch, step, state, feed, event_ms)
+                      if event_ms else None)
+    del step
+    gc.collect()
+    return out, bundle, mesh, state, feed
+
+
+def drive_psum8(torch, bundle, mesh, state, feed, dev):
+    """``psum8`` on the embedding gradients of ``PSUM8_RANKS`` ranks (each
+    the gradient of one microbatch of the batch, as a data-parallel rank
+    would hold it) against their float32 sum: the error under the
+    quantisation budget; both timed with CUDA events."""
+    import gc
+
+    from repro_torch.launch.steps import MeshCompute, split_batch
+    from repro_torch.optim.compression import psum8
+
+    compute = MeshCompute(bundle, mesh)
+    # only the embedding's gradient is wanted: the replica's other
+    # parameters take none (11.5 GiB less on the card)
+    for n, p in compute.replica(dev).named_parameters():
+        p.requires_grad_(n == "embed")
+    xs = []
+    for micro in split_batch(feed, PSUM8_RANKS):
+        _, grads = compute.loss_and_grads(state["params"], micro)
+        xs.append(grads["embed"].clone())
+    del compute, grads
+    gc.collect()
+    out = psum8(xs)
+    want = xs[0]
+    for x in xs[1:]:
+        want = want + x
+    err = (out[0] - want).abs().max().item()
+    budget = PSUM8_RANKS * 0.5 * max(x.abs().max().item() for x in xs) / 127
+    f32_ms = device_ms(torch, lambda: torch.stack(xs).sum(0)) \
+        if dev.type == "cuda" else None
+    q_ms = device_ms(torch, lambda: psum8(xs)) if dev.type == "cuda" \
+        else None
+    n = xs[0].numel()
+    log(f"== LM distribution: psum8 over {PSUM8_RANKS} ranks of "
+        f"{tuple(xs[0].shape)} float32 (the embedding gradients of "
+        f"{PSUM8_RANKS} microbatches): max |psum8 - sum| {err:.4e}, budget "
+        f"{budget:.4e} ({err / budget:.3f} of it); device ms psum8 {q_ms}, "
+        f"float32 sum (stack + sum) {f32_ms}; int8 payload "
+        f"{PSUM8_RANKS * n / 1e6:.1f} MB against "
+        f"{4 * PSUM8_RANKS * n / 1e6:.1f} MB float32")
+    if not err < budget:
+        raise AssertionError(f"psum8 error {err} over its budget {budget}")
+    shape = tuple(xs[0].shape)
+    del xs, out, want
+    return dict(shape=(PSUM8_RANKS, *shape), err=err, budget=budget,
+                err_over_budget=err / budget, ms=q_ms, f32_sum_ms=f32_ms)
+
+
+def drive_pipeline(torch, cfg, state, dev):
+    """``pipeline_apply`` over a ``("pipe",)`` mesh of ``PIPE_STAGES``
+    coordinates on ``dev``, each stage one full-width layer (the first
+    layers of the trained state), ``PIPE_MICRO`` microbatches of one
+    sequence: equal to the serial run, bitwise."""
+    from torch.func import functional_call
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.pipeline import (bubble_fraction,
+                                                  pipeline_apply)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.lm import Layer, compute_dtype
+
+    layer = Layer(cfg.mixer_pattern[0], cfg, device=dev)
+    names = [n for n, _ in layer.named_parameters()]
+    cyc = cfg.cycle_len()
+    stacked = {n: torch.stack([
+        sharding.unshard(state["params"][
+            f"cycles.{s // cyc}.layer{s % cyc}.{n}"], dev)
+        for s in range(PIPE_STAGES)]) for n in names}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = torch.randn((PIPE_MICRO, 1, TRAIN_SEQ, cfg.d_model), generator=gen,
+                     device=dev).to(compute_dtype(cfg))
+    positions = torch.arange(TRAIN_SEQ, device=dev)[None]
+
+    def stage_fn(params, x):
+        return functional_call(layer, params, (x, positions))
+
+    mesh = Mesh.on(dev, (PIPE_STAGES,), ("pipe",))
+    with torch.no_grad():
+        got, wall = synced_wall(torch, lambda: pipeline_apply(
+            mesh, stage_fn, stacked, xs))
+        serial = []
+        for m in range(PIPE_MICRO):
+            y = xs[m]
+            for s in range(PIPE_STAGES):
+                y = stage_fn({n: v[s] for n, v in stacked.items()}, y)
+            serial.append(y)
+        serial = torch.stack(serial)
+    same = torch.equal(got, serial)
+    log(f"== LM distribution: pipeline_apply, {PIPE_STAGES} stages of one "
+        f"{cfg.name} layer each (d {cfg.d_model}), {PIPE_MICRO} microbatches "
+        f"of 1 x {TRAIN_SEQ} in {compute_dtype(cfg)}: bitwise the serial "
+        f"run: {same}; wall {1e3 * wall:.1f} ms; bubble fraction "
+        f"{bubble_fraction(PIPE_STAGES, PIPE_MICRO):.4f}")
+    if not same:
+        raise AssertionError("pipeline_apply differs from the serial run")
+    return dict(bitwise=same, wall_ms=1e3 * wall,
+                bubble=bubble_fraction(PIPE_STAGES, PIPE_MICRO))
+
+
+def drive_elastic(torch, bundle, state, feed, dev, tmp_dir):
+    """Save the mesh state; ``plan_remesh(2, model_parallel=2,
+    original_data=2)`` (``(1, 2)``, microbatch scale 2); restore onto that
+    mesh on ``dev`` by ``state_shardings`` (every leaf bitwise the saved
+    one, every shard by the new spec); one more step with the microbatches
+    scaled, finite."""
+    import gc
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _from_host
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.elastic import plan_remesh
+    from repro_torch.launch.steps import make_train_step, state_shardings
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    mgr = CheckpointManager(Path(tmp_dir) / "elastic")
+    _, save_s = synced_wall(torch, lambda: mgr.save(DIST_STEPS, state,
+                                                    blocking=True))
+    meta = lambda l: torch.empty(l.shape, dtype=l.dtype,    # noqa: E731
+                                 device="meta")
+    template = {"params": {n: meta(l) for n, l in state["params"].items()},
+                "opt": {"mu": {n: meta(l) for n, l in
+                               state["opt"]["mu"].items()},
+                        "nu": {n: meta(l) for n, l in
+                               state["opt"]["nu"].items()},
+                        "step": state["opt"]["step"].clone()}}
+    state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = plan_remesh(2, model_parallel=2, original_data=2)
+    if plan.mesh_shape != (1, 2) or plan.microbatch_scale != 2:
+        raise AssertionError(f"plan_remesh gave {plan}")
+    small = mesh_on(dev, plan.mesh_shape)
+    t0 = time.perf_counter()
+    with small:
+        step_no, back = mgr.restore(
+            template, shardings=state_shardings(template["params"], small))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    manifest = json.loads((mgr.dir / f"step_{step_no:09d}" /
+                           "manifest.json").read_text())
+    # checkpoint path -> (parameter name, restored leaf)
+    flat = {f"params.{n}": (n, l) for n, l in back["params"].items()}
+    flat |= {f"opt.{k}.{n}": (n, l) for k in ("mu", "nu")
+             for n, l in back["opt"][k].items()}
+    flat["opt.step"] = (None, back["opt"]["step"])
+    bad = []
+    for i, leaf in enumerate(manifest["leaves"]):
+        saved = _from_host(np.load(mgr.dir / f"step_{step_no:09d}" /
+                                   f"arr_{i}.npy"), leaf["dtype"])
+        name, got = flat[leaf["path"]]
+        if isinstance(got, sharding.Sharded):
+            if got.spec != sharding.param_spec(name, got.shape, small):
+                bad.append(f"{leaf['path']}: spec {got.spec}")
+            for coord in small.coords():
+                if tuple(got.local(coord).shape) != sharding.block_shape(
+                        got.spec, got.shape, small):
+                    bad.append(f"{leaf['path']} at {coord}")
+            got = sharding.unshard(got, dev)
+        if not torch.equal(got, saved.to(dev)):
+            bad.append(leaf["path"])
+    cfg2 = dataclasses.replace(
+        bundle.cfg, microbatches=bundle.cfg.microbatches
+        * plan.microbatch_scale)
+    step = make_train_step(build_model(cfg2), AdamWConfig(**TRAIN_OPT),
+                           mesh=small)
+    _, m = step(back, feed)
+    loss = m["loss"].item()
+    log(f"== LM distribution: elastic: save {save_s:.1f} s "
+        f"({len(manifest['leaves'])} leaves), {plan}, restore onto (data "
+        f"{plan.mesh_shape[0]}, model {plan.mesh_shape[1]}) "
+        f"{restore_s:.1f} s: every leaf bitwise and every shard by the new "
+        f"spec: {not bad}; one more step ({cfg2.microbatches} microbatches) "
+        f"loss {loss:.4f}")
+    if bad:
+        raise AssertionError(f"elastic restore differs: {bad[:5]}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"the step after the elastic restore: {loss}")
+    del step, back, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(plan=dataclasses.asdict(plan), save_s=save_s,
+                restore_s=restore_s, leaves=len(manifest["leaves"]),
+                loss_after=loss)
+
+
+def drive_mesh_1x1(torch, dev, cfg):
+    """Two steps of reduced ``cfg`` on the ``(1, 1)`` mesh equal two
+    single-device steps bitwise (loss, gradient norm, every parameter,
+    both moments)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    bundle = build_model(cfg)
+    feed = {k: torch.as_tensor(v, device=dev)
+            for k, v in reduced_batch(cfg).items()}
+    mesh = mesh_on(dev, (1, 1))
+    one, many = init_state(bundle, 0, dev), init_state(bundle, 0, dev,
+                                                       mesh=mesh)
+    s1 = make_train_step(bundle, AdamWConfig())
+    s2 = make_train_step(bundle, AdamWConfig(), mesh=mesh)
+    same = True
+    for _ in range(2):
+        _, m1 = s1(one, feed)
+        _, m2 = s2(many, feed)
+        same &= all(torch.equal(m1[k], m2[k]) for k in ("loss", "grad_norm"))
+    for n, p in one["params"].named_parameters():
+        same &= torch.equal(sharding.unshard(many["params"][n], dev), p)
+        for k in ("mu", "nu"):
+            same &= torch.equal(sharding.unshard(many["opt"][k][n], dev),
+                                one["opt"][k][n])
+    log(f"== LM distribution: (1, 1) mesh, reduced {cfg.name}: two steps "
+        f"bitwise make_train_step's: {same}")
+    if not same:
+        raise AssertionError("the (1, 1) mesh step differs from "
+                             "make_train_step")
+    return same
+
+
+def drive_distributed(torch, dev, cfg, card="", single_loss0=None,
+                      reduced_cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      steps=DIST_STEPS):
+    """The LM distribution phase: sharded training of ``cfg`` on a
+    ``DIST_MESH`` mesh, ``psum8`` on its embedding gradients, the pipeline
+    of its first layers, the elastic restore, and the ``(1, 1)`` mesh on
+    ``reduced_cfg`` (default: ``reduce_config(cfg)``).  ``card`` (name and
+    power limit) goes on the phase's summary line."""
+    from repro_torch.configs.reduced import reduce_config
+
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t
+        return out
+
+    train, bundle, mesh, state, feed = part("train", lambda: (
+        drive_sharded_train(torch, dev, cfg, single_loss0, batch, seq,
+                            steps)))
+    psum = part("psum8", lambda: drive_psum8(torch, bundle, mesh, state,
+                                             feed, dev))
+    pipe = part("pipeline", lambda: drive_pipeline(torch, cfg, state, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        elastic = part("elastic", lambda: drive_elastic(
+            torch, bundle, state, feed, dev, tmp))
+    del state
+    one = part("mesh_1x1", lambda: drive_mesh_1x1(
+        torch, dev, dataclasses.replace(reduced_cfg or reduce_config(cfg),
+                                        dtype="float32")))
+    wall = time.perf_counter() - t0
+    log(f"LM distribution phase: {wall:.1f} s on {card or 'no card'} "
+        "(parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + "); summary " + json.dumps(
+            {k: v for k, v in train.items() if k != "profile"}
+            | (train["profile"] or {}), default=str))
+    return dict(train=train, psum8=psum, pipeline=pipe, elastic=elastic,
+                mesh_1x1=one, wall_s=wall, part_s=walls)
+
+
+def drive_examples(dev) -> dict:
+    """``examples_torch/quickstart.py`` and ``gnn_inference.py`` at their
+    defaults (on the card), their output logged."""
+    out = {}
+    for name in ("quickstart", "gnn_inference"):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            example(name).main(["--device", str(dev)])
+        out[name] = dict(wall_s=time.perf_counter() - t,
+                         lines=buf.getvalue().splitlines())
+        log(f"== examples_torch/{name}.py on {dev}: "
+            f"{out[name]['wall_s']:.1f} s")
+        for line in out[name]["lines"]:
+            log(f"  {line}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2675,6 +3146,8 @@ def main() -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the launchers and examples run as subprocesses find the port too
+    os.environ["PYTHONPATH"] = cli_env()["PYTHONPATH"]
     os.environ.pop("REPRO_CALIBRATION_PATH", None)   # measure, never replay
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2739,7 +3212,13 @@ def main() -> int:
                             fl_eager, co_eager, mods)
     _, lm_moe = drive_lm(torch, ops, dev, mods, lm_configs(), card=card)
     require_launched("LM-MoE", lm_moe["launches"], ("spdmm",))
-    drive_train(torch, dev, train_configs(), card=card)
+    trained = drive_train(torch, dev, train_configs(), card=card)
+    from repro_torch.configs import ARCHS
+    drive_distributed(torch, dev, ARCHS[DIST_ARCH], card=card,
+                      single_loss0=next(r["losses"][0] for r in
+                                        trained["full"]
+                                        if r["arch"] == DIST_ARCH))
+    drive_examples(dev)
 
     calib, fl_calib = drive_calibration(torch, gnn, ops, DynasparseEngine,
                                         fl, dev, fl_eager, mods)

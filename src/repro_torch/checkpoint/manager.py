@@ -23,10 +23,18 @@ Layout per step::
   cannot reach the snapshot) and hands the file I/O to a background
   thread; ``wait`` joins it (one outstanding snapshot) and raises what the
   writer raised.
+- *Sharded leaves* (a state placed on a mesh, ``launch/steps.py``): a
+  :class:`~repro_torch.distributed.sharding.Sharded` leaf is gathered to
+  the host whole, so its files and manifest are exactly what a
+  single-device save writes and either kind of checkpoint restores into
+  either kind of state.
 - *Restore* writes the checkpoint into a template state's own tensors
-  (the objects the model and the optimizer hold), on each leaf's device
-  or on ``device``.  Restoring onto a mesh comes with the distribution
-  slice.
+  (the objects the model and the optimizer hold; a sharded leaf's
+  blocks), on each leaf's device or on ``device``.  With ``shardings``
+  (the reference's resharding path) it returns a new state instead, each
+  leaf placed by the caller's spec on the current mesh (``with mesh:``):
+  a tree of specs matched to the template by name, where a None subtree
+  means unsharded on the template leaf's device.
 - *Retention*: the last ``keep`` checkpoints are kept.
 """
 from __future__ import annotations
@@ -43,10 +51,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import current_mesh
 
-def state_leaves(state: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
-    """(dotted path, tensor) of every leaf of ``state``, in its order."""
-    if isinstance(state, torch.Tensor):
+
+def state_leaves(state: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """(dotted path, tensor or sharded leaf) of every leaf of ``state``, in
+    its order."""
+    if isinstance(state, (torch.Tensor, sharding.Sharded)):
         return [(prefix[:-1], state)]
     if isinstance(state, nn.Module):
         return [(prefix + n, p) for n, p in state.named_parameters()]
@@ -65,9 +77,11 @@ def config_hash(cfg: Any) -> str:
     return hashlib.sha256(repr(cfg).encode()).hexdigest()[:16]
 
 
-def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` as numpy, and its dtype's name."""
-    t = t.detach()
+def _to_host(t) -> tuple[np.ndarray, str]:
+    """A host copy of ``t`` (a sharded leaf gathered whole) as numpy, and
+    its dtype's name."""
+    t = (sharding.unshard(t, "cpu") if isinstance(t, sharding.Sharded)
+         else t.detach())
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -159,10 +173,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, state_template: Any, *, step: int | None = None,
-                device=None) -> tuple[int, Any]:
-        """Write checkpoint ``step`` (default: the latest) into the
-        template's tensors, in place, each on its own device or on
-        ``device``; returns ``(step, state_template)``."""
+                device=None, shardings: Any = None) -> tuple[int, Any]:
+        """Checkpoint ``step`` (default: the latest) for the template's
+        leaves, matched by name; returns ``(step, state)``.  Without
+        ``shardings`` every leaf is written into the template, in place
+        (each on its own device or on ``device``; a sharded leaf block by
+        block) and ``state`` is the template.  With ``shardings`` (a tree
+        of specs, a prefix of the template's: a spec tuple places the
+        subtree's leaves by it on the current mesh, None leaves them
+        unsharded on the template leaf's device) ``state`` is a new tree
+        of dicts and lists holding the placed leaves."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -174,20 +194,65 @@ class CheckpointManager:
                 f"checkpoint config hash {manifest['config_hash']} != "
                 f"current {self.cfg_hash}")
         leaves = state_leaves(state_template)
-        have = {l["path"]: (i, l["dtype"])
-                for i, l in enumerate(manifest["leaves"])}
+        have = {l["path"]: (i, l) for i, l in enumerate(manifest["leaves"])}
         missing = [p for p, _ in leaves if p not in have]
         if missing:
             raise ValueError(f"checkpoint missing leaves: {missing[:5]}...")
-        loaded = []
         for path, t in leaves:
-            i, dtype = have[path]
-            arr = _from_host(np.load(d / f"arr_{i}.npy"), dtype)
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{path}: shape {tuple(arr.shape)} != "
+            shape = tuple(have[path][1]["shape"])
+            if shape != tuple(t.shape):
+                raise ValueError(f"{path}: shape {shape} != "
                                  f"template {tuple(t.shape)}")
-            loaded.append(arr)
-        for (_, t), arr in zip(leaves, loaded):
-            t.data = arr.to(device if device is not None else t.device,
-                            t.dtype)
+
+        def load(path):         # one leaf at a time: host memory of one
+            i, leaf = have[path]
+            return _from_host(np.load(d / f"arr_{i}.npy"), leaf["dtype"])
+
+        if shardings is not None:
+            return step, _placed(state_template, shardings, load, "")
+        for path, t in leaves:
+            arr = load(path)
+            if isinstance(t, sharding.Sharded):
+                sharding.fill(t, arr.to(t.dtype))
+            else:
+                t.data = arr.to(device if device is not None else t.device,
+                                t.dtype)
         return step, state_template
+
+
+def _placed(template: Any, spec: Any, load, prefix: str) -> Any:
+    """A new tree shaped as ``template`` (a module stands for its
+    parameters, as a dict of them) with each leaf's array (``load(path)``)
+    placed by ``spec``, the matching part of the caller's spec tree
+    (matched by key)."""
+    if isinstance(template, (torch.Tensor, sharding.Sharded)):
+        arr = load(prefix[:-1]).to(template.dtype)
+        if spec is None:
+            return arr.to(template.device)
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError(f"{prefix[:-1]}: a spec to place by but no "
+                             "current mesh (restore inside `with mesh:`)")
+        return sharding.shard(arr, spec, mesh)
+    if isinstance(template, nn.Module):
+        template = dict(template.named_parameters())
+    if isinstance(template, dict):
+        items = template.items()
+    elif isinstance(template, (list, tuple)):
+        items = enumerate(template)
+    else:
+        raise TypeError(f"{prefix[:-1] or 'state'}: "
+                        f"{type(template).__name__} is not a tensor, "
+                        "module, dict or list")
+
+    def sub(key):
+        if spec is None or isinstance(spec, tuple):
+            return spec                     # a spec or None: broadcast
+        try:
+            return spec[key]
+        except (KeyError, IndexError):
+            raise ValueError(f"shardings has no entry for "
+                             f"{prefix}{key}") from None
+
+    out = {k: _placed(v, sub(k), load, f"{prefix}{k}.") for k, v in items}
+    return out if isinstance(template, dict) else list(out.values())

@@ -1,3 +1,7 @@
-"""Host-side control plane of the port: failure and straggler detection
-(:mod:`repro_torch.distributed.fault`).  Sharding is single-controller
-(:mod:`repro_torch.core.shard_exec`, :mod:`repro_torch.launch.mesh`)."""
+"""The port's distribution layer, single-controller: sharding rules and
+placement (:mod:`~repro_torch.distributed.sharding`), the GPipe pipeline
+(:mod:`~repro_torch.distributed.pipeline`), elastic re-meshing
+(:mod:`~repro_torch.distributed.elastic`) and failure and straggler
+detection (:mod:`~repro_torch.distributed.fault`).  The GNN engine's
+row-band sharding is :mod:`repro_torch.core.shard_exec`; meshes are
+:mod:`repro_torch.launch.mesh`."""

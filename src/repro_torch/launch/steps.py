@@ -8,17 +8,34 @@ A training state is ``{"params": model, "opt": adamw state}`` (plus
 ``"ef"`` with compressed gradients); the train step updates it in place,
 the counterpart of the reference's donated state.  ``abstract_state``
 comes with the dry-run slice.
+
+On a mesh (``init_state`` / ``make_train_step`` with ``mesh=``) the state
+is stored by the sharding rules: ``{"params": {name: Sharded}, "opt":
+{"mu": {name: Sharded}, "nu": ..., "step"}}``, parameters and both moments
+placed by ``param_spec`` (the reference's ZeRO-3 on top of TP), under the
+names a single-device checkpoint uses.  A step (:class:`MeshCompute`)
+gathers the weights into one trainable replica per device of the mesh,
+runs the reference's logical step there (microbatches of consecutive
+rows, each microbatch whole on the device of the first data-parallel rank
+that holds its rows, so MoE capacity and slot order stay per microbatch;
+a batch whose rows the data axes do not divide is replicated and each
+microbatch still runs once), reduces the replicas' gradients in rank
+order and updates each shard in place (``sharded_adamw_update``: one
+global norm over the shards).  Tensor-parallel splitting of the products
+is not done: every replica computes whole products.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import capture_graph
+from repro_torch.distributed import sharding
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.layers import trainable
 from repro_torch.models.registry import ModelBundle
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     sharded_adamw_update)
 
 
 def split_batch(batch: dict, mb: int) -> list[dict]:
@@ -56,12 +73,22 @@ def loss_and_grads(bundle: ModelBundle, model, batch: dict,
     return total / mb
 
 
-def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig):
+def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig, mesh=None):
     """``train_step(state, batch) -> (state, metrics)``: the loss and
     gradients (microbatched by ``cfg.microbatches``), then AdamW, all in
     place.  ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d
-    device tensors (nothing is read back to the host)."""
+    device tensors (nothing is read back to the host).  With ``mesh`` the
+    step takes a state of ``init_state(..., mesh=mesh)``."""
     mb = max(1, bundle.cfg.microbatches)
+    if mesh is not None:
+        compute = MeshCompute(bundle, mesh)
+
+        def sharded_step(state: dict, batch: dict):
+            loss, grads = compute.loss_and_grads(state["params"], batch, mb)
+            metrics = sharded_adamw_update(grads, state["opt"],
+                                           state["params"], opt_cfg)
+            return state, dict(metrics, loss=loss)
+        return sharded_step
 
     def train_step(state: dict, batch: dict):
         model = state["params"]
@@ -82,10 +109,133 @@ def train_state(bundle: ModelBundle, model) -> dict:
                               getattr(torch, bundle.cfg.opt_dtype))}
 
 
-def init_state(bundle: ModelBundle, seed: int = 0, device="cuda") -> dict:
+def init_state(bundle: ModelBundle, seed: int = 0, device="cuda",
+               mesh=None) -> dict:
     """A fresh training state: the model from ``seed`` (a
-    ``torch.Generator`` on ``device``) and its optimizer state."""
-    return train_state(bundle, bundle.init(seed, device))
+    ``torch.Generator`` on ``device``) and its optimizer state; with
+    ``mesh``, both placed on it by the sharding rules (the same
+    parameter values)."""
+    model = bundle.init(seed, device)
+    if mesh is None:
+        return train_state(bundle, model)
+    return sharded_state(bundle, model, mesh)
+
+
+def sharded_state(bundle: ModelBundle, model, mesh) -> dict:
+    """The training state of ``model``'s parameters placed on ``mesh`` by
+    ``params_shardings``, with zero moments placed alike in
+    ``cfg.opt_dtype`` and the step on the mesh's first device."""
+    specs = sharding.params_shardings(model, mesh)
+    params = {n: sharding.shard(p, specs[n], mesh)
+              for n, p in model.named_parameters()}
+    mdt = getattr(torch, bundle.cfg.opt_dtype)
+    return {"params": params,
+            "opt": {"mu": {n: sharding.zeros_like(l, mdt)
+                           for n, l in params.items()},
+                    "nu": {n: sharding.zeros_like(l, mdt)
+                           for n, l in params.items()},
+                    "step": torch.zeros((), dtype=torch.int32,
+                                        device=mesh.devices.flat[0])}}
+
+
+def state_shardings(params, mesh) -> dict:
+    """The spec tree of a sharded training state on ``mesh`` (parameters
+    and both moments by the rules, the step unsharded): what a resharding
+    ``CheckpointManager.restore`` takes.  ``params``: a model or a dict of
+    its parameters."""
+    specs = sharding.params_shardings(params, mesh)
+    return {"params": specs, "opt": {"mu": specs, "nu": specs, "step": None}}
+
+
+class MeshCompute:
+    """The compute side of a sharded train step: one trainable replica of
+    the model per device of ``mesh`` (made on first use), the weights
+    gathered into it each step, the microbatches run on the replicas and
+    the gradients reduced."""
+
+    def __init__(self, bundle: ModelBundle, mesh):
+        self.bundle, self.mesh = bundle, mesh
+        self.replicas: dict[torch.device, torch.nn.Module] = {}
+        dp = sharding.dp_axes(mesh)
+        self.n_dp = sharding._size(mesh, dp)
+        # each data-parallel rank's device: its (pod, data) coordinates,
+        # every other axis at 0
+        self.rank_device = []
+        for r in range(self.n_dp):
+            at, rest = dict.fromkeys(mesh.axis_names, 0), r
+            for a in reversed(dp):
+                at[a], rest = rest % mesh.shape[a], rest // mesh.shape[a]
+            self.rank_device.append(mesh.device(at.values()))
+
+    def replica(self, device) -> torch.nn.Module:
+        if device not in self.replicas:
+            cls = (encdec_lib.EncDec if self.bundle.cfg.n_enc_layers
+                   else lm_lib.LM)
+            self.replicas[device] = trainable(cls(self.bundle.cfg,
+                                                  device=device))
+        return self.replicas[device]
+
+    def owners(self, batch: dict, mb: int) -> list[torch.device]:
+        """The device each microbatch runs on: that of the first rank
+        holding its first row (``batch_spec``: rows over the dp axes when
+        they divide; else every rank holds every row, and rank 0 runs
+        it)."""
+        name, leaf = next(iter(batch.items()))
+        rows = leaf.shape[0]
+        spec = sharding.batch_spec(name, tuple(leaf.shape), self.mesh)
+        per_rank = rows // self.n_dp if spec[0] is not None else rows
+        return [self.rank_device[(i * (rows // mb)) // per_rank]
+                for i in range(mb)]
+
+    def loss_and_grads(self, params: dict, batch: dict, mb: int = 1):
+        """The loss of ``batch`` (``loss_and_grads``'s order) and the whole
+        gradient of each parameter, on the device of rank 0's replica (None
+        where no microbatch reached the parameter)."""
+        micros = split_batch(batch, mb)
+        owners = self.owners(batch, mb)
+        replicas = [self.replica(d) for d in dict.fromkeys(owners)]
+        for model in replicas:
+            model.zero_grad(set_to_none=True)
+            for n, p in model.named_parameters():
+                sharding.gather_into(params[n], p.data)
+        home = owners[0]
+        with self.mesh:
+            if mb == 1:
+                loss = self.bundle.loss(
+                    replicas[0], {k: v.to(home) for k, v in batch.items()})
+                loss.backward()
+                loss = loss.detach()
+            else:
+                total = torch.zeros((), dtype=torch.float32, device=home)
+                for micro, dev in zip(micros, owners):
+                    loss = self.bundle.loss(
+                        self.replicas[dev],
+                        {k: v.to(dev) for k, v in micro.items()})
+                    loss.backward()
+                    total = total + loss.detach().to(home)
+                loss = total / mb
+        return loss, _reduce_grads(replicas, home, mb)
+
+
+@torch.no_grad()
+def _reduce_grads(replicas, home, mb: int) -> dict:
+    """Each parameter's gradient summed over the replicas in rank order
+    on ``home``, divided by ``mb`` (in place on one replica, as
+    ``loss_and_grads`` does)."""
+    grads = {}
+    named = [dict(m.named_parameters()) for m in replicas]
+    for n in named[0]:
+        parts = [m[n].grad.to(home) for m in named if m[n].grad is not None]
+        if not parts:
+            grads[n] = None
+            continue
+        g = parts[0]
+        for other in parts[1:]:
+            g = g + other
+        if mb > 1:
+            g.div_(mb)
+        grads[n] = g
+    return grads
 
 
 def make_prefill_step(bundle: ModelBundle):

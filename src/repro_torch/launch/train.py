@@ -4,20 +4,24 @@
 [--ckpt-every K] [--mesh auto] [--reduced | --full] [--batch B] [--seq L]
 [--lr LR] [--compress-grads] [--resume] [--device cpu]``
 
-Wires together: config -> model bundle -> training state -> AdamW train
-step (in place) -> ``TokenPipeline`` -> ``CheckpointManager`` (async,
-atomic) -> ``FaultMonitor`` heartbeats.  Reduced configs by default
-(``--reduced``), the published ones with ``--full``; on the card unless
-``--device cpu``.  ``--mesh auto`` is the one device; the production
-meshes (``single``, ``multi``) come with the distribution slice.  The
+Wires together: config -> model bundle -> mesh -> training state placed
+by the sharding rules -> AdamW train step (in place) -> ``TokenPipeline``
+-> ``CheckpointManager`` (async, atomic) -> ``FaultMonitor`` heartbeats.
+Reduced configs by default (``--reduced``), the published ones with
+``--full``; on the card unless ``--device cpu``.  ``--mesh auto`` is the
+reference's ``make_mesh_for_devices(n, model_parallel=1 if n < 4 else
+2)`` over the ``n`` visible devices (one card, or the CPU: the ``(1, 1)``
+mesh, whose steps equal the single-device step's bitwise); ``single`` and
+``multi`` are ``make_production_mesh``'s 256- and 512-device meshes, which
+raise its ``ValueError`` where fewer devices are visible.  The
 reference's ``TPU_XLA_FLAGS`` (collective-overlap flags of the TPU
 compiler) have no counterpart here and are not carried over.
 
 As in the reference, ``--compress-grads`` replaces the step by one that
 takes the loss and gradients of the whole batch at once (no
-microbatching), passes them through int8 error-feedback compression
-(``optim/compression.py``) and then AdamW; its error-feedback state is
-``state["ef"]`` and goes into the checkpoint.
+microbatching), passes the reduced gradients through int8 error-feedback
+compression (``optim/compression.py``) and then AdamW; its error-feedback
+state is ``state["ef"]`` and goes into the checkpoint.
 """
 from __future__ import annotations
 
@@ -27,12 +31,25 @@ import time
 from pathlib import Path
 
 
-def compressed_train_step(bundle, opt_cfg):
+def compressed_train_step(bundle, opt_cfg, mesh=None):
     """The reference's ``--compress-grads`` step: one loss and backward
-    over the whole batch, int8 + error feedback, then AdamW."""
-    from repro_torch.launch.steps import loss_and_grads
-    from repro_torch.optim.adamw import adamw_update
+    over the whole batch, int8 + error feedback, then AdamW (with
+    ``mesh``: on a state of ``init_state(..., mesh=mesh)``, compressing
+    the reduced gradients)."""
+    from repro_torch.launch.steps import MeshCompute, loss_and_grads
+    from repro_torch.optim.adamw import adamw_update, sharded_adamw_update
     from repro_torch.optim.compression import compress_decompress
+
+    if mesh is not None:
+        compute = MeshCompute(bundle, mesh)
+
+        def sharded_step(state, batch):
+            loss, grads = compute.loss_and_grads(state["params"], batch)
+            grads, state["ef"] = compress_decompress(grads, state["ef"])
+            metrics = sharded_adamw_update(grads, state["opt"],
+                                           state["params"], opt_cfg)
+            return state, dict(metrics, loss=loss)
+        return sharded_step
 
     def train_step(state, batch):
         model = state["params"]
@@ -67,36 +84,54 @@ def main(argv=None) -> list[float]:
                          "on the CPU)")
     args = ap.parse_args(argv)
 
-    import torch
-
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import ARCHS
     from repro_torch.configs.reduced import reduce_config
-    from repro_torch.data.lm import TokenPipeline
     from repro_torch.device import resolve_device
-    from repro_torch.distributed.fault import FaultMonitor
+    from repro_torch.launch.mesh import (make_mesh_for_devices,
+                                         make_production_mesh,
+                                         visible_devices)
     from repro_torch.launch.steps import init_state, make_train_step
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.compression import ef_init
 
-    if args.mesh != "auto":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes come with the "
-            "distribution slice (ROADMAP queue 1, item 5c)")
     dev = resolve_device(args.device)
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduce_config(cfg)
     bundle = build_model(cfg)
 
-    opt_cfg = AdamWConfig(lr=args.lr, total_steps=max(args.steps, 2))
-    step_fn = (compressed_train_step(bundle, opt_cfg) if args.compress_grads
-               else make_train_step(bundle, opt_cfg))
+    if args.mesh == "auto":
+        n = visible_devices(dev.type)
+        mesh = make_mesh_for_devices(n, model_parallel=1 if n < 4 else 2,
+                                     device=dev)
+    else:
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"),
+                                    device=dev)
 
-    state = init_state(bundle, 0, dev)
-    if args.compress_grads:
-        state["ef"] = ef_init(dict(state["params"].named_parameters()))
+    opt_cfg = AdamWConfig(lr=args.lr, total_steps=max(args.steps, 2))
+    step_fn = (compressed_train_step(bundle, opt_cfg, mesh)
+               if args.compress_grads
+               else make_train_step(bundle, opt_cfg, mesh))
+
+    with mesh:
+        state = init_state(bundle, 0, dev, mesh=mesh)
+        if args.compress_grads:
+            state["ef"] = ef_init(state["params"])
+        losses = _train(args, cfg, state, step_fn, dev)
+    if len(losses) > 4:
+        print(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"({'improved' if losses[-1] < losses[0] else 'NO IMPROVEMENT'})")
+    return losses
+
+
+def _train(args, cfg, state, step_fn, dev) -> list[float]:
+    """The resume, step and checkpoint loop; returns the losses."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distributed.fault import FaultMonitor
 
     ckpt = CheckpointManager(args.ckpt_dir, cfg=cfg)
     start = 0
@@ -126,9 +161,6 @@ def main(argv=None) -> list[float]:
         ckpt.wait()
     finally:
         pipe.close()
-    if len(losses) > 4:
-        print(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-              f"({'improved' if losses[-1] < losses[0] else 'NO IMPROVEMENT'})")
     return losses
 
 

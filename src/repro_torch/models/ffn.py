@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import Weights, geglu, glorot, silu, swiglu
 
 
@@ -113,6 +114,8 @@ def moe_ffn(m: MoEFFN, x: torch.Tensor) -> torch.Tensor:
     gathered = torch.where(occupied[..., None],
                            xf[torch.clamp(slot_token - 1, min=0)],
                            0.0).to(dt)                      # [E, cap, D]
+    if cfg.moe_dispatch_shard:
+        gathered = constrain(gathered, "model", "dp", None)  # EP x token-slot
 
     # grouped GEMM over experts
     g = torch.bmm(gathered, m.w("w_gate", dt))

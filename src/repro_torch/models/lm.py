@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mixers as mix
 from repro_torch.models.layers import (Weights, glorot,
@@ -147,13 +148,17 @@ class LM(Weights):
         before the unembedding)."""
         x, positions = self.embed_inputs(batch)
         for cycle in self.cycles:
+            # the reference's anchors at each cycle: batch over dp, and
+            # with seq_shard the sequence over model (Megatron-style)
+            x = constrain(x, "dp", "model" if self.cfg.seq_shard else None,
+                          None)
             x = remat_call(self.cfg, run_cycle, cycle, x, positions)
         for layer in self.tail:
             x = layer(x, positions)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
-        return x @ self.head(x.dtype)
+        return constrain(x @ self.head(x.dtype), "dp", None, "model")
 
     def decode(self, cache: dict, tokens: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
@@ -164,7 +169,7 @@ class LM(Weights):
         for layer, c in zip(self.layers(), layer_caches(cfg, cache)):
             x = layer.decode(x, c, pos)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = x @ self.head(x.dtype)
+        logits = constrain(x @ self.head(x.dtype), "dp", None, "model")
         return logits[:, 0, :cfg.vocab]
 
 

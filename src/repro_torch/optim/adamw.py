@@ -9,6 +9,9 @@ update runs under ``torch.no_grad()`` and writes the parameters, the
 moments and the step in place: the counterpart of the reference's donated
 state.  The step counter, the schedule, the norm and the clip scale stay
 on the device, so a step reads nothing back to the host.
+:func:`sharded_adamw_update` is the same step on a state stored by the
+sharding rules (parameters and both moments by ``param_spec``, the
+reference's ZeRO-3 layout), updating each shard in place.
 """
 from __future__ import annotations
 
@@ -51,6 +54,33 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
 
 
+def _step_scalars(cfg: AdamWConfig, opt_state: dict, sq_sums):
+    """The reference's step + 1, learning rate, global norm (the square
+    root of the sum of ``sq_sums``, each on the step's device, in order),
+    clip scale and bias corrections."""
+    step = opt_state["step"] + 1
+    lr = _schedule(cfg, step)
+    gnorm = torch.sqrt(sum(s.to(step.device) for s in sq_sums))
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    b1c = 1.0 - cfg.b1 ** step.float()
+    b2c = 1.0 - cfg.b2 ** step.float()
+    return step, dict(lr=lr, scale=scale, b1c=b1c, b2c=b2c), gnorm
+
+
+def _apply(cfg: AdamWConfig, p, g, mu, nu, k: dict) -> None:
+    """One parameter's moments and decoupled decay, in place; the step's
+    scalars ``k`` are moved to ``p``'s device (a no-op on its own)."""
+    k = {n: v.to(p.device) for n, v in k.items()}
+    g = g * k["scale"]
+    mu32 = cfg.b1 * mu.float() + (1 - cfg.b1) * g
+    nu32 = cfg.b2 * nu.float() + (1 - cfg.b2) * g * g
+    step_v = (mu32 / k["b1c"]) / (torch.sqrt(nu32 / k["b2c"]) + cfg.eps)
+    p.copy_(p - k["lr"] * (step_v + cfg.weight_decay * p))
+    mu.copy_(mu32)
+    nu.copy_(nu32)
+
+
 @torch.no_grad()
 def adamw_update(grads: dict, opt_state: dict, params: dict,
                  cfg: AdamWConfig) -> dict:
@@ -59,25 +89,43 @@ def adamw_update(grads: dict, opt_state: dict, params: dict,
     learning rate, the global norm of all gradients, the clip scale, the
     bias corrections, then per parameter the moments and the decoupled
     decay ``p - lr (step_v + wd p)``."""
-    step = opt_state["step"] + 1
-    lr = _schedule(cfg, step)
     g32 = {n: (grads[n].float() if grads.get(n) is not None
                else torch.zeros(p.shape, dtype=torch.float32,
                                 device=p.device))
            for n, p in params.items()}
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in g32.values()))
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    b1c = 1.0 - cfg.b1 ** step.float()
-    b2c = 1.0 - cfg.b2 ** step.float()
+    step, k, gnorm = _step_scalars(
+        cfg, opt_state, (torch.sum(torch.square(g)) for g in g32.values()))
     for n, p in params.items():
-        mu, nu = opt_state["mu"][n], opt_state["nu"][n]
-        g = g32.pop(n) * scale
-        mu32 = cfg.b1 * mu.float() + (1 - cfg.b1) * g
-        nu32 = cfg.b2 * nu.float() + (1 - cfg.b2) * g * g
-        step_v = (mu32 / b1c) / (torch.sqrt(nu32 / b2c) + cfg.eps)
-        p.copy_(p - lr * (step_v + cfg.weight_decay * p))
-        mu.copy_(mu32)
-        nu.copy_(nu32)
+        _apply(cfg, p, g32.pop(n), opt_state["mu"][n], opt_state["nu"][n], k)
     opt_state["step"].copy_(step)
-    return {"grad_norm": gnorm, "lr": lr}
+    return {"grad_norm": gnorm, "lr": k["lr"]}
+
+
+@torch.no_grad()
+def sharded_adamw_update(grads: dict, opt_state: dict, params: dict,
+                         cfg: AdamWConfig) -> dict:
+    """:func:`adamw_update` on a state placed by the sharding rules:
+    ``params``, ``opt_state["mu"]`` and ``["nu"]`` map each name to a
+    :class:`~repro_torch.distributed.sharding.Sharded` leaf, ``grads`` to
+    the whole reduced gradient (or None for a zero one).  The global norm
+    sums every distinct block of every leaf once (a block held on several
+    devices counts once); then each copy of each block is updated on its
+    own device from its slice of the gradient.  With one block a leaf
+    this is :func:`adamw_update`'s arithmetic, bitwise."""
+    def block_grad(n, block, leaf):
+        g = grads.get(n)
+        if g is None:
+            return torch.zeros(leaf.block_shape, dtype=torch.float32,
+                               device=leaf.device)
+        return g.float()[leaf.slices(block)]
+
+    step, k, gnorm = _step_scalars(cfg, opt_state, (
+        torch.sum(torch.square(block_grad(n, b, leaf)))
+        for n, leaf in params.items() for b in leaf.blocks()))
+    for n, leaf in params.items():
+        mu, nu = opt_state["mu"][n].tensors, opt_state["nu"][n].tensors
+        for key, p in leaf.tensors.items():
+            g = block_grad(n, key[0], leaf).to(p.device)
+            _apply(cfg, p, g, mu[key], nu[key], k)
+    opt_state["step"].copy_(step)
+    return {"grad_norm": gnorm, "lr": k["lr"]}

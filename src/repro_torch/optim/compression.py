@@ -9,8 +9,10 @@ dicts of name -> tensor; a None gradient is a zero one.  ``torch.round``
 rounds half to even, as ``jnp.round`` does, so a leaf's result equals
 the reference's bitwise.
 
-The reference's ``psum8`` (the int8 all-reduce inside ``shard_map``)
-comes with the distribution slice.
+:func:`psum8` is the reference's explicit int8 all-reduce (inside
+``shard_map`` there) with one controller: it takes the per-rank tensors
+of one mesh axis and gives every rank the dequantized sum on its own
+device.
 """
 from __future__ import annotations
 
@@ -44,3 +46,25 @@ def ef_init(params: dict) -> dict:
     """Zero float32 error-feedback state beside each leaf."""
     return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for n, p in params.items()}
+
+
+@torch.no_grad()
+def psum8(xs) -> list[torch.Tensor]:
+    """Int8 all-reduce of the per-rank float32 tensors ``xs`` (one per
+    rank of a mesh axis, each on its rank's device).  All ranks quantize
+    against one shared scale, ``max_r max|x_r| / 127 + 1e-12`` (else the
+    integer sum would mix units); each rank's payload is its int8
+    quantization (round half to even, clipped to +-127), summed in int32
+    in rank order on the first rank's device (exact up to 2^23 ranks);
+    each rank gets ``sum * scale`` on its own device."""
+    xs = list(xs)
+    home = xs[0].device
+    smax = torch.stack([torch.amax(torch.abs(x)).to(home) for x in xs])
+    scale = torch.amax(smax) / 127.0 + 1e-12
+    total = None
+    for x in xs:
+        q = torch.clamp(torch.round(x / scale.to(x.device)), -127, 127
+                        ).to(torch.int8).to(home)
+        total = q.to(torch.int32) if total is None else total + q
+    out = total.to(torch.float32) * scale
+    return [out.to(x.device) for x in xs]

@@ -240,6 +240,37 @@ def test_train_cli_resumes_on_the_cpu(tmp_path, capsys):
 
 
 def test_train_cli_refuses_the_production_meshes():
-    with pytest.raises(NotImplementedError, match="5c"):
-        train.main(["--arch", "qwen2.5-3b", "--mesh", "single",
-                    "--device", "cpu"])
+    """``--mesh single`` / ``multi`` build the reference's 256- / 512-device
+    meshes through ``make_production_mesh``, which raises its
+    ``ValueError`` where one device is visible (the reference's messages,
+    its DeprecationWarning first)."""
+    for mesh, match in (("single", "needs 256 devices"),
+                        ("multi", "single host")):
+        with pytest.warns(DeprecationWarning):
+            with pytest.raises(ValueError, match=match):
+                train.main(["--arch", "qwen2.5-3b", "--mesh", mesh,
+                            "--device", "cpu"])
+
+
+def test_train_cli_mesh_auto_equals_the_single_device_step(tmp_path):
+    """``--mesh auto`` on the CPU is the ``(1, 1)`` mesh: its losses equal
+    ``make_train_step``'s on one device over the same pipeline batches,
+    bitwise."""
+    got = train.main(["--arch", "phi3-mini-3.8b", "--batch", "4", "--seq",
+                      "16", "--steps", "3", "--mesh", "auto", "--device",
+                      "cpu", "--ckpt-dir", str(tmp_path)])
+    cfg = reduce_config(ARCHS["phi3-mini-3.8b"])
+    bundle = build_model(cfg)
+    state = steps.init_state(bundle, 0, torch.device("cpu"))
+    step = steps.make_train_step(bundle, AdamWConfig(total_steps=3))
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=4, seq_len=16)
+    want = []
+    try:
+        for _ in range(3):
+            batch = {k: torch.as_tensor(v).long()
+                     for k, v in next(pipe).items()}
+            state, m = step(state, batch)
+            want.append(float(m["loss"]))
+    finally:
+        pipe.close()
+    assert got == want

@@ -4,6 +4,7 @@ must move (inputs read once, output written once), its FLOPs, and whether
 the card's FP32 rate or its memory rate bounds it; the choice of the
 scatter launch it times on compiled GIN-CO; and, on the CPU, the naming
 of a profiled op by the line of the port that made it."""
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -378,3 +379,54 @@ def test_train_work_counts_the_step(smoke):
     assert work["flops"] / 1e12 == pytest.approx(99.81, abs=0.01)
     assert work["bound_ms"] == pytest.approx(
         1e3 * (work["flops"] / 989e12 + 28 * n / 3.35e12), rel=1e-12)
+
+
+def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """``chip_smoke.py``'s LM distribution phase on reduced qwen2.5-3b on
+    the CPU (the calls that need the card stubbed): the sharded steps with
+    every shard's bytes as its spec predicts, the loss falling and step 0
+    equal to the single-device step's, ``psum8`` within its budget, the
+    pipeline bitwise its serial run, the elastic restore bitwise onto
+    ``(1, 2)`` and a finite step after it, the ``(1, 1)`` mesh bitwise."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    cpu = torch.device("cpu")
+    # four layers: one for each pipeline stage
+    cfg = dataclasses.replace(reduce_config(ARCHS[smoke.DIST_ARCH]),
+                              n_layers=smoke.PIPE_STAGES)
+    batch, seq = 8, 32
+    bundle = build_model(cfg)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq)
+    try:
+        feed = {"tokens": torch.as_tensor(next(pipe)["tokens"]).long()}
+    finally:
+        pipe.close()
+    _, m = make_train_step(bundle, AdamWConfig(**smoke.TRAIN_OPT))(
+        init_state(bundle, 0, cpu), feed)
+    out = smoke.drive_distributed(torch, cpu, cfg,
+                                  single_loss0=m["loss"].item(),
+                                  batch=batch, seq=seq)
+    train = out["train"]
+    assert len(train["losses"]) == smoke.DIST_STEPS
+    assert train["step0_vs_single"] == 0.0
+    assert train["losses"][-1] < train["losses"][0]
+    assert train["profile"] is None and train["step_event_ms"] is None
+    n = sum(p.numel() for p in bundle.init(0, cpu).parameters())
+    # parameters and two moments, float32, spread over the four
+    # coordinates of one device: once over the card in all
+    assert train["shard_bytes"]["distinct"] >= 12 * n
+    assert out["psum8"]["err_over_budget"] < 1.0
+    assert out["pipeline"]["bitwise"]
+    assert out["elastic"]["plan"] == {"n_devices": 2, "mesh_shape": (1, 2),
+                                      "microbatch_scale": 2}
+    assert np.isfinite(out["elastic"]["loss_after"])
+    assert out["mesh_1x1"] is True

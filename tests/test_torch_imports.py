@@ -1,6 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``
-or ``scripts/`` imports JAX or the JAX package, and the entry points run
-on the card unless the caller names the CPU."""
+"""The port stands alone: no file of ``src/repro_torch``, ``chip_smoke.py``,
+``scripts/`` or ``examples_torch/`` imports JAX or the JAX package, and
+the entry points run on the card unless the caller names the CPU."""
 import ast
 from pathlib import Path
 
@@ -14,7 +14,8 @@ from repro_torch.core import DynasparseEngine, calibrate
 from repro_torch.core.perfmodel import runtime_fallback
 from repro_torch.data.graphs import load_graph
 from repro_torch.launch import serve, steps, train
-from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.launch.mesh import (make_data_mesh,
+                                     make_mesh_for_devices)
 from repro_torch.models import gnn
 from repro_torch.models.registry import build_model
 from repro_torch.serving import SharedPlanCache
@@ -26,7 +27,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     return (files + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("*.py")))
+            + sorted((ROOT / "scripts").glob("*.py"))
+            + sorted((ROOT / "examples_torch").glob("*.py")))
 
 
 def _imported_roots(path: Path):
@@ -80,6 +82,37 @@ def test_training_modules_import_no_jax_and_no_reference_package():
         "repro_torch.checkpoint.manager", "repro_torch.data.lm")
 
 
+def test_distribution_modules_import_no_jax_and_no_reference_package():
+    """The LM distribution layer's modules, checked as the mesh modules
+    are, all imported in one fresh interpreter."""
+    _fresh_import_loads_no_jax(
+        "repro_torch.distributed.sharding", "repro_torch.distributed.pipeline",
+        "repro_torch.distributed.elastic", "repro_torch.launch.mesh")
+
+
+def test_example_scripts_import_no_jax_and_no_reference_package():
+    """Each script of ``examples_torch/``, loaded in a fresh interpreter
+    (its ``main`` not run), loads no JAX module and nothing of the JAX
+    package."""
+    import os
+    import subprocess
+    import sys
+
+    scripts = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert len(scripts) == 5
+    code = ("import importlib.util, sys\n"
+            "for i, path in enumerate(sys.argv[1:]):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code, *map(str, scripts)],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _fresh_import_loads_no_jax(*modules):
     import os
     import subprocess
@@ -124,6 +157,8 @@ def test_entry_points_default_to_the_card():
         gnn.run_serving("GCN", eng, None, [], {})
     with pytest.raises(RuntimeError, match="CUDA"):
         make_data_mesh(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh_for_devices(1)
     bundle = build_model(reduce_config(ARCHS["qwen2.5-3b"]))
     with pytest.raises(RuntimeError, match="CUDA"):
         bundle.init()
