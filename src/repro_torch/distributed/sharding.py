@@ -329,11 +329,6 @@ class Sharded:
         """The shape of every block."""
         return block_shape(self.spec, self.shape, self.mesh)
 
-    def blocks(self) -> list[tuple[int, ...]]:
-        """The distinct blocks, in the order of the first coordinate that
-        holds each."""
-        return list(dict.fromkeys(b for b, _ in self.tensors))
-
     @property
     def device(self) -> torch.device:
         """The device of the mesh's first coordinate."""

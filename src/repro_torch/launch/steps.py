@@ -14,8 +14,10 @@ is stored by the sharding rules: ``{"params": {name: Sharded}, "opt":
 {"mu": {name: Sharded}, "nu": ..., "step"}}``, parameters and both moments
 placed by ``param_spec`` (the reference's ZeRO-3 on top of TP), under the
 names a single-device checkpoint uses.  A step (:class:`MeshCompute`)
-gathers the weights into one trainable replica per device of the mesh,
-runs the reference's logical step there (microbatches of consecutive
+binds one trainable replica per device of the mesh to the weights (a leaf
+that is one whole block on that device is used in place, any other is
+gathered into a buffer of the replica's), runs the reference's logical
+step there (microbatches of consecutive
 rows, each microbatch whole on the device of the first data-parallel rank
 that holds its rows, so MoE capacity and slot order stay per microbatch;
 a batch whose rows the data axes do not divide is replicated and each
@@ -149,13 +151,14 @@ def state_shardings(params, mesh) -> dict:
 
 class MeshCompute:
     """The compute side of a sharded train step: one trainable replica of
-    the model per device of ``mesh`` (made on first use), the weights
-    gathered into it each step, the microbatches run on the replicas and
-    the gradients reduced."""
+    the model per device of ``mesh``, built without memory and bound to
+    the weights each step (:meth:`bind`), the microbatches run on the
+    replicas and the gradients reduced."""
 
     def __init__(self, bundle: ModelBundle, mesh):
         self.bundle, self.mesh = bundle, mesh
         self.replicas: dict[torch.device, torch.nn.Module] = {}
+        self.gathered: dict[tuple, torch.Tensor] = {}
         dp = sharding.dp_axes(mesh)
         self.n_dp = sharding._size(mesh, dp)
         # each data-parallel rank's device: its (pod, data) coordinates,
@@ -168,12 +171,39 @@ class MeshCompute:
             self.rank_device.append(mesh.device(at.values()))
 
     def replica(self, device) -> torch.nn.Module:
+        """The replica on ``device``: its parameters on the meta device
+        until :meth:`bind` points them at the weights."""
         if device not in self.replicas:
             cls = (encdec_lib.EncDec if self.bundle.cfg.n_enc_layers
                    else lm_lib.LM)
-            self.replicas[device] = trainable(cls(self.bundle.cfg,
-                                                  device=device))
+            self.replicas[device] = trainable(
+                cls(self.bundle.cfg, device=torch.device("meta")))
         return self.replicas[device]
+
+    @torch.no_grad()
+    def bind(self, device, params: dict) -> torch.nn.Module:
+        """The replica on ``device`` with each parameter pointed at the
+        weights of ``params`` (name -> ``Sharded``): a leaf that is one
+        whole block held on ``device`` is that tensor itself (no copy; the
+        step's in-place update reaches it), any other leaf is gathered
+        into a buffer the replica keeps.  On the ``(1, 1)`` mesh no weight
+        is copied and the replica holds no memory of its own."""
+        model = self.replica(device)
+        for n, p in list(model.named_parameters()):
+            leaf = params[n]
+            t = (leaf.tensors.get(((0,) * len(leaf.shape), device))
+                 if leaf.block_shape == leaf.shape else None)
+            if t is None:
+                t = self.gathered.get((device, n))
+                if t is None:
+                    t = self.gathered[(device, n)] = torch.empty(
+                        leaf.shape, dtype=leaf.dtype, device=device)
+                sharding.gather_into(leaf, t)
+            if p.is_meta or p.data_ptr() != t.data_ptr():
+                mod, _, name = n.rpartition(".")
+                model.get_submodule(mod)._parameters[name] = \
+                    torch.nn.Parameter(t, requires_grad=p.requires_grad)
+        return model
 
     def owners(self, batch: dict, mb: int) -> list[torch.device]:
         """The device each microbatch runs on: that of the first rank
@@ -193,24 +223,22 @@ class MeshCompute:
         where no microbatch reached the parameter)."""
         micros = split_batch(batch, mb)
         owners = self.owners(batch, mb)
-        replicas = [self.replica(d) for d in dict.fromkeys(owners)]
+        models = {d: self.bind(d, params) for d in dict.fromkeys(owners)}
+        replicas = list(models.values())
         for model in replicas:
             model.zero_grad(set_to_none=True)
-            for n, p in model.named_parameters():
-                sharding.gather_into(params[n], p.data)
         home = owners[0]
         with self.mesh:
             if mb == 1:
                 loss = self.bundle.loss(
-                    replicas[0], {k: v.to(home) for k, v in batch.items()})
+                    models[home], {k: v.to(home) for k, v in batch.items()})
                 loss.backward()
                 loss = loss.detach()
             else:
                 total = torch.zeros((), dtype=torch.float32, device=home)
                 for micro, dev in zip(micros, owners):
                     loss = self.bundle.loss(
-                        self.replicas[dev],
-                        {k: v.to(dev) for k, v in micro.items()})
+                        models[dev], {k: v.to(dev) for k, v in micro.items()})
                     loss.backward()
                     total = total + loss.detach().to(home)
                 loss = total / mb

@@ -31,33 +31,21 @@ import time
 from pathlib import Path
 
 
-def compressed_train_step(bundle, opt_cfg, mesh=None):
-    """The reference's ``--compress-grads`` step: one loss and backward
-    over the whole batch, int8 + error feedback, then AdamW (with
-    ``mesh``: on a state of ``init_state(..., mesh=mesh)``, compressing
-    the reduced gradients)."""
-    from repro_torch.launch.steps import MeshCompute, loss_and_grads
-    from repro_torch.optim.adamw import adamw_update, sharded_adamw_update
+def compressed_train_step(bundle, opt_cfg, mesh):
+    """The reference's ``--compress-grads`` step on a state of
+    ``init_state(..., mesh=mesh)``: one loss and backward over the whole
+    batch, int8 + error feedback on the reduced gradients, then AdamW."""
+    from repro_torch.launch.steps import MeshCompute
+    from repro_torch.optim.adamw import sharded_adamw_update
     from repro_torch.optim.compression import compress_decompress
 
-    if mesh is not None:
-        compute = MeshCompute(bundle, mesh)
-
-        def sharded_step(state, batch):
-            loss, grads = compute.loss_and_grads(state["params"], batch)
-            grads, state["ef"] = compress_decompress(grads, state["ef"])
-            metrics = sharded_adamw_update(grads, state["opt"],
-                                           state["params"], opt_cfg)
-            return state, dict(metrics, loss=loss)
-        return sharded_step
+    compute = MeshCompute(bundle, mesh)
 
     def train_step(state, batch):
-        model = state["params"]
-        loss = loss_and_grads(bundle, model, batch)
-        params = dict(model.named_parameters())
-        grads, state["ef"] = compress_decompress(
-            {n: p.grad for n, p in params.items()}, state["ef"])
-        metrics = adamw_update(grads, state["opt"], params, opt_cfg)
+        loss, grads = compute.loss_and_grads(state["params"], batch)
+        grads, state["ef"] = compress_decompress(grads, state["ef"])
+        metrics = sharded_adamw_update(grads, state["opt"], state["params"],
+                                       opt_cfg)
         return state, dict(metrics, loss=loss)
     return train_step
 

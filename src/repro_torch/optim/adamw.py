@@ -108,24 +108,22 @@ def sharded_adamw_update(grads: dict, opt_state: dict, params: dict,
     ``params``, ``opt_state["mu"]`` and ``["nu"]`` map each name to a
     :class:`~repro_torch.distributed.sharding.Sharded` leaf, ``grads`` to
     the whole reduced gradient (or None for a zero one).  The global norm
-    sums every distinct block of every leaf once (a block held on several
-    devices counts once); then each copy of each block is updated on its
-    own device from its slice of the gradient.  With one block a leaf
-    this is :func:`adamw_update`'s arithmetic, bitwise."""
-    def block_grad(n, block, leaf):
-        g = grads.get(n)
-        if g is None:
-            return torch.zeros(leaf.block_shape, dtype=torch.float32,
-                               device=leaf.device)
-        return g.float()[leaf.slices(block)]
-
-    step, k, gnorm = _step_scalars(cfg, opt_state, (
-        torch.sum(torch.square(block_grad(n, b, leaf)))
-        for n, leaf in params.items() for b in leaf.blocks()))
+    is that of the whole gradients, summed leaf by leaf as
+    :func:`adamw_update` sums it; then each copy of each block is updated
+    on its own device from its slice of the gradient.  Where every block
+    lies on the gradients' device this is :func:`adamw_update`'s
+    arithmetic, bitwise, however the leaves are cut."""
+    g32 = {n: (grads[n].float() if grads.get(n) is not None
+               else torch.zeros(leaf.shape, dtype=torch.float32,
+                                device=leaf.device))
+           for n, leaf in params.items()}
+    step, k, gnorm = _step_scalars(
+        cfg, opt_state, (torch.sum(torch.square(g)) for g in g32.values()))
     for n, leaf in params.items():
+        g = g32.pop(n)
         mu, nu = opt_state["mu"][n].tensors, opt_state["nu"][n].tensors
         for key, p in leaf.tensors.items():
-            g = block_grad(n, key[0], leaf).to(p.device)
-            _apply(cfg, p, g, mu[key], nu[key], k)
+            _apply(cfg, p, g[leaf.slices(key[0])].to(p.device), mu[key],
+                   nu[key], k)
     opt_state["step"].copy_(step)
     return {"grad_norm": gnorm, "lr": k["lr"]}

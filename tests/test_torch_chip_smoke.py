@@ -384,9 +384,9 @@ def test_train_work_counts_the_step(smoke):
 def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     """``chip_smoke.py``'s LM distribution phase on reduced qwen2.5-3b on
     the CPU (the calls that need the card stubbed): the sharded steps with
-    every shard's bytes as its spec predicts, the loss falling and step 0
-    equal to the single-device step's, ``psum8`` within its budget, the
-    pipeline bitwise its serial run, the elastic restore bitwise onto
+    every shard's bytes as its spec predicts, the loss falling and every
+    step bitwise the single-device step's, ``psum8`` within its budget,
+    the pipeline bitwise its serial run, the elastic restore bitwise onto
     ``(1, 2)`` and a finite step after it, the ``(1, 1)`` mesh bitwise."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.reduced import reduce_config
@@ -410,14 +410,21 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch):
         feed = {"tokens": torch.as_tensor(next(pipe)["tokens"]).long()}
     finally:
         pipe.close()
-    _, m = make_train_step(bundle, AdamWConfig(**smoke.TRAIN_OPT))(
-        init_state(bundle, 0, cpu), feed)
-    out = smoke.drive_distributed(torch, cpu, cfg,
-                                  single_loss0=m["loss"].item(),
+    step = make_train_step(bundle, AdamWConfig(**smoke.TRAIN_OPT))
+    state = init_state(bundle, 0, cpu)
+    single = dict(losses=[], grad_norms=[], peak_gib=0.0, held_gib=0.0)
+    for _ in range(smoke.DIST_STEPS):
+        state, m = step(state, feed)
+        single["losses"].append(m["loss"].item())
+        single["grad_norms"].append(m["grad_norm"].item())
+    out = smoke.drive_distributed(torch, cpu, cfg, single=single,
                                   batch=batch, seq=seq)
     train = out["train"]
     assert len(train["losses"]) == smoke.DIST_STEPS
-    assert train["step0_vs_single"] == 0.0
+    assert train["bitwise_single"] is True
+    assert train["losses"] == single["losses"]
+    assert out["mesh_1x1_full"]["bitwise_single"] is True
+    assert out["mesh_1x1_full"]["mesh"] == (1, 1)
     assert train["losses"][-1] < train["losses"][0]
     assert train["profile"] is None and train["step_event_ms"] is None
     n = sum(p.numel() for p in bundle.init(0, cpu).parameters())

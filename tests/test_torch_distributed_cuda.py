@@ -1,0 +1,139 @@
+"""The LM distribution layer on a mesh that mixes devices: coordinates on
+the CPU and on the card, so a mesh step runs two replicas, its
+microbatches on different devices, and ``psum8`` and ``pipeline_apply``
+move data between devices.  Every case needs a card and skips without one;
+this file imports no JAX::
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_distributed_cuda.py
+
+- a ``(data 2, model 2)`` step whose data rank 0 is the CPU and rank 1 the
+  card equals the single-device pieces it is made of (each microbatch's
+  loss and gradients on its rank's device, summed on the CPU in rank
+  order, then ``adamw_update``), and the CPU's single-device step within
+  ``STEP_TOL``;
+- ``psum8`` over ranks on both devices == ``psum8`` of the same inputs on
+  the CPU, bitwise, each rank's result on its own device;
+- ``pipeline_apply`` over stages on both devices == the serial loop run on
+  the same devices, bitwise.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.configs.reduced import reduce_config
+from repro_torch.distributed import sharding as ts
+from repro_torch.distributed.pipeline import pipeline_apply
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.layers import trainable
+from repro_torch.models.registry import build_model
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim.compression import psum8
+
+pytestmark = pytest.mark.gpu
+CPU = torch.device("cpu")
+OPT = AdamWConfig(lr=1e-3, warmup_steps=0)
+# the mixed step against its single-device pieces: the blocks updated on
+# the card may differ from the CPU's update in the last bits
+PIECES_ATOL = 1e-7
+# against the CPU-only step: one microbatch's forward and backward ran on
+# the card
+STEP_TOL = dict(rel=1e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the mesh puts coordinates on it)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _mixed_mesh(cuda):
+    devs = np.empty((2, 2), dtype=object)
+    for i, j in np.ndindex(2, 2):
+        devs[i, j] = CPU if i == 0 else cuda
+    return Mesh(devs, ("data", "model"))
+
+
+def test_mixed_mesh_step_equals_its_single_device_pieces(cuda):
+    cfg = dataclasses.replace(reduce_config(ARCHS["phi3-mini-3.8b"]),
+                              d_model=64, n_layers=2, microbatches=2,
+                              dtype="float32")
+    bundle = build_model(cfg)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, 16)))}
+    mesh = _mixed_mesh(cuda)
+    assert steps.MeshCompute(bundle, mesh).owners(batch, 2) == [CPU, cuda]
+    state = steps.init_state(bundle, 0, CPU, mesh=mesh)
+    _, m = steps.make_train_step(bundle, OPT, mesh=mesh)(state, batch)
+
+    # the same step from single-device pieces: microbatch 0 on the CPU,
+    # microbatch 1 on the card, reduced on the CPU in rank order
+    micros = steps.split_batch(batch, 2)
+    pieces = steps.init_state(bundle, 0, CPU)
+    on_card = trainable(bundle.init(0, CPU).to(cuda))
+    total = torch.zeros((), dtype=torch.float32)
+    total = total + steps.loss_and_grads(bundle, pieces["params"], micros[0])
+    total = total + steps.loss_and_grads(
+        bundle, on_card, {k: v.to(cuda) for k, v in micros[1].items()}
+    ).to(CPU)
+    card_grads = dict(on_card.named_parameters())
+    params = dict(pieces["params"].named_parameters())
+    grads = {}
+    for n, p in params.items():
+        g = p.grad + card_grads[n].grad.to(CPU)
+        grads[n] = g.div_(2)
+    want = adamw_update(grads, pieces["opt"], params, OPT)
+    assert torch.equal(m["loss"], total / 2)
+    assert torch.equal(m["grad_norm"], want["grad_norm"])
+    worst = max((ts.unshard(state["params"][n], CPU) - p).abs().max().item()
+                for n, p in params.items())
+    assert worst <= PIECES_ATOL, worst
+
+    # and the CPU's single-device step
+    alone = steps.init_state(bundle, 0, CPU)
+    _, m1 = steps.make_train_step(bundle, OPT)(alone, batch)
+    assert m["loss"].item() == pytest.approx(m1["loss"].item(), **STEP_TOL)
+    assert m["grad_norm"].item() == pytest.approx(m1["grad_norm"].item(),
+                                                  **STEP_TOL)
+
+
+def test_psum8_across_devices_equals_one_device(cuda):
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(4, 4096)).astype(np.float32))
+    devs = [CPU, cuda, CPU, cuda]
+    got = psum8([x[r].to(d) for r, d in enumerate(devs)])
+    want = psum8([x[r] for r in range(4)])[0]
+    for out, d in zip(got, devs):
+        assert out.device == d
+        assert torch.equal(out.cpu(), want)
+    budget = 4 * 0.5 * x.abs().max().item() / 127
+    assert (want - x.sum(0)).abs().max().item() < budget
+
+
+def test_pipeline_across_devices_equals_the_serial_loop(cuda):
+    devs = [CPU, cuda, CPU, cuda]
+    mesh = Mesh(np.array(devs, dtype=object), ("pipe",))
+    rng = np.random.default_rng(6)
+    ws = torch.as_tensor(rng.normal(size=(4, 16, 16)).astype(np.float32)
+                         * 0.5)
+    xs = torch.as_tensor(rng.normal(size=(6, 3, 16)).astype(np.float32))
+
+    def stage_fn(w, x):
+        assert w.device == x.device
+        return torch.tanh(x @ w)
+
+    got = pipeline_apply(mesh, stage_fn, ws, xs)
+    assert got.device == CPU
+    serial = []
+    for m in range(xs.shape[0]):
+        y = xs[m]
+        for s, d in enumerate(devs):
+            y = stage_fn(ws[s].to(d), y.to(d))
+        serial.append(y.to(CPU))
+    assert torch.equal(got, torch.stack(serial))
