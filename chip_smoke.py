@@ -86,9 +86,16 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    (save, ``plan_remesh(2, model_parallel=2, original_data=2)``, restore
    onto (data 1, model 2) bitwise with every shard by the new spec, one
    finite step with the microbatches doubled); two steps of reduced
-   qwen2.5-3b on the (1, 1) mesh bitwise ``make_train_step``'s; and
-   ``examples_torch/quickstart.py`` and ``gnn_inference.py`` at their
-   defaults;
+   qwen2.5-3b on the (1, 1) mesh bitwise ``make_train_step``'s; then
+   the LM dry-run: ``launch/dryrun.py::count_cell`` of qwen2.5-3b's
+   train step (8 x 512, 4 microbatches, remat) on the (1, 1) mesh of meta
+   coordinates against the same step on the card (FLOPs equal under
+   ``FlopCounterMode``, the peak within 15 %, the roofline bound's share
+   of the measured step, the ratio to ``train_work`` with its causes),
+   and ``python -m repro_torch.launch.dryrun`` on two production cells
+   (qwen2.5-3b train_4k, deepseek-v2-lite-16b decode_32k) as
+   subprocesses beside it; and ``examples_torch/quickstart.py`` and
+   ``gnn_inference.py`` at their defaults;
 10. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
    card's kernels, every sample and fit logged; ``get_calibrated`` twice on
    a fresh ``SharedPlanCache`` (one build, one hit), saved, loaded into a
@@ -1081,6 +1088,8 @@ def time_skip_call(torch, mods, calls):
     z = kw["z"].clone()
     launch = lambda: spdmm.spdmm_fused(*args, block_size=B, bn=bn, z=z)
     ms, ms_graph = device_ms(torch, launch), graph_ms(torch, launch)
+    plain_ms = device_ms(torch, lambda: spdmm.spdmm_fused_plain(
+        *args, block_size=B, bn=bn, z=z))
     # the activation the entries hold, as a dense matrix and as a CSR
     keep = out_cols == 0
     nrb, ncb = z.shape[0] // B, y.shape[0] // B
@@ -1102,7 +1111,7 @@ def time_skip_call(torch, mods, calls):
     log(f"  spdmm_fused, compiled GIN-CO l1-mlp1 launch: "
         f"{shape_of('spdmm_fused', args, kw)}, activation nnz "
         f"{csr.values().numel()}; kernel {ms:.4f} ms ({ms_graph:.4f} in a "
-        f"CUDA graph); library {library_ms:.4f} ms ({library_graph:.4f}) "
+        f"CUDA graph); plain {plain_ms:.4f} ms; library {library_ms:.4f} ms ({library_graph:.4f}) "
         f"(torch.sparse.mm, CSR), dense matmul "
         f"{dense_ms:.4f} ms; max abs vs torch.sparse.mm {err:.3e}; "
         + bound["text"])
@@ -1111,7 +1120,8 @@ def time_skip_call(torch, mods, calls):
         raise AssertionError("the l1-mlp1 launch disagrees with "
                              "torch.sparse.mm of its activation")
     return {"path": "GIN-CO compiled", "call": "l1-mlp1", "ms": ms,
-            "graph_ms": ms_graph, "library_ms": library_ms,
+            "graph_ms": ms_graph, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "library_graph_ms": library_graph,
             "dense_matmul_ms": dense_ms, "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"]}
@@ -3144,6 +3154,213 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
                 part_s=walls)
 
 
+# ------------------------------------------------------------ LM dry-run
+# the dry-run's count (launch/dryrun.py, on the meta device) of the
+# training phase's qwen2.5-3b step (batch 8 x 512, 4 microbatches, remat
+# full) on the (1, 1) mesh, held against the same step on the card: FLOPs
+# equal, the peak within DRYRUN_PEAK_TOL; and two production cells of the
+# dry-run CLI, run as subprocesses beside the count
+DRYRUN_ARCH = "qwen2.5-3b"
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "single"),
+                ("deepseek-v2-lite-16b", "decode_32k", "single"))
+DRYRUN_CELL_TIMEOUT = 900
+
+
+def start_dryrun_cells(out_dir: str, cells) -> list:
+    """``python -m repro_torch.launch.dryrun`` for each (arch, shape, mesh)
+    of ``cells``, started as subprocesses (they need no card)."""
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=cli_env(), cwd=ROOT)) for cell in cells]
+
+
+def finish_dryrun_cells(procs, out_dir: str,
+                        timeout=DRYRUN_CELL_TIMEOUT) -> list[dict]:
+    """Wait for the cells of :func:`start_dryrun_cells`, log their lines
+    and return their records; a cell that fails, errs or runs out of
+    time raises (every subprocess is ended either way)."""
+    out = []
+    try:
+        for (arch, shape, mesh), proc in procs:
+            text, _ = proc.communicate(timeout=timeout)
+            path = Path(out_dir) / f"{arch}__{shape}__{mesh}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            log(f"== LM dry-run cell {arch} x {shape} x {mesh} (exit "
+                f"{proc.returncode}):")
+            for line in text.strip().splitlines():
+                log(f"  {line}")
+            if proc.returncode or rec.get("status") not in (
+                    "ok", "skipped-by-design"):
+                raise AssertionError(f"dry-run cell {arch} x {shape} x "
+                                     f"{mesh}: exit {proc.returncode}, "
+                                     f"status {rec.get('status')}")
+            out.append(rec)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def train_flops_causes(cfg, tokens: int, seq: int) -> dict:
+    """What a counted train step of a dense arch whose layers are all in
+    cycles does beyond and short of ``train_work``'s products: the flash
+    attention computes every key of each chunk (512 keys, or the whole
+    sequence when shorter) where ``train_work`` counts (L + 1) / 2 a query
+    (forward, backward twice, one recompute), and the checkpoint's early
+    stop does not recompute the last product of each cycle (its
+    ``w_down``), whose output the backward does not need."""
+    n_cycles = cfg.n_layers // cfg.cycle_len()
+    attn_layers = n_cycles * sum(mt in ("attn", "mla")
+                                 for mt in cfg.mixer_pattern)
+    chunk = min(512, seq)
+    keys = -(-seq // chunk) * chunk
+    per_key = attn_layers * tokens * 4 * cfg.n_heads * cfg.resolved_head_dim
+    passes = 3 + (cfg.remat == "full")
+    attn = per_key * (keys - (seq + 1) / 2) * passes
+    early = (2.0 * tokens * cfg.d_model * cfg.d_ff * n_cycles
+             if cfg.remat == "full" else 0.0)
+    return dict(full_chunks=attn, early_stop=early)
+
+
+def card_train_step(torch, cfg, dev, batch, seq) -> dict:
+    """``cfg``'s training state from seed 0 and three steps of
+    ``make_train_step`` on one random batch: the first's peak memory above
+    what the process held before the state, the second's FLOPs under
+    ``FlopCounterMode`` (its module tracker holds tensors, so it is not
+    around the step whose peak is read), the third's device ms."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    bundle = build_model(cfg)
+    state = init_state(bundle, 0, dev)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (batch, seq))
+    feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    step = make_train_step(bundle, AdamWConfig(**TRAIN_OPT))
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, feed)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        state, m2 = step(state, feed)
+    state, m3, wall, event_ms = timed_step(torch, step, state, feed, dev)
+    losses = [float(x["loss"]) for x in (m, m2, m3)]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"card steps' losses {losses}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(flops=fc.get_total_flops(), held=held - base,
+                peak=peak - base, event_ms=event_ms, wall_s=wall,
+                losses=losses)
+
+
+def drive_dryrun(torch, dev, cfg, card="", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                 cells=DRYRUN_CELLS):
+    """The LM dry-run phase: ``count_cell`` of ``cfg``'s train step at
+    ``batch`` x ``seq`` on the (1, 1) mesh of meta coordinates, then the
+    same step on the card (:func:`card_train_step`): FLOPs equal, the peak
+    above what the process held before the state within
+    ``DRYRUN_PEAK_TOL`` of the counted peak (off the card, where no
+    memory is measured, not checked), the roofline bound's share of the
+    measured step; the ratio to ``train_work`` with its causes; and the
+    dry-run CLI on ``cells``, run beside the rest as subprocesses."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryrun_cells(tmp, cells)
+        try:
+            shape = ShapeConfig("chip_smoke", seq, batch, "train")
+            t = time.perf_counter()
+            counted = dryrun.count_cell(cfg, shape, Mesh.on(
+                "meta", (1, 1), ("data", "model")))
+            count_s = time.perf_counter() - t
+            mem, terms = counted["memory"], counted["roofline"]
+            flops = counted["cost"]["flops"]
+            predicted = (mem["shard_bytes"] + mem["replica_bytes"]
+                         + mem["activation_bytes"])
+            log(f"== LM dry-run: {cfg.name} train step, batch {batch} x "
+                f"{seq}, {cfg.microbatches} microbatches, remat "
+                f"{cfg.remat}, counted on the (1, 1) meta mesh in "
+                f"{count_s:.1f} s (counts at H100 constants, not timings): "
+                f"{flops / 1e12:.4f} TFLOP, "
+                f"{counted['cost']['bytes_accessed'] / 1e12:.4f} TB, peak "
+                f"{predicted / 2**30:.2f} GiB (held {(mem['shard_bytes'] + mem['replica_bytes']) / 2**30:.2f} + "
+                f"activations {mem['activation_bytes'] / 2**30:.2f}); bound "
+                f"{1e3 * terms['total_bound_s']:.3f} ms "
+                f"({terms['dominant']})")
+            work = train_work(build_model(cfg).abstract_params(), cfg,
+                              batch * seq, seq)
+            causes = train_flops_causes(cfg, batch * seq, seq)
+            explained = (work["flops"] + causes["full_chunks"]
+                         - causes["early_stop"])
+            log(f"  counted / train_work = {flops / work['flops']:.4f} "
+                f"({flops / 1e12:.4f} / {work['flops'] / 1e12:.4f} TFLOP): "
+                f"+{causes['full_chunks'] / 1e12:.4f} TFLOP the flash "
+                "attention computes every key of a chunk (train_work "
+                "counts (L + 1) / 2 a query), "
+                f"-{causes['early_stop'] / 1e12:.4f} TFLOP the "
+                "checkpoint's early stop recomputes no w_down; train_work "
+                f"+ those = {explained / 1e12:.4f} TFLOP (== counted: "
+                f"{explained == flops})")
+            measured = card_train_step(torch, cfg, dev, batch, seq)
+        except BaseException:
+            for _, proc in procs:
+                proc.kill()
+                proc.wait()
+            raise
+        cell_recs = finish_dryrun_cells(procs, tmp)
+    log(f"  card step: {measured['flops'] / 1e12:.4f} TFLOP under "
+        f"FlopCounterMode; counted == card: {measured['flops'] == flops}")
+    if measured["flops"] != flops:
+        raise AssertionError(f"counted {flops} FLOPs, the card's step "
+                             f"{measured['flops']}")
+    out = dict(counted=counted, card=measured, train_work=work,
+               causes=causes, cells=cell_recs, count_s=count_s)
+    if dev.type == "cuda":
+        ratio = measured["peak"] / predicted
+        held = mem["shard_bytes"] + mem["replica_bytes"]
+        act = measured["peak"] - measured["held"]
+        log(f"  peak above what the process held before the state: card "
+            f"{measured['peak'] / 2**30:.2f} GiB, counted "
+            f"{predicted / 2**30:.2f} GiB, card / counted {ratio:.4f}; "
+            f"held on entry card {measured['held'] / 2**30:.2f} / counted "
+            f"{held / 2**30:.2f} GiB ({measured['held'] / held:.4f}); the "
+            f"step's own peak card {act / 2**30:.2f} / counted "
+            f"{mem['activation_bytes'] / 2**30:.2f} GiB "
+            f"({act / mem['activation_bytes']:.4f})")
+        share = 1e3 * terms["total_bound_s"] / measured["event_ms"]
+        log(f"  roofline bound {1e3 * terms['total_bound_s']:.3f} ms of the "
+            f"measured step {measured['event_ms']:.1f} ms (events; wall "
+            f"{1e3 * measured['wall_s']:.1f} ms): {share:.1%}")
+        out.update(peak_ratio=ratio, bound_share=share)
+        if abs(ratio - 1) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"the card's peak is {ratio:.4f} of the "
+                                 f"counted one (tolerance {DRYRUN_PEAK_TOL})")
+    else:
+        log("  peak and step time not measured (no card)")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"LM dry-run phase: {out['wall_s']:.1f} s on {card or 'no card'}")
+    return out
+
+
 def drive_examples(dev) -> dict:
     """``examples_torch/quickstart.py`` and ``gnn_inference.py`` at their
     defaults (on the card), their output logged."""
@@ -3244,6 +3461,7 @@ def main() -> int:
     drive_distributed(torch, dev, ARCHS[DIST_ARCH], card=card,
                       single=next(r for r in trained["full"]
                                   if r["arch"] == DIST_ARCH))
+    drive_dryrun(torch, dev, ARCHS[DRYRUN_ARCH], card=card)
     drive_examples(dev)
 
     calib, fl_calib = drive_calibration(torch, gnn, ops, DynasparseEngine,

@@ -6,8 +6,8 @@ the decode step as one CUDA graph per cache.
 
 A training state is ``{"params": model, "opt": adamw state}`` (plus
 ``"ef"`` with compressed gradients); the train step updates it in place,
-the counterpart of the reference's donated state.  ``abstract_state``
-comes with the dry-run slice.
+the counterpart of the reference's donated state.  ``abstract_state`` is
+that state on the ``meta`` device, for the dry-run.
 
 On a mesh (``init_state`` / ``make_train_step`` with ``mesh=``) the state
 is stored by the sharding rules: ``{"params": {name: Sharded}, "opt":
@@ -123,6 +123,18 @@ def init_state(bundle: ModelBundle, seed: int = 0, device="cuda",
     return sharded_state(bundle, model, mesh)
 
 
+def abstract_state(bundle: ModelBundle, mesh=None) -> dict:
+    """``init_state``'s state on the ``meta`` device, with no memory and no
+    values: ``bundle.abstract_params()`` turned trainable and its zero
+    moments in ``cfg.opt_dtype`` (``adamw_init``'s).  With ``mesh`` (a
+    mesh of meta coordinates), the ``Sharded`` storage ``sharded_state``
+    places by ``param_spec``: the blocks each coordinate holds."""
+    model = bundle.abstract_params()
+    if mesh is None:
+        return train_state(bundle, model)
+    return sharded_state(bundle, model, mesh)
+
+
 def sharded_state(bundle: ModelBundle, model, mesh) -> dict:
     """The training state of ``model``'s parameters placed on ``mesh`` by
     ``params_shardings``, with zero moments placed alike in
@@ -161,23 +173,21 @@ class MeshCompute:
         self.gathered: dict[tuple, torch.Tensor] = {}
         dp = sharding.dp_axes(mesh)
         self.n_dp = sharding._size(mesh, dp)
-        # each data-parallel rank's device: its (pod, data) coordinates,
-        # every other axis at 0
-        self.rank_device = []
+        # each data-parallel rank's coordinate and device: its (pod, data)
+        # coordinates, every other axis at 0
+        self.rank_coord = []
         for r in range(self.n_dp):
             at, rest = dict.fromkeys(mesh.axis_names, 0), r
             for a in reversed(dp):
                 at[a], rest = rest % mesh.shape[a], rest // mesh.shape[a]
-            self.rank_device.append(mesh.device(at.values()))
+            self.rank_coord.append(tuple(at.values()))
+        self.rank_device = [mesh.device(c) for c in self.rank_coord]
 
     def replica(self, device) -> torch.nn.Module:
         """The replica on ``device``: its parameters on the meta device
         until :meth:`bind` points them at the weights."""
         if device not in self.replicas:
-            cls = (encdec_lib.EncDec if self.bundle.cfg.n_enc_layers
-                   else lm_lib.LM)
-            self.replicas[device] = trainable(
-                cls(self.bundle.cfg, device=torch.device("meta")))
+            self.replicas[device] = trainable(self.bundle.abstract_params())
         return self.replicas[device]
 
     @torch.no_grad()
@@ -205,8 +215,8 @@ class MeshCompute:
                     torch.nn.Parameter(t, requires_grad=p.requires_grad)
         return model
 
-    def owners(self, batch: dict, mb: int) -> list[torch.device]:
-        """The device each microbatch runs on: that of the first rank
+    def owner_ranks(self, batch: dict, mb: int) -> list[int]:
+        """The data-parallel rank each microbatch runs on: the first rank
         holding its first row (``batch_spec``: rows over the dp axes when
         they divide; else every rank holds every row, and rank 0 runs
         it)."""
@@ -214,8 +224,11 @@ class MeshCompute:
         rows = leaf.shape[0]
         spec = sharding.batch_spec(name, tuple(leaf.shape), self.mesh)
         per_rank = rows // self.n_dp if spec[0] is not None else rows
-        return [self.rank_device[(i * (rows // mb)) // per_rank]
-                for i in range(mb)]
+        return [(i * (rows // mb)) // per_rank for i in range(mb)]
+
+    def owners(self, batch: dict, mb: int) -> list[torch.device]:
+        """The device each microbatch runs on (:meth:`owner_ranks`)."""
+        return [self.rank_device[r] for r in self.owner_ranks(batch, mb)]
 
     def loss_and_grads(self, params: dict, batch: dict, mb: int = 1):
         """The loss of ``batch`` (``loss_and_grads``'s order) and the whole

@@ -190,6 +190,12 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, device="cuda") -> EncDec:
     return model
 
 
+def abstract_params(cfg: ModelConfig) -> EncDec:
+    """The model on the ``meta`` device, built without a generator (no
+    memory, no values)."""
+    return EncDec(cfg, device=torch.device("meta"))
+
+
 def forward(model: EncDec, batch: dict) -> torch.Tensor:
     return model(batch)
 
@@ -210,6 +216,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_src: int, max_tgt: int,
                      "cross_k": torch.zeros(shape, dtype=dt, device=dev),
                      "cross_v": torch.zeros(shape, dtype=dt, device=dev)}
                     for _ in range(cfg.n_layers)]}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_src: int,
+                   max_tgt: int) -> dict:
+    """``init_cache``'s tree of tensors on the ``meta`` device."""
+    return init_cache(cfg, batch, max_src, max_tgt, device="meta")
 
 
 def decode_step(model: EncDec, cache: dict, tokens, pos):

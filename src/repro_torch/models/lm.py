@@ -224,6 +224,13 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     return model
 
 
+def abstract_params(cfg: ModelConfig) -> LM:
+    """The LM on the ``meta`` device, built without a generator: every
+    parameter's shape and dtype, no memory and no values (the dry-run's
+    counterpart of ``init_lm``)."""
+    return LM(cfg, device=torch.device("meta"))
+
+
 def forward(model: LM, batch: dict, last_only: bool = False) -> torch.Tensor:
     return model(batch, last_only=last_only)
 
@@ -247,6 +254,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                            for _ in range(n_cycles)]
     cache["tail"] = [one(cfg.mixer_pattern[i]) for i in range(n_tail)]
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """``init_cache``'s tree of tensors on the ``meta`` device."""
+    return init_cache(cfg, batch, max_len, device="meta")
 
 
 def step_position(pos, max_len: int | None, device) -> torch.Tensor:

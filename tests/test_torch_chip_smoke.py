@@ -437,3 +437,62 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch):
                                       "microbatch_scale": 2}
     assert np.isfinite(out["elastic"]["loss_after"])
     assert out["mesh_1x1"] is True
+
+
+def test_lm_dryrun_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """``chip_smoke.py``'s LM dry-run phase on reduced qwen2.5-3b on the
+    CPU (the calls that need the card stubbed): the meta count of the
+    train step on the (1, 1) mesh, its FLOPs equal to ``FlopCounterMode``
+    around the real step, ``train_work`` plus the two stated causes equal
+    to the count, and the dry-run CLI run as a subprocess on a cell the
+    registry skips by design (no full-size count in the tests)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.reduced import reduce_config
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    assert smoke.DRYRUN_CELLS == (
+        ("qwen2.5-3b", "train_4k", "single"),
+        ("deepseek-v2-lite-16b", "decode_32k", "single"))
+    cfg = reduce_config(ARCHS[smoke.DRYRUN_ARCH])
+    assert cfg.microbatches == 4
+    out = smoke.drive_dryrun(torch, torch.device("cpu"), cfg, batch=8,
+                             seq=32,
+                             cells=(("qwen2.5-3b", "long_500k", "single"),))
+    flops = out["counted"]["cost"]["flops"]
+    assert out["card"]["flops"] == flops > 0
+    assert out["counted"]["busiest"]["microbatches"] == 4
+    causes = out["causes"]
+    assert causes["early_stop"] == 0 and causes["full_chunks"] > 0
+    assert out["train_work"]["flops"] + causes["full_chunks"] == flops
+    assert [r["status"] for r in out["cells"]] == ["skipped-by-design"]
+    assert "peak_ratio" not in out
+
+
+def test_train_flops_causes_explain_the_qwen_count(smoke):
+    """qwen2.5-3b at the training phase's batch: the causes come to +1.23
+    TFLOP (the flash attention's whole chunks) and -6.65 TFLOP (the
+    checkpoint's early stop) over ``train_work``'s 99.81; at its widths
+    with 2 of its 36 layers, the meta count of ``count_cell`` is
+    ``train_work`` plus the first less the second, exactly."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import build_model
+
+    batch, seq = smoke.TRAIN_BATCH, smoke.TRAIN_SEQ
+    causes = smoke.train_flops_causes(ARCHS["qwen2.5-3b"], batch * seq, seq)
+    assert causes["full_chunks"] / 1e12 == pytest.approx(1.234, abs=1e-3)
+    assert causes["early_stop"] / 1e12 == pytest.approx(6.648, abs=1e-3)
+    cfg = dataclasses.replace(ARCHS["qwen2.5-3b"], n_layers=2)
+    work = smoke.train_work(build_model(cfg).abstract_params(), cfg,
+                            batch * seq, seq)
+    causes = smoke.train_flops_causes(cfg, batch * seq, seq)
+    shape = ShapeConfig("chip_smoke", seq, batch, "train")
+    counted = dryrun.count_cell(cfg, shape,
+                                Mesh.on("meta", (1, 1), ("data", "model")))
+    assert counted["cost"]["flops"] == (work["flops"] + causes["full_chunks"]
+                                        - causes["early_stop"])

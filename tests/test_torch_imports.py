@@ -90,6 +90,14 @@ def test_distribution_modules_import_no_jax_and_no_reference_package():
         "repro_torch.distributed.elastic", "repro_torch.launch.mesh")
 
 
+def test_dryrun_modules_import_no_jax_and_no_reference_package():
+    """The dry-run layer's modules (dry-run, roofline, report), checked as
+    the mesh modules are, all imported in one fresh interpreter."""
+    _fresh_import_loads_no_jax(
+        "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+        "repro_torch.launch.report")
+
+
 def test_example_scripts_import_no_jax_and_no_reference_package():
     """Each script of ``examples_torch/``, loaded in a fresh interpreter
     (its ``main`` not run), loads no JAX module and nothing of the JAX

@@ -300,15 +300,25 @@ def test_captured_decode_runs_the_step_body_on_the_cpu():
             step(qmodel, cache, torch.as_tensor(toks[:, :1]), 6)
 
 
-def test_bundle_leaves_training_to_a_later_slice():
-    """The dry-run members still name their slice; ``loss`` (the training
-    slice) is the model's ``lm_loss``."""
+def test_bundle_builds_shape_only_trees():
+    """``abstract_params`` is the model on the ``meta`` device (no memory,
+    no values) and ``abstract_cache`` the decode cache there, of
+    ``init``'s and ``init_cache``'s shapes and dtypes; ``loss`` (the
+    training slice) is the model's ``lm_loss``."""
     from repro_torch.models import lm
 
     bundle = build_model(reduce_config(ARCHS["qwen2.5-3b"]))
-    for name in ("abstract_params", "abstract_cache"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            getattr(bundle, name)
+    model = bundle.abstract_params()
+    real = bundle.init(0, CPU)
+    assert isinstance(model, lm.LM)
+    assert [(n, p.shape, p.dtype) for n, p in model.named_parameters()] == [
+        (n, p.shape, p.dtype) for n, p in real.named_parameters()]
+    assert all(p.is_meta for p in model.parameters())
+    cache = steps.cache_leaves(bundle.abstract_cache(2, 16))
+    want = steps.cache_leaves(bundle.init_cache(2, 16, device=CPU))
+    assert [(t.shape, t.dtype) for t in cache] == [(t.shape, t.dtype)
+                                                   for t in want]
+    assert all(t.is_meta for t in cache)
     assert bundle.loss is lm.lm_loss
 
 
