@@ -2293,12 +2293,17 @@ def profile_train_step(torch, step, state, batch, event_ms):
 
 
 def drive_train_arch(torch, arch, cfg, dev, batch=TRAIN_BATCH,
-                     seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+                     seq=TRAIN_SEQ, steps=TRAIN_STEPS, keep_after=None,
+                     profile=True, reverse=False):
     """One arch of the training phase: ``init_state`` from seed 0, then
     ``steps`` steps of ``make_train_step`` on one repeated batch of the
     port's ``TokenPipeline``: finite loss and gradient norm at every
     step, the last loss below the first; per step host wall, device ms,
-    tokens/s and peak memory; the step's bound; a profiled step."""
+    tokens/s and peak memory; the step's bound; a profiled step (with
+    ``profile``).  With ``keep_after`` the parameters after that many
+    steps are kept in host memory (``params_host``), for the sharded
+    phase's gates.  With ``reverse`` the batch's microbatches run last to
+    first (each the same rows)."""
     import gc
 
     from repro_torch.data.lm import TokenPipeline
@@ -2321,11 +2326,15 @@ def drive_train_arch(torch, arch, cfg, dev, batch=TRAIN_BATCH,
     finally:
         pipe.close()
     feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    if reverse:
+        mb = max(1, cfg.microbatches)
+        feed = {k: torch.cat(v.chunk(mb)[::-1]) for k, v in feed.items()}
     work = train_work(model, cfg, batch * seq, seq)
     log(f"== LM training: {arch} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype} compute, float32 "
         f"parameters, {cfg.opt_dtype} moments, {cfg.microbatches} "
-        f"microbatches, remat {cfg.remat}): {n_params / 1e9:.3f} B "
+        f"microbatches{', run in reverse order' if reverse else ''}, "
+        f"remat {cfg.remat}): {n_params / 1e9:.3f} B "
         f"parameters, init {init_s:.2f} s, {held / 2**30:.2f} GiB held "
         f"before; batch {batch} x {seq} tokens, repeated")
     log(f"  step bound {work['bound_ms']:.3f} ms = products "
@@ -2334,9 +2343,12 @@ def drive_train_arch(torch, arch, cfg, dev, batch=TRAIN_BATCH,
         f"{work['adamw_bytes'] / 1e9:.2f} GB at {PEAK_HBM_BYTES / 1e12:.2f} "
         f"TB/s ({work['adamw_ms']:.3f} ms)")
     step = make_train_step(bundle, AdamWConfig(**TRAIN_OPT))
-    rows = []
+    rows, kept = [], None
     for i in range(steps):
         state, m, wall, event_ms = timed_step(torch, step, state, feed, dev)
+        if keep_after == i + 1:
+            kept = {n: p.detach().to("cpu", copy=True)
+                    for n, p in model.named_parameters()}
         row = dict(step=i, loss=m["loss"].item(),
                    grad_norm=m["grad_norm"].item(), lr=m["lr"].item(),
                    wall_s=wall, event_ms=event_ms,
@@ -2366,6 +2378,8 @@ def drive_train_arch(torch, arch, cfg, dev, batch=TRAIN_BATCH,
                step_wall_ms=1e3 * wall, step_event_ms=event_ms,
                tokens_per_s=batch * seq / wall,
                peak_gib=max(r["peak_gib"] for r in rows), **work)
+    if kept is not None:
+        out.update(params_host=kept, params_steps=keep_after)
     log(f"  loss {rows[0]['loss']:.4f} -> {rows[-1]['loss']:.4f}; median "
         f"step (steps 1..{steps - 1}): wall {1e3 * wall:.1f} ms, "
         f"{out['tokens_per_s']:.1f} tokens/s, device "
@@ -2375,7 +2389,7 @@ def drive_train_arch(torch, arch, cfg, dev, batch=TRAIN_BATCH,
            f"{work['bound_ms'] / (1e3 * wall):.1%} of the wall)"
            if event_ms else ""))
     out["profile"] = (profile_train_step(torch, step, state, feed, event_ms)
-                      if event_ms else None)
+                      if event_ms and profile else None)
     del state, model, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2671,11 +2685,12 @@ def drive_train_restart(torch, dev, tmp_dir: str, cli_extra=()):
 
 
 def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
-                reduced_archs=None, cli_extra=(), **arch_kw):
+                reduced_archs=None, cli_extra=(), keep=None, **arch_kw):
     """The LM training phase: full-size training of each config, the flash
     VJP at qwen2.5-3b's attention, one step of every reduced arch on the
     card against the CPU, and the restart checks.  ``card`` (name and
-    power limit) goes on the phase's summary line."""
+    power limit) goes on the phase's summary line; ``keep`` maps an arch
+    to the steps after which its parameters are kept (``params_host``)."""
     t0 = time.perf_counter()
     walls = {}
 
@@ -2685,9 +2700,9 @@ def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
         walls[name] = time.perf_counter() - t
         return out
 
-    full = part("full", lambda: [drive_train_arch(torch, arch, cfg, dev,
-                                                  **arch_kw)
-                                 for arch, cfg in configs])
+    full = part("full", lambda: [drive_train_arch(
+        torch, arch, cfg, dev, keep_after=(keep or {}).get(arch), **arch_kw)
+        for arch, cfg in configs])
     flash = part("flash_vjp", lambda: drive_flash_vjp(torch, dev,
                                                       flash_shape))
     log("== LM training: one float32 step of each reduced arch, card "
@@ -2702,7 +2717,8 @@ def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
     log(f"LM training phase: {wall:.1f} s on {card or 'no card'} (parts, "
         "s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + "); summary "
-        + json.dumps([{k: v for k, v in r.items() if k != "profile"}
+        + json.dumps([{k: v for k, v in r.items()
+                       if k not in ("profile", "params_host")}
                       | (r["profile"] or {}) for r in full]))
     return dict(full=full, flash=flash, reduced=reduced, restart=restart,
                 wall_s=wall, part_s=walls)
@@ -2712,13 +2728,54 @@ def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
 # qwen2.5-3b trained on a (data 2, model 2) mesh whose coordinates all sit
 # on the one card, with the training phase's batch (8 x 512, 4
 # microbatches, remat, bfloat16 compute over float32 state), four steps
-# on the repeated batch;
+# on the repeated batch, tensor-parallel over model; then on (data 1,
+# model 4); deepseek-v2-lite-16b at 4 of its 27 layers (MLA, 64 experts
+# over model) on (data 1, model 4) against its own single-device run;
 # psum8 over 4 ranks; a 4-stage pipeline of full-width layers over 8
 # microbatches; the elastic restore onto plan_remesh(2, model_parallel=2,
 # original_data=2)'s (data 1, model 2) mesh
 DIST_ARCH = "qwen2.5-3b"
 DIST_MESH = (2, 2)
 DIST_STEPS = 4
+TP_MESH = (1, 4)
+TP_MOE_ARCH, TP_MOE_LAYERS = "deepseek-v2-lite-16b", 4
+# a bfloat16 step whose model axis is > 1 reassociates the row-parallel
+# sums, so it is held to gates against the single-device run instead of
+# bitwise.  Step 0, which both runs take from the same parameters: the
+# loss within the reference's 1e-3 (tests/test_sharding_multidev.py:
+# 113-117), which reads the forward pass, and the gradient norm within
+# TP_NORM_TOL of the single-device one's (relative), which reads the
+# backward pass (readings on NVIDIA H100 80GB HBM3, 700 W: 1.0e-4 on
+# (2, 2), 5.9e-4 on (1, 4), 4.7e-5 for deepseek-v2-lite on (1, 4); on the
+# CPU at the reduced widths of tests/test_torch_chip_smoke.py 6.3e-4,
+# 1.5e-3 and 1.8e-3; a backward that drops or doubles a rank's part moves
+# it by percents).  After
+# the last step: every parameter within the reference's 5e-3, which no
+# gradient can fail at this learning rate (an AdamW step moves an element
+# by at most about 1.05 lr, so two runs of 4 steps at lr 3e-4 differ by at
+# most about 2.5e-3).  Later losses and norms are logged, not gated: a
+# single-device run with its microbatches in reverse order (the same
+# microbatches, their sums reassociated) is logged beside them as a
+# witness of how far reassociation alone moves them.  On a model axis of
+# 1 the losses and norms stay bitwise.  What holds the backward pass
+# element by element is the float32 step below
+TP_LOSS_TOL, TP_NORM_TOL, TP_PARAM_TOL = 1e-3, 3e-3, 5e-3
+# one float32 step at full width and F32_TP_LAYERS layers, on one device
+# and on each tensor-parallel mesh from the same parameters and batch,
+# with the optimizer of tests/test_torch_sharding_multidev.py: the loss
+# and the gradient norm (relative) within its float32 gates, and each
+# leaf's gradient within F32_GRAD_TOL of one device's (the norm of the
+# difference over the norm; on the CPU at reduced widths, full vocabulary
+# for qwen2.5-3b, at most 1.6e-6 over five archs; a rank's part dropped,
+# doubled or misplaced moves a leaf by percents).  The tests' gate on each
+# element's change (1e-4 at lr 1e-3) does not carry to full width: AdamW's
+# first step is g / (|g| + 1e-8), so an element whose gradient is near
+# 1e-8 turns float32 noise into a change of a sizeable share of lr (on
+# the card, qwen2.5-3b on (2, 2): 2.6e-4 with the loss and the norm
+# equal); it is logged, not gated
+F32_TP_LAYERS = 2
+F32_OPT = dict(lr=1e-3, warmup_steps=0)
+F32_LOSS_TOL, F32_NORM_TOL, F32_GRAD_TOL = 1e-5, 1e-5, 1e-4
 # the whole config on the (1, 1) mesh: two steps, whose peak memory above
 # what was held may exceed the single-device step's by 1 % at most
 MESH_1X1_STEPS, MESH_1X1_PEAK = 2, 1.01
@@ -2779,14 +2836,20 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
     """``init_state`` / ``make_train_step`` with ``mesh=`` a ``("data",
     "model")`` mesh of ``shape`` on ``dev``: the shard bytes, ``steps``
     steps on one repeated batch (finite loss and gradient norm, the loss
-    falling, every loss and gradient norm bitwise those of the
-    single-device run ``single``, a ``drive_train_arch`` record of the same
-    config, batch and optimizer, where given), per step wall, events,
-    tokens/s and peak memory, the bound, a profiled step (with
-    ``profile``)."""
+    falling), per step wall, events, tokens/s, peak memory and the bytes
+    the model group's collectives moved for one rank, the bound, a
+    profiled step (with ``profile``: launches, idle share).  Against
+    ``single``, a ``drive_train_arch`` record of the same config, batch
+    and optimizer, where given: on a ``model`` axis of 1 every loss and
+    gradient norm bitwise; on a larger one step 0's loss within
+    ``TP_LOSS_TOL`` and its gradient norm within ``TP_NORM_TOL``
+    (relative), and every parameter after the last step within
+    ``TP_PARAM_TOL`` of those ``single`` kept after as many steps (a run
+    that kept none fails)."""
     import gc
 
     from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distributed import sharding
     from repro_torch.launch.steps import init_state, make_train_step
     from repro_torch.models.lm import LM
     from repro_torch.models.registry import build_model
@@ -2809,30 +2872,36 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
         pipe.close()
     feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
     work = train_work(LM(cfg, device="meta"), cfg, batch * seq, seq)
+    T = shape[1]
     log(f"== LM distribution: {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.microbatches} microbatches, remat "
         f"{cfg.remat}, {cfg.dtype} compute) on a (data {shape[0]}, "
-        f"model {shape[1]}) mesh of {dev} x {mesh.size}: init "
-        f"{init_s:.2f} s (peak {init_peak:.2f} GiB), {held / 2**30:.2f} GiB "
-        f"held before; every shard's bytes as its spec predicts; per "
-        f"coordinate {sorted(set(shard_bytes['per_coord'].values()))} B, "
-        f"distinct on the card {shard_bytes['distinct'] / 1e9:.3f} GB; "
-        f"batch {batch} x {seq}, repeated; step bound "
-        f"{work['bound_ms']:.3f} ms")
+        f"model {T}) mesh of {dev} x {mesh.size}"
+        + (f", tensor-parallel over a model group of {T}" if T > 1 else "")
+        + f": init {init_s:.2f} s (peak {init_peak:.2f} GiB), "
+        f"{held / 2**30:.2f} GiB held before; every shard's bytes as its "
+        f"spec predicts; per coordinate "
+        f"{sorted(set(shard_bytes['per_coord'].values()))} B, distinct on "
+        f"the card {shard_bytes['distinct'] / 1e9:.3f} GB; batch {batch} x "
+        f"{seq}, repeated; step bound {work['bound_ms']:.3f} ms")
     step = make_train_step(bundle, AdamWConfig(**TRAIN_OPT), mesh=mesh)
     rows = []
     for i in range(steps):
         state, m, wall, event_ms = timed_step(torch, step, state, feed, dev)
+        tally = step.compute.tallies.get(0)
         row = dict(step=i, loss=m["loss"].item(),
                    grad_norm=m["grad_norm"].item(), wall_s=wall,
                    event_ms=event_ms, tokens_per_s=batch * seq / wall,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   tp_bytes=tally.as_dict() if tally else {})
         rows.append(row)
         ev = f"{event_ms:.1f} ms" if event_ms is not None else "not measured"
         log(f"  step {i}: loss {row['loss']:.4f} gnorm "
             f"{row['grad_norm']:.4f}; wall {1e3 * wall:.1f} ms, device "
             f"(events) {ev}, {row['tokens_per_s']:.1f} tokens/s, peak "
-            f"{row['peak_gib']:.2f} GiB")
+            f"{row['peak_gib']:.2f} GiB"
+            + (f"; model-group collectives of one rank (bytes) "
+               f"{row['tp_bytes']}" if tally else ""))
         if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
             raise AssertionError(f"sharded step {i}: loss {row['loss']} "
                                  f"gnorm {row['grad_norm']}")
@@ -2840,20 +2909,43 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
         raise AssertionError("the sharded loss did not fall: "
                              f"{[r['loss'] for r in rows]}")
     peak = max(r["peak_gib"] for r in rows)
-    same = None
+    same = gates = None
     if single is not None:
         pairs = [((r["loss"], r["grad_norm"]),
                   (single["losses"][i], single["grad_norms"][i]))
                  for i, r in enumerate(rows)]
         same = all(a == b for a, b in pairs)
+        loss_diff = [abs(a[0] - b[0]) for a, b in pairs]
         log(f"  losses and gradient norms against the single-device run's "
             f"(steps 0..{steps - 1}): bitwise {same}; |loss diff| "
-            f"{[abs(a[0] - b[0]) for a, b in pairs]}; peak above what was "
+            f"{loss_diff}; gradient norm / single-device's - 1 "
+            f"{[a[1] / b[1] - 1 for a, b in pairs]}; peak above what was "
             f"held {peak - held / 2**30:.2f} GiB, single-device "
             f"{single['peak_gib'] - single['held_gib']:.2f} GiB")
-        if not same:
+        if T == 1 and not same:
             raise AssertionError(f"the sharded steps differ from the "
                                  f"single-device run's: {pairs}")
+        if T > 1:
+            if single.get("params_steps") != steps:
+                raise AssertionError(
+                    f"the single-device run kept no parameters after {steps} "
+                    "steps to hold the tensor-parallel run against")
+            param_diff = max(
+                (sharding.unshard(leaf, dev)
+                 - single["params_host"][n].to(dev)).abs().max().item()
+                for n, leaf in state["params"].items())
+            norm_rel = abs(pairs[0][0][1] / pairs[0][1][1] - 1)
+            gates = dict(first_loss_diff=loss_diff[0], first_norm_rel=norm_rel,
+                         max_param_diff=param_diff)
+            log(f"  gates against the single-device run: step 0 |loss diff| "
+                f"{loss_diff[0]:.3e} (limit {TP_LOSS_TOL}), |gradient norm / "
+                f"single-device's - 1| {norm_rel:.3e} (limit {TP_NORM_TOL}); "
+                f"max |param diff| after step {steps - 1} {param_diff:.3e} "
+                f"(limit {TP_PARAM_TOL})")
+            if not (loss_diff[0] < TP_LOSS_TOL and norm_rel < TP_NORM_TOL
+                    and param_diff < TP_PARAM_TOL):
+                raise AssertionError(f"the tensor-parallel steps leave the "
+                                     f"gates: {gates}")
     steady = rows[1:] if len(rows) > 1 else rows
     wall = statistics.median(r["wall_s"] for r in steady)
     event_ms = (statistics.median(r["event_ms"] for r in steady)
@@ -2861,10 +2953,10 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
     out = dict(arch=cfg.name, mesh=tuple(shape), layers=cfg.n_layers,
                losses=[r["loss"] for r in rows],
                grad_norms=[r["grad_norm"] for r in rows],
-               bitwise_single=same, step_wall_ms=1e3 * wall,
+               bitwise_single=same, gates=gates, step_wall_ms=1e3 * wall,
                step_event_ms=event_ms, tokens_per_s=batch * seq / wall,
                peak_gib=peak, peak_above_held_gib=peak - held / 2**30,
-               init_s=init_s,
+               init_s=init_s, tp_bytes=rows[-1]["tp_bytes"],
                init_peak_gib=init_peak, held_gib=held / 2**30,
                shard_bytes=shard_bytes, bound_ms=work["bound_ms"])
     log(f"  median step (steps 1..{steps - 1}): wall {1e3 * wall:.1f} ms, "
@@ -2878,6 +2970,150 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
     return out, bundle, mesh, state, feed
 
 
+def drive_single_then_tp(torch, dev, cfg, batch, seq, steps, shape):
+    """``cfg`` trained ``steps`` steps on one device (``drive_train_arch``,
+    its parameters kept), its state freed, then on a mesh of ``shape``
+    (:func:`drive_sharded_train`, held to the gates against it)."""
+    import gc
+
+    single = drive_train_arch(torch, cfg.name, cfg, dev, batch, seq, steps,
+                              keep_after=steps, profile=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, _, _, state, _ = drive_sharded_train(torch, dev, cfg, single, batch,
+                                              seq, steps, shape)
+    del state
+    single.pop("params_host")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(single={k: v for k, v in single.items() if k != "profile"},
+                sharded=out)
+
+
+def drive_reversed(torch, dev, cfg, single, batch, seq, steps, tp_runs):
+    """The witness for the bfloat16 drift after the first update: ``cfg``
+    on one device again from the same parameters and batch, its
+    microbatches run in reverse order (the same microbatches, their sums
+    reassociated), against ``single``'s run; its |loss diff| and gradient
+    norm / single-device's - 1 at each step logged beside those of the
+    tensor-parallel runs ``tp_runs``."""
+    rec = drive_train_arch(torch, cfg.name, cfg, dev, batch, seq, steps,
+                           profile=False, reverse=True)
+    runs = {"reversed microbatches": rec["losses"], **{
+        str(r["mesh"]): r["losses"] for r in tp_runs}}
+    norms = {"reversed microbatches": rec["grad_norms"], **{
+        str(r["mesh"]): r["grad_norms"] for r in tp_runs}}
+    out = {k: dict(loss_diff=[abs(a - b) for a, b in
+                              zip(v, single["losses"])],
+                   norm_rel=[a / b - 1 for a, b in
+                             zip(norms[k], single["grad_norms"])])
+           for k, v in runs.items()}
+    log(f"== LM distribution: drift witness, {cfg.name} against its "
+        f"single-device run, steps 0..{steps - 1} (|loss diff|; gradient "
+        f"norm / single-device's - 1): " + "; ".join(
+            f"{k}: {[f'{x:.3e}' for x in v['loss_diff']]}; "
+            f"{[f'{x:.3e}' for x in v['norm_rel']]}"
+            for k, v in out.items()))
+    return out
+
+
+def drive_f32_tp(torch, dev, cfg, shapes, batch, seq):
+    """One float32 step of ``cfg`` at ``F32_TP_LAYERS`` layers, full
+    width, on one device and then on a mesh of each of ``shapes`` (a
+    ``model`` axis > 1), from the same parameters and batch at
+    ``F32_OPT``: the loss within ``F32_LOSS_TOL``, the gradient norm
+    within ``F32_NORM_TOL`` (relative) and each leaf's gradient within
+    ``F32_GRAD_TOL`` of the single-device step's (the norm of the
+    difference over the norm).  Each element's parameter change is
+    logged against the single-device one's, with the leaf, the element
+    and its single-device gradient."""
+    import gc
+
+    from repro_torch.data.lm import TokenPipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, F32_TP_LAYERS),
+                              dtype="float32")
+    bundle = build_model(cfg)
+    opt = AdamWConfig(**F32_OPT)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq)
+    try:
+        tokens = next(pipe)["tokens"]
+    finally:
+        pipe.close()
+    feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    cpu = torch.device("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_state(bundle, 0, dev)
+    init = {n: p.detach().to(cpu, copy=True)
+            for n, p in state["params"].named_parameters()}
+    _, m = make_train_step(bundle, opt)(state, feed)
+    want = dict(loss=m["loss"].item(), grad_norm=m["grad_norm"].item())
+    grads = {n: p.grad.to(cpu, copy=True)
+             for n, p in state["params"].named_parameters()}
+    change = {n: p.detach().to(cpu) - init[n]
+              for n, p in state["params"].named_parameters()}
+    del state, m
+    out = dict(arch=cfg.name, layers=cfg.n_layers, single=want, meshes=[])
+    for shape in shapes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = mesh_on(dev, shape)
+        state = init_state(bundle, 0, dev, mesh=mesh)
+        step = make_train_step(bundle, opt, mesh=mesh)
+        seen = {}
+        reduce = step.compute.loss_and_grads
+
+        def keep(*args, reduce=reduce, seen=seen):
+            loss, got = reduce(*args)
+            seen.update(got)
+            return loss, got
+        step.compute.loss_and_grads = keep
+        _, m = step(state, feed)
+        grad_rel = {n: ((seen[n].whole().to(cpu) - g).norm()
+                        / g.norm()).item() for n, g in grads.items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        diffs = {n: ((sharding.unshard(leaf, cpu) - init[n])
+                     - change[n]).abs()
+                 for n, leaf in state["params"].items()}
+        at = max(diffs, key=lambda n: diffs[n].max().item())
+        i = int(diffs[at].argmax())
+        got = dict(mesh=tuple(shape),
+                   loss_diff=abs(m["loss"].item() - want["loss"]),
+                   norm_rel=abs(m["grad_norm"].item() / want["grad_norm"]
+                                - 1),
+                   grad_rel=grad_rel[worst], grad_rel_leaf=worst,
+                   change_diff=diffs[at].max().item(), change_leaf=at,
+                   change_grad=grads[at].flatten()[i].item(),
+                   changes_over_1e4=sum(int((d > 1e-4).sum())
+                                        for d in diffs.values()))
+        del state, m, step, seen, diffs
+        out["meshes"].append(got)
+        log(f"== LM distribution: one float32 step of {cfg.name} "
+            f"({cfg.n_layers} layers, full width, batch {batch} x {seq}, "
+            f"lr {opt.lr}) on (data {shape[0]}, model {shape[1]}) against "
+            f"one device: |loss diff| {got['loss_diff']:.3e} (limit "
+            f"{F32_LOSS_TOL}), |gradient norm / single-device's - 1| "
+            f"{got['norm_rel']:.3e} (limit {F32_NORM_TOL}), largest leaf "
+            f"gradient |diff| / |single-device's| {got['grad_rel']:.3e} "
+            f"({worst}; limit {F32_GRAD_TOL}); largest |change diff| "
+            f"{got['change_diff']:.3e} ({at}, flat index {i}, whose "
+            f"single-device gradient is {got['change_grad']:.3e}), "
+            f"{got['changes_over_1e4']} elements over 1e-4")
+        if not (got["loss_diff"] < F32_LOSS_TOL
+                and got["norm_rel"] < F32_NORM_TOL
+                and got["grad_rel"] < F32_GRAD_TOL):
+            raise AssertionError(f"the float32 tensor-parallel step of "
+                                 f"{cfg.name} leaves the gates: {got}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def drive_psum8(torch, bundle, mesh, state, feed, dev):
     """``psum8`` on the embedding gradients of ``PSUM8_RANKS`` ranks (each
     the gradient of one microbatch of the batch, as a data-parallel rank
@@ -2889,14 +3125,16 @@ def drive_psum8(torch, bundle, mesh, state, feed, dev):
     from repro_torch.optim.compression import psum8
 
     compute = MeshCompute(bundle, mesh)
-    # only the embedding's gradient is wanted: the replica's other
+    # only the embedding's gradient is wanted: the replicas' other
     # parameters take none (11.5 GiB less on the card)
-    for n, p in compute.replica(dev).named_parameters():
-        p.requires_grad_(n == "embed")
+    for m in range(compute.n_model):
+        for n, p in compute.rank_replica(dev, m).named_parameters():
+            p.requires_grad_(n == "embed")
     xs = []
     for micro in split_batch(feed, PSUM8_RANKS):
         _, grads = compute.loss_and_grads(state["params"], micro)
-        xs.append(grads["embed"].clone())
+        g = grads["embed"]
+        xs.append(g.whole().clone())
     del compute, grads
     gc.collect()
     out = psum8(xs)
@@ -3100,16 +3338,24 @@ def drive_mesh_1x1(torch, dev, cfg):
 
 def drive_distributed(torch, dev, cfg, card="", single=None,
                       reduced_cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                      steps=DIST_STEPS):
-    """The LM distribution phase: sharded training of ``cfg`` on a
-    ``DIST_MESH`` mesh, ``psum8`` on its embedding gradients, the pipeline
-    of its first layers, the elastic restore, ``cfg`` on the ``(1, 1)``
-    mesh (its peak memory at most ``MESH_1X1_PEAK`` times the
-    single-device step's), and the ``(1, 1)`` mesh on ``reduced_cfg``
-    (default: ``reduce_config(cfg)``) against ``make_train_step``.
-    ``single`` is ``drive_train_arch``'s record of ``cfg`` on the same
-    batch, against which the mesh steps are held bitwise.  ``card`` (name
-    and power limit) goes on the phase's summary line."""
+                      steps=DIST_STEPS, moe_cfg=None):
+    """The LM distribution phase: sharded, tensor-parallel training of
+    ``cfg`` on a ``DIST_MESH`` mesh, ``psum8`` on its embedding gradients,
+    the pipeline of its first layers, the elastic restore, ``cfg`` on the
+    ``TP_MESH`` mesh, ``cfg`` on the ``(1, 1)`` mesh (its peak memory at
+    most ``MESH_1X1_PEAK`` times the single-device step's), the ``(1,
+    1)`` mesh on ``reduced_cfg`` (default: ``reduce_config(cfg)``) against
+    ``make_train_step``, and ``moe_cfg`` (default: ``TP_MOE_ARCH`` at
+    ``TP_MOE_LAYERS`` layers) on one device and on ``TP_MESH``; one
+    float32 step of each on its tensor-parallel meshes against one device
+    (:func:`drive_f32_tp`), and with ``single`` the reversed-microbatch
+    witness (:func:`drive_reversed`).  ``single`` is
+    ``drive_train_arch``'s record of ``cfg`` on the same batch (its
+    parameters kept after ``steps`` steps), against which the mesh steps
+    are held: bitwise on a ``model`` axis of 1, within the gates on a
+    larger one.  ``card`` (name and power limit) goes on the
+    phase's summary line."""
+    from repro_torch.configs import ARCHS
     from repro_torch.configs.reduced import reduce_config
 
     t0 = time.perf_counter()
@@ -3130,6 +3376,8 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
         elastic = part("elastic", lambda: drive_elastic(
             torch, bundle, state, feed, dev, tmp))
     del state
+    tp4 = part("train_tp", lambda: drive_sharded_train(
+        torch, dev, cfg, single, batch, seq, steps, shape=TP_MESH)[0])
     full_1x1 = part("mesh_1x1_full", lambda: drive_sharded_train(
         torch, dev, cfg, single, batch, seq, MESH_1X1_STEPS, shape=(1, 1),
         profile=False)[0])
@@ -3143,15 +3391,30 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
     one = part("mesh_1x1", lambda: drive_mesh_1x1(
         torch, dev, dataclasses.replace(reduced_cfg or reduce_config(cfg),
                                         dtype="float32")))
+    moe_cfg = moe_cfg or dataclasses.replace(ARCHS[TP_MOE_ARCH],
+                                             n_layers=TP_MOE_LAYERS)
+    moe = part("moe_tp", lambda: drive_single_then_tp(
+        torch, dev, moe_cfg, batch, seq, steps, TP_MESH))
+    f32 = part("f32_tp", lambda: [
+        drive_f32_tp(torch, dev, cfg, (DIST_MESH, TP_MESH), batch, seq),
+        drive_f32_tp(torch, dev, moe_cfg, (TP_MESH,), batch, seq)])
+    witness = None
+    if single is not None:
+        witness = part("witness", lambda: drive_reversed(
+            torch, dev, cfg, single, batch, seq, steps, (train, tp4)))
     wall = time.perf_counter() - t0
+    tp_runs = [train, tp4, moe["sharded"]]
     log(f"LM distribution phase: {wall:.1f} s on {card or 'no card'} "
         "(parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
-        + "); summary " + json.dumps(
-            {k: v for k, v in train.items() if k != "profile"}
-            | (train["profile"] or {}), default=str))
+        + "); tensor-parallel steps " + json.dumps(
+            [{k: r[k] for k in ("arch", "mesh", "layers", "step_wall_ms",
+                                "step_event_ms", "tokens_per_s",
+                                "peak_above_held_gib", "gates", "tp_bytes")}
+             | (r["profile"] or {}) for r in tp_runs], default=str)
+        + "; float32 steps " + json.dumps(f32, default=str))
     return dict(train=train, psum8=psum, pipeline=pipe, elastic=elastic,
-                mesh_1x1_full=full_1x1, mesh_1x1=one, wall_s=wall,
-                part_s=walls)
+                train_tp=tp4, mesh_1x1_full=full_1x1, mesh_1x1=one, moe=moe,
+                f32_tp=f32, witness=witness, wall_s=wall, part_s=walls)
 
 
 # ------------------------------------------------------------ LM dry-run
@@ -3165,6 +3428,29 @@ DRYRUN_PEAK_TOL = 0.15
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "single"),
                 ("deepseek-v2-lite-16b", "decode_32k", "single"))
 DRYRUN_CELL_TIMEOUT = 900
+# the tensor-parallel step's FLOPs on the card (FlopCounterMode) against the
+# sum of the dry-run's per-rank counts, on a (data 1, model 2) mesh; remat
+# off, so that each rank's count (its own program, whose checkpoint would
+# skip its own last product's recompute) and the one-process step (which
+# recomputes every rank's but the last's) run the same products
+TP_COUNT_MESH = (1, 2)
+_RANK_COUNT = """
+import dataclasses, json, sys
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh
+cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                     for k, v in json.loads(sys.argv[1]).items()})
+batch, seq, rank = map(int, sys.argv[2:5])
+shape = tuple(map(int, sys.argv[5].split("x")))
+r = dryrun.count_cell(cfg, ShapeConfig("chip_smoke", seq, batch, "train"),
+                      Mesh.on("meta", shape, ("data", "model")),
+                      model_rank=rank)
+print("COUNT " + json.dumps({"flops": r["cost"]["flops"],
+                             "busiest": r["busiest"],
+                             "tp_collectives": r["tp_collectives"],
+                             "peak_gb": r["memory"]["peak_per_device_gb"]}))
+"""
 
 
 def start_dryrun_cells(out_dir: str, cells) -> list:
@@ -3203,6 +3489,67 @@ def finish_dryrun_cells(procs, out_dir: str,
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    return out
+
+
+def start_rank_counts(cfg, batch: int, seq: int, shape) -> list:
+    """The dry-run's count of each model rank of ``cfg``'s train step on a
+    meta mesh of ``shape``, one subprocess a rank (they need no card)."""
+    arg = json.dumps(dataclasses.asdict(cfg))
+    return [subprocess.Popen(
+        [sys.executable, "-c", _RANK_COUNT, arg, str(batch), str(seq),
+         str(m), "x".join(map(str, shape))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=cli_env(), cwd=ROOT) for m in range(shape[1])]
+
+
+def finish_rank_counts(procs, timeout=DRYRUN_CELL_TIMEOUT) -> list[dict]:
+    """The records of :func:`start_rank_counts`' subprocesses, in rank
+    order; one that fails raises (every subprocess is ended either way)."""
+    out = []
+    try:
+        for m, proc in enumerate(procs):
+            text, _ = proc.communicate(timeout=timeout)
+            lines = [l for l in text.splitlines() if l.startswith("COUNT ")]
+            if proc.returncode or not lines:
+                raise AssertionError(f"rank {m}'s count: exit "
+                                     f"{proc.returncode}: {text[-2000:]}")
+            out.append(json.loads(lines[-1][len("COUNT "):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def card_tp_step_flops(torch, cfg, dev, batch, seq, shape) -> dict:
+    """One tensor-parallel train step of ``cfg`` (seed 0, one random batch)
+    on a mesh of ``shape`` on ``dev`` under ``FlopCounterMode``: its
+    FLOPs, loss and the model group's tally of one rank."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = build_model(cfg)
+    mesh = mesh_on(dev, shape)
+    state = init_state(bundle, 0, dev, mesh=mesh)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (batch, seq))
+    feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    step = make_train_step(bundle, AdamWConfig(**TRAIN_OPT), mesh=mesh)
+    with FlopCounterMode(display=False) as fc:
+        state, m = step(state, feed)
+    out = dict(flops=fc.get_total_flops(), loss=float(m["loss"]),
+               tp_collectives=step.compute.tallies[0].as_dict())
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3284,8 +3631,10 @@ def drive_dryrun(torch, dev, cfg, card="", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     from repro_torch.models.registry import build_model
 
     t0 = time.perf_counter()
+    tp_cfg = dataclasses.replace(cfg, remat="none")
     with tempfile.TemporaryDirectory() as tmp:
         procs = start_dryrun_cells(tmp, cells)
+        rank_procs = start_rank_counts(tp_cfg, batch, seq, TP_COUNT_MESH)
         try:
             shape = ShapeConfig("chip_smoke", seq, batch, "train")
             t = time.perf_counter()
@@ -3321,19 +3670,40 @@ def drive_dryrun(torch, dev, cfg, card="", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 f"+ those = {explained / 1e12:.4f} TFLOP (== counted: "
                 f"{explained == flops})")
             measured = card_train_step(torch, cfg, dev, batch, seq)
+            tp_card = card_tp_step_flops(torch, tp_cfg, dev, batch, seq,
+                                         TP_COUNT_MESH)
         except BaseException:
-            for _, proc in procs:
+            for proc in [p for _, p in procs] + rank_procs:
                 proc.kill()
                 proc.wait()
             raise
         cell_recs = finish_dryrun_cells(procs, tmp)
+        ranks = finish_rank_counts(rank_procs)
     log(f"  card step: {measured['flops'] / 1e12:.4f} TFLOP under "
         f"FlopCounterMode; counted == card: {measured['flops'] == flops}")
     if measured["flops"] != flops:
         raise AssertionError(f"counted {flops} FLOPs, the card's step "
                              f"{measured['flops']}")
+    rank_sum = sum(r["flops"] for r in ranks)
+    log(f"  tensor-parallel step, (data {TP_COUNT_MESH[0]}, model "
+        f"{TP_COUNT_MESH[1]}) mesh, remat none: card "
+        f"{tp_card['flops'] / 1e12:.4f} TFLOP under FlopCounterMode; the "
+        f"dry-run's per-rank counts {[r['flops'] / 1e12 for r in ranks]} "
+        f"TFLOP, sum {rank_sum / 1e12:.4f} (== card: "
+        f"{rank_sum == tp_card['flops']}); per-rank peak "
+        f"{[r['peak_gb'] for r in ranks]} GB; one rank's collectives "
+        f"counted {ranks[0]['tp_collectives']}, on the card "
+        f"{tp_card['tp_collectives']}")
+    if rank_sum != tp_card["flops"]:
+        raise AssertionError(f"the per-rank counts sum to {rank_sum} FLOPs, "
+                             f"the card's tensor-parallel step "
+                             f"{tp_card['flops']}")
+    if ranks[0]["tp_collectives"] != tp_card["tp_collectives"]:
+        raise AssertionError("the counted rank's collectives differ from "
+                             "the card step's tally")
     out = dict(counted=counted, card=measured, train_work=work,
-               causes=causes, cells=cell_recs, count_s=count_s)
+               causes=causes, cells=cell_recs, count_s=count_s,
+               tp_card=tp_card, tp_ranks=ranks)
     if dev.type == "cuda":
         ratio = measured["peak"] / predicted
         held = mem["shard_bytes"] + mem["replica_bytes"]
@@ -3456,11 +3826,14 @@ def main() -> int:
                             fl_eager, co_eager, mods)
     _, lm_moe = drive_lm(torch, ops, dev, mods, lm_configs(), card=card)
     require_launched("LM-MoE", lm_moe["launches"], ("spdmm",))
-    trained = drive_train(torch, dev, train_configs(), card=card)
+    trained = drive_train(torch, dev, train_configs(), card=card,
+                          keep={DIST_ARCH: DIST_STEPS})
     from repro_torch.configs import ARCHS
     drive_distributed(torch, dev, ARCHS[DIST_ARCH], card=card,
                       single=next(r for r in trained["full"]
                                   if r["arch"] == DIST_ARCH))
+    for r in trained["full"]:
+        r.pop("params_host", None)
     drive_dryrun(torch, dev, ARCHS[DRYRUN_ARCH], card=card)
     drive_examples(dev)
 

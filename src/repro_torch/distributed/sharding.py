@@ -396,6 +396,27 @@ def gather_into(leaf: Sharded, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.no_grad()
+def gather_region(leaf: Sharded, where, out: torch.Tensor) -> torch.Tensor:
+    """Write the part of ``leaf`` inside ``where`` (a slice with bounds
+    for each dimension) into ``out``, from every block it overlaps."""
+    done = set()
+    for (block, _), t in leaf.tensors.items():
+        if block in done:
+            continue
+        done.add(block)
+        src, dst = [], []
+        for s, w in zip(leaf.slices(block), where):
+            lo, hi = max(s.start, w.start), min(s.stop, w.stop)
+            if lo >= hi:
+                break
+            src.append(slice(lo - s.start, hi - s.start))
+            dst.append(slice(lo - w.start, hi - w.start))
+        else:
+            out[tuple(dst)].copy_(t[tuple(src)])
+    return out
+
+
 def unshard(leaf: Sharded, device) -> torch.Tensor:
     """The global tensor of ``leaf`` on ``device``."""
     return gather_into(leaf, torch.empty(leaf.shape, dtype=leaf.dtype,

@@ -1,0 +1,532 @@
+"""Tensor-parallel compute over the ``model`` axis, single-controller: what
+GSPMD does for the reference's sharded step (``repro/launch/steps.py``
+under the shardings of ``repro/distributed/sharding.py``), written out for
+one process that drives every coordinate of the mesh.
+
+*The model group* (:class:`ModelGroup`) is the ``model`` coordinates of
+one data-parallel rank, their devices in model-rank order.  Each rank runs
+its share of every split layer on a local replica that holds only its
+blocks of the weights (:func:`local_model`): its attention heads (and the
+kv heads those use), FFN columns, vocabulary rows, experts, RG-LRU
+channels or SSD heads.  The partial results are reduced at the layer
+boundaries.  What every rank holds alike, the residual stream and the
+positions, is a :data:`Rep`: one tensor per distinct device, shared by
+the ranks on it (as ``Sharded`` shares blocks), so a mesh of T ranks on
+one card holds one residual stream, not T.
+
+*Collectives* are plain tensor ops, differentiated by autograd: an
+all-reduce sums the partials in model-rank order on the first rank's
+device and copies the sum to every other device; an all-gather is a
+``cat`` in rank order.  :class:`Tally` counts the bytes of each
+collective's result on one rank: forward (recomputes included) and
+backward (an all-reduce's gradient is all-reduced too: it is the
+gradient of the replicated input that the next split layer's ranks each
+differentiate in part).
+
+*Counted mode* (``ModelGroup(devices, members=(r,))``): only rank ``r``'s
+local ops run; an all-reduce passes its own partial through (the other
+ranks' partials would add into it in place) and still tallies the bytes,
+so a step on the ``meta`` device under ``roofline.StepCounter`` counts one
+rank's program exactly (``launch/dryrun.py``).
+
+*The layer rule.*  A layer splits when the rules keep ``model`` on its
+main weight and its heads (experts, channels) divide over the group; else
+it runs whole, once on each device, its weights gathered over ``model``
+(:attr:`Plan.whole` names such layers).
+
+*Gradients.*  A rank's gradient is that of its compute block; the blocks
+of the ranks that hold the same slice (a replicated leaf, kv heads shared
+by several ranks' queries, SSD's ``B``/``C``) are summed in rank order,
+and :class:`Grad` holds each leaf's gradient as disjoint pieces along one
+dimension, from which ``launch.steps.stored_grads`` cuts each stored
+block for the optimizer.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+
+from repro_torch.distributed import sharding
+from repro_torch.models.layers import rms_norm
+
+Rep = dict   # torch.device -> torch.Tensor: one tensor per distinct device
+
+
+class Tally:
+    """Bytes of the group's collectives for one rank: ``bytes[(kind,
+    phase)]``, kind one of ``roofline.COLLECTIVES``, phase "forward" or
+    "backward"."""
+
+    def __init__(self):
+        self.bytes = collections.Counter()
+
+    def add(self, kind: str, phase: str, n: int) -> None:
+        self.bytes[(kind, phase)] += n
+
+    def total(self, kind: str) -> int:
+        return sum(v for (k, _), v in self.bytes.items() if k == kind)
+
+    def as_dict(self) -> dict:
+        """``{kind: {phase: bytes}}``."""
+        out: dict = {}
+        for (kind, phase), v in sorted(self.bytes.items()):
+            out.setdefault(kind, {})[phase] = v
+        return out
+
+    def add_between(self, a: "Tally", b: "Tally", times: int) -> None:
+        """Add ``times`` what was tallied between the copies ``a`` and
+        ``b`` (taken in that order)."""
+        for key, v in b.bytes.items():
+            self.bytes[key] += times * (v - a.bytes.get(key, 0))
+
+    def copy(self) -> "Tally":
+        t = Tally()
+        t.bytes = collections.Counter(self.bytes)
+        return t
+
+
+class ModelGroup:
+    """The ``model`` ranks of one data-parallel rank: ``devices[m]`` runs
+    rank ``m``.  ``members`` are the ranks whose ops run here: all of them,
+    or one in counted mode."""
+
+    def __init__(self, devices, members=None, tally: Tally | None = None):
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.members = (tuple(range(len(self.devices))) if members is None
+                        else tuple(members))
+        self.counted = len(self.members) < len(self.devices)
+        self.tally = tally if tally is not None else Tally()
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def home(self) -> torch.device:
+        """The first member's device (where the loss is read)."""
+        return self.devices[self.members[0]]
+
+    def places(self) -> dict:
+        """Each distinct device of the members -> its first member rank."""
+        out = {}
+        for r in self.members:
+            out.setdefault(self.devices[r], r)
+        return out
+
+    def rep(self, t: torch.Tensor) -> Rep:
+        """``t`` on every member device (itself on its own)."""
+        return {d: t if t.device == d else t.to(d) for d in self.places()}
+
+    def at(self, rep: Rep, r: int) -> torch.Tensor:
+        """Rank ``r``'s tensor of a replicated value."""
+        return rep[self.devices[r]]
+
+    def _count(self, kind: str, t: torch.Tensor, out=None) -> None:
+        """Tally ``t``'s bytes forward and, when it has a gradient,
+        ``out``'s (default ``t``) backward."""
+        self.tally.add(kind, "forward", t.numel() * t.element_size())
+        out = t if out is None else out
+        if out.requires_grad and torch.is_grad_enabled():
+            n = out.numel() * out.element_size()
+            out.register_hook(lambda g: self.tally.add(kind, "backward", n))
+
+    def all_reduce(self, parts: dict, dtype=None) -> Rep:
+        """Sum of the members' partials in rank order, rounded to ``dtype``
+        (default the partials'), on every device."""
+        total = parts[self.members[0]]
+        if not self.counted:
+            for r in self.members[1:]:
+                total = total + parts[r].to(total.device)
+        out = total.to(dtype) if dtype is not None else total
+        self._count("all-reduce", total, out)
+        return self.rep(out)
+
+    def all_max(self, parts: dict) -> Rep:
+        """Elementwise max of the members' (gradient-free) tensors."""
+        out = parts[self.members[0]]
+        if not self.counted:
+            for r in self.members[1:]:
+                out = torch.maximum(out, parts[r].to(out.device))
+        self._count("all-reduce", out)
+        return self.rep(out)
+
+    @torch.no_grad()
+    def all_gather(self, parts: dict, dim: int) -> Rep:
+        """The members' blocks concatenated along ``dim`` in rank order (no
+        gradient); in counted mode the rank's own block placed in a buffer
+        of the whole shape (the others' blocks arrive into it)."""
+        if self.counted:
+            (r,) = self.members
+            own = parts[r]
+            n = own.shape[dim]
+            shape = list(own.shape)
+            shape[dim] = n * self.size
+            out = own.new_empty(shape)
+            out.narrow(dim, r * n, n).copy_(own)
+        else:
+            out = torch.cat([parts[r].to(self.home) for r in self.members],
+                            dim)
+        self._count("all-gather", out)
+        return self.rep(out)
+
+
+# ------------------------------------------------------------ layer helpers
+def norm_each(group: ModelGroup, mods: dict, name: str, x: Rep,
+              eps: float) -> dict:
+    """Each member's ``rms_norm`` of the replicated ``x`` with its own copy
+    of the (replicated) weight ``name``."""
+    return {r: rms_norm(group.at(x, r), getattr(mods[r], name), eps)
+            for r in group.members}
+
+
+def residual(x: Rep, y: Rep) -> Rep:
+    return {d: x[d] + y[d] for d in x}
+
+
+def branch(group: ModelGroup, mods: dict, run, dtype, split=None) -> Rep:
+    """The output of one layer branch on every device, in ``dtype``.  A
+    split module (``tp_split``): each member's partial (``run(module,
+    rank)``) all-reduced, or ``split(group, mods)`` for a module whose
+    ranks meet inside it.  A whole module: ``run`` once on each device,
+    by its first member rank."""
+    m0 = mods[group.members[0]]
+    if getattr(m0, "tp_split", False):
+        if split is not None:
+            return split(group, mods)
+        return group.all_reduce({r: run(mods[r], r) for r in group.members},
+                                dtype)
+    return {d: run(mods[r], r) for d, r in group.places().items()}
+
+
+# ------------------------------------------------------------ the plan
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A rank's compute block of one leaf: the ``ranges`` of dimension
+    ``dim`` (ascending), concatenated; every other dimension whole."""
+    dim: int
+    ranges: tuple[tuple[int, int], ...]
+
+    def local_shape(self, shape) -> tuple[int, ...]:
+        out = list(shape)
+        out[self.dim] = sum(b - a for a, b in self.ranges)
+        return tuple(out)
+
+    def regions(self, shape):
+        """``(offset in the local tensor, region of the global one)`` of
+        each range."""
+        off = 0
+        for a, b in self.ranges:
+            region = [slice(0, n) for n in shape]
+            region[self.dim] = slice(a, b)
+            yield off, tuple(region)
+            off += b - a
+
+
+@dataclasses.dataclass
+class Plan:
+    """A model rank's local replica (on ``meta`` until bound), the compute
+    block of each split leaf, and the layers that run whole."""
+    model: torch.nn.Module
+    splits: dict
+    whole: list
+
+
+def _one(a: int, b: int) -> tuple:
+    return ((a, b),)
+
+
+def _reparam(mod, splits: dict) -> None:
+    """Re-register each split parameter of ``mod`` at its local shape."""
+    for name, sp in splits.items():
+        old = mod._parameters[name]
+        mod.register_parameter(name, torch.nn.Parameter(
+            torch.empty(sp.local_shape(old.shape), dtype=old.dtype,
+                        device="meta"), requires_grad=False))
+
+
+def _attention(mod, T: int, m: int):
+    """Heads of q (and the kv heads they read) by column, ``wo`` by row."""
+    cfg = mod.cfg
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if H % T:
+        return None
+    hq, G = H // T, H // Hkv
+    if hq % G and G % hq:
+        return None
+    q0 = m * hq
+    k0, k1 = q0 // G, (q0 + hq - 1) // G + 1
+    q, kv = _one(q0 * Dh, (q0 + hq) * Dh), _one(k0 * Dh, k1 * Dh)
+    out = {"wq": Split(1, q), "wk": Split(1, kv), "wv": Split(1, kv),
+           "wo": Split(0, q)}
+    if "bq" in mod._parameters:
+        out |= {"bq": Split(0, q), "bk": Split(0, kv), "bv": Split(0, kv)}
+    mod.cfg = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=k1 - k0,
+                                  head_dim=Dh)
+    return out
+
+
+def _mla(mod, T: int, m: int):
+    """``wq``, ``w_uk``, ``w_uv`` by heads, ``wo`` by row; the latent
+    down-projections and their norm whole."""
+    cfg = mod.cfg
+    H = cfg.n_heads
+    if H % T:
+        return None
+    h = H // T
+    qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    mod.cfg = dataclasses.replace(cfg, n_heads=h)
+    return {"wq": Split(1, _one(m * h * qd, (m + 1) * h * qd)),
+            "w_uk": Split(1, _one(m * h * nope, (m + 1) * h * nope)),
+            "w_uv": Split(1, _one(m * h * vd, (m + 1) * h * vd)),
+            "wo": Split(0, _one(m * h * vd, (m + 1) * h * vd))}
+
+
+def _rglru(mod, T: int, m: int):
+    """Every RG-LRU channel parameter by channel, ``w_out`` by row."""
+    dr = mod.w_in.shape[1]
+    if dr % T:
+        return None
+    c = _one(m * dr // T, (m + 1) * dr // T)
+    out = {n: Split(1, c) for n in ("w_in", "w_gate", "conv_w")}
+    out |= {n: Split(0, c) for n in ("w_out", "conv_b", "w_rgate", "b_rgate",
+                                     "w_igate", "b_igate", "lam")}
+    return out
+
+
+def _ssd(mod, T: int, m: int):
+    """SSD heads: ``w_in``'s z, x and dt columns of the rank's heads with
+    B and C whole, the conv on the rank's x channels and B, C, the
+    per-head tables, ``out_norm`` and ``w_out`` on its ``d_inner``
+    slice."""
+    di, n, H = mod.d_inner, mod.d_state, mod.n_heads
+    if H % T:
+        return None
+    dl, hl = di // T, H // T
+    d0, h0 = m * dl, m * hl
+    z, x = (d0, d0 + dl), (di + d0, di + d0 + dl)
+    bc, dt = (2 * di, 2 * di + 2 * n), (2 * di + 2 * n + h0,
+                                       2 * di + 2 * n + h0 + hl)
+    conv = ((d0, d0 + dl), (di, di + 2 * n))
+    heads = _one(h0, h0 + hl)
+    mod.d_inner, mod.n_heads = dl, hl
+    return {"w_in": Split(1, (z, x, bc, dt)), "conv_w": Split(1, conv),
+            "conv_b": Split(0, conv), "a_log": Split(0, heads),
+            "dt_bias": Split(0, heads), "d_skip": Split(0, heads),
+            "out_norm": Split(0, (z,)), "w_out": Split(0, (z,))}
+
+
+def _dense(mod, T: int, m: int):
+    """``w_gate`` and ``w_up`` by column, ``w_down`` by row."""
+    F = mod.w_gate.shape[1]
+    if F % T:
+        return None
+    f = _one(m * F // T, (m + 1) * F // T)
+    return {"w_gate": Split(1, f), "w_up": Split(1, f),
+            "w_down": Split(0, f)}
+
+
+def _moe(mod, T: int, m: int):
+    """The experts over ``model`` (EP) and the shared experts as a dense
+    FFN; the router whole."""
+    E = mod.w_gate.shape[0]
+    if E % T:
+        return None
+    shared = {}
+    if mod.shared is not None:
+        shared = _dense(mod.shared, T, m)
+        if shared is None:
+            return None
+        _reparam(mod.shared, shared)
+        mod.shared.tp_split = True
+    e = _one(m * E // T, (m + 1) * E // T)
+    return ({n: Split(0, e) for n in ("w_gate", "w_up", "w_down")}
+            | {f"shared.{n}": sp for n, sp in shared.items()})
+
+
+def _splitters():
+    from repro_torch.models import encdec, ffn, mixers
+    return {mixers.Attention: (_attention, "wq"),
+            encdec.CrossAttention: (_attention, "wq"),
+            mixers.MLA: (_mla, "wq"), mixers.RGLRU: (_rglru, "w_in"),
+            mixers.SSD: (_ssd, "w_in"), ffn.DenseFFN: (_dense, "w_gate"),
+            ffn.MoEFFN: (_moe, "w_gate")}
+
+
+def _keeps_model(name: str, shape, mesh) -> bool:
+    spec = sharding.param_spec(name, tuple(shape), mesh)
+    return any("model" in ((e,) if isinstance(e, str) else (e or ()))
+               for e in spec)
+
+
+def model_size(mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+def local_model(bundle, mesh, m: int) -> Plan:
+    """Rank ``m``'s local replica of ``bundle``'s model on ``mesh`` (built
+    on ``meta``, trainable) and its compute blocks.  On a mesh whose
+    ``model`` axis is 1 it is the whole model and nothing splits."""
+    from repro_torch.models.layers import trainable
+
+    T = model_size(mesh)
+    model = bundle.abstract_params()
+    splits, whole = {}, []
+    if T > 1:
+        table = _splitters()
+        for path, mod in list(model.named_modules()):
+            entry = table.get(type(mod))
+            if entry is None or path.endswith(".shared"):
+                continue
+            fn, main = entry
+            if not _keeps_model(f"{path}.{main}",
+                                mod._parameters[main].shape, mesh):
+                out = None
+            else:
+                out = fn(mod, T, m)
+            if out is None:
+                whole.append(path)
+                continue
+            _reparam(mod, {n: sp for n, sp in out.items() if "." not in n})
+            mod.tp_split = True
+            splits |= {f"{path}.{n}": sp for n, sp in out.items()}
+        V = model.embed.shape[0]
+        if V % T == 0 and _keeps_model("embed", model.embed.shape, mesh):
+            v = _one(m * V // T, (m + 1) * V // T)
+            root = {"embed": Split(0, v)}
+            if "lm_head" in model._parameters:
+                root["lm_head"] = Split(1, v)
+            _reparam(model, root)
+            model.tp_split = True
+            splits |= root
+        else:
+            whole.append("embed")
+    return Plan(trainable(model), splits, whole)
+
+
+def region(shape, sp: Split | None):
+    """The global region of a one-range compute block (the whole leaf for
+    None); None for a block of several ranges."""
+    if sp is None:
+        return tuple(slice(0, n) for n in shape)
+    if len(sp.ranges) != 1:
+        return None
+    return next(sp.regions(shape))[1]
+
+
+def held_block(leaf, sp: Split | None, coord) -> bool:
+    """Whether the compute block ``sp`` of ``leaf`` is coordinate
+    ``coord``'s own stored block (bound in place, nothing gathered)."""
+    want = region(leaf.shape, sp)
+    return want is not None and leaf.slices(leaf.where[tuple(coord)][0]) \
+        == want
+
+
+# ------------------------------------------------------------ gradients
+@dataclasses.dataclass
+class Grad:
+    """The reduced gradient of one leaf of ``shape``: disjoint ``pieces``
+    ``(start, stop, tensor)`` along ``dim``, ascending.  A part no piece
+    covers is zero (in a counted step: what other ranks' pieces hold)."""
+    shape: tuple
+    dim: int
+    pieces: list
+
+    def block(self, where) -> torch.Tensor:
+        """The gradient of the region ``where`` (one slice a dimension)."""
+        want = where[self.dim]
+        parts, pos = [], want.start
+        ref = self.pieces[0][2]
+
+        def gap(n):
+            shape = [s.stop - s.start for s in where]
+            shape[self.dim] = n
+            return torch.zeros(shape, dtype=ref.dtype, device=ref.device)
+
+        for a, b, t in self.pieces:
+            lo, hi = max(a, want.start), min(b, want.stop)
+            if lo >= hi:
+                continue
+            if lo > pos:
+                parts.append(gap(lo - pos))
+            idx = list(where)
+            idx[self.dim] = slice(lo - a, hi - a)
+            parts.append(t[tuple(idx)])
+            pos = hi
+        if pos < want.stop:
+            parts.append(gap(want.stop - pos))
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(ref.device) for p in parts], self.dim)
+
+    def whole(self) -> torch.Tensor:
+        return self.block(tuple(slice(0, n) for n in self.shape))
+
+
+def piece_grads(ranks, shapes: dict, mb: int = 1) -> dict:
+    """Each leaf's :class:`Grad` from the model ranks' local gradients:
+    ``ranks`` lists ``(grads, splits)`` in rank order (``grads[name]``
+    None where the rank has none); each rank's gradient is cut into its
+    compute block's ranges, ranges that several ranks hold are summed in
+    rank order, and each piece is divided by ``mb`` (in place)."""
+    out = {}
+    for name, shape in shapes.items():
+        pieces, dim = {}, 0
+        for grads, splits in ranks:
+            g = grads.get(name)
+            if g is None:
+                continue
+            sp = splits.get(name)
+            dim = sp.dim if sp is not None else 0
+            ranges = sp.ranges if sp is not None else ((0, shape[0]),)
+            off = 0
+            for a, b in ranges:
+                chunk = g.narrow(dim, off, b - a)
+                off += b - a
+                prev = pieces.get((a, b))
+                pieces[(a, b)] = (chunk if prev is None
+                                  else prev + chunk.to(prev.device))
+        if not pieces:
+            out[name] = None
+            continue
+        keys = sorted(pieces)
+        for (_, b), (a2, _) in zip(keys, keys[1:]):
+            if a2 < b:
+                raise AssertionError(f"{name}: overlapping pieces {keys}")
+        if mb > 1:
+            for t in pieces.values():
+                t.div_(mb)
+        out[name] = Grad(tuple(shape), dim,
+                         [(a, b, pieces[(a, b)]) for a, b in keys])
+    return out
+
+
+def group_loss(bundle, group: ModelGroup, models: dict, batch: dict):
+    """``bundle.loss`` of ``batch`` on the model group: ``models[m]`` is
+    rank ``m``'s local replica (members only).  A float32 scalar on the
+    group's home device."""
+    from repro_torch.models import encdec, lm
+    feeds = {d: {k: v.to(d) for k, v in batch.items()}
+             for d in group.places()}
+    mod = encdec if bundle.cfg.n_enc_layers else lm
+    return mod.lm_loss_tp(group, models, feeds)
+
+
+def group_prefill(bundle, group: ModelGroup, models: dict, batch: dict):
+    """``make_prefill_step``'s last-position logits [B, padded_vocab] on
+    the model group, on its home device."""
+    from repro_torch.models import encdec, lm
+    feeds = {d: {k: v.to(d) for k, v in batch.items()}
+             for d in group.places()}
+    if bundle.cfg.n_enc_layers:
+        logits = encdec.forward_tp(group, models, feeds)
+        logits = {r: t[:, -1:] for r, t in logits.items()}
+    else:
+        logits = lm.forward_tp(group, models, feeds, last_only=True)
+    if getattr(models[group.members[0]], "tp_split", False):
+        full = group.all_gather(logits, dim=-1)
+    else:
+        full = {group.devices[r]: t for r, t in logits.items()}
+    return full[group.home][:, 0]

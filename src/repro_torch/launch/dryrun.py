@@ -10,20 +10,29 @@ eagerly on meta tensors under :class:`~repro_torch.launch.roofline.
 StepCounter`: no device is touched and no memory is taken.  The counts
 are at H100 constants (``roofline.py``); none is a timing.
 
-The busiest device's work is the port's own (``launch/steps.py``):
+The busiest device's work is the port's own (``launch/steps.py``), one
+rank's program: on a ``model`` axis of T > 1 the device is one model rank
+of a tensor-parallel group (``distributed/tensor_parallel.py``), and its
+step runs in the group's counted mode: only that rank's local ops run
+(its share of every split product, the replicated work such as the kv
+projections, the router, MLA's down-projections and SSD's B and C), an
+all-reduce passes the rank's own partial through, and every collective is
+tallied (``tp_collectives``, and into ``collectives``):
 
 - *train*: the state stored by the sharding rules (``abstract_state(
   bundle, mesh)``); the microbatches that ``MeshCompute`` runs on the
-  device that runs most of them (each microbatch whole on the first
-  data-parallel rank that holds its rows), on its replica (whole
-  products, remat as configured), then the AdamW update of that
-  device's shards (the norm over the whole gradients, as
-  ``sharded_adamw_update`` takes it);
-- *prefill*: the prefill step on the rows of one data-parallel rank,
-  the parameters placed by ``params_shardings`` and gathered into its
-  replica with the serving compute copies;
+  data-parallel rank that runs most of them (each microbatch whole on
+  the first rank that holds its rows), on the device's replica (its
+  local blocks gathered over the data axes; remat as configured), then
+  the AdamW update of that device's shards from its gradient blocks
+  (another rank's part of a stored block stands in as zeros);
+- *prefill*: the prefill step on the rows of one data-parallel rank, on
+  the device's replica of the parameters placed by ``params_shardings``
+  (tensor-parallel on a ``model`` axis), with the serving compute
+  copies;
 - *decode*: the serve step on those rows against their cache, placed by
-  ``cache_shardings`` and gathered to its whole length.
+  ``cache_shardings`` and gathered to its whole length, on the whole
+  replica (the decode step is not split over ``model`` yet).
 
 Microbatches of one step have one shape, so a device that runs more than
 three counts three (the first creates the gradients, the second is the
@@ -34,13 +43,18 @@ Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b \\
         --shape train_4k --mesh single
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out DIR] \
+        [--jobs N]
 
 Each cell writes ``<out>/<arch>__<shape>__<mesh>.json`` with the memory,
 the cost, the collective bytes and the roofline terms of its busiest
 device.  ``--all`` drives one subprocess per cell (a pathological cell
-cannot kill the sweep); completed cells are skipped, so the sweep is
-resumable.
+cannot kill the sweep), ``--jobs`` of them at a time; completed cells are
+skipped, so the sweep is resumable.  ``busiest`` names the device's
+coordinate, its microbatches and rows, the devices that compute
+(``compute_devices``), the model group's size (``model_group``) and the
+layers that run whole on it (``whole_layers``, the layer rule of
+``tensor_parallel.py``).
 
 ``memory``: ``shard_bytes`` (the blocks the device holds by the rules),
 ``replica_bytes`` (what its step holds on entry beyond them: the gathered
@@ -109,10 +123,11 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _train(bundle, shape, mesh, specs):
+def _train(bundle, shape, mesh, specs, model_rank=0):
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import roofline as rl
     from repro_torch.launch.steps import (MeshCompute, abstract_state,
-                                          loss_and_grads)
+                                          loss_and_grads, stored_grads)
     from repro_torch.optim.adamw import AdamWConfig, sharded_adamw_update
 
     state = abstract_state(bundle, mesh)
@@ -120,8 +135,14 @@ def _train(bundle, shape, mesh, specs):
     mb = max(1, bundle.cfg.microbatches)
     owners = compute.owner_ranks(specs, mb)
     rank, runs = collections.Counter(owners).most_common(1)[0]
-    coord = compute.rank_coord[rank]
-    model = compute.bind(mesh.device(coord), state["params"])
+    coord = compute.coord(rank, model_rank)
+    dev = mesh.device(coord)
+    T = compute.n_model
+    # the counted rank's program: its local replica, its share of every
+    # split product, its collectives tallied
+    plan = compute.plan(model_rank)
+    model = compute.bind_rank(dev, state["params"], model_rank)
+    group = tp.ModelGroup(compute.group_devices(rank), members=(model_rank,))
     k = min(runs, 3)
     rows = shape.global_batch // mb
     # the device's rows are held whole; the first k microbatches run
@@ -138,24 +159,30 @@ def _train(bundle, shape, mesh, specs):
     marks = []
 
     def loss(m, b):
-        marks.append(counter.totals())
-        return bundle.loss(m, b)
+        marks.append((counter.totals(), group.tally.copy()))
+        return tp.group_loss(bundle, group, {model_rank: m}, b)
 
     counted = dataclasses.replace(bundle, loss=loss)
     with rl.StepCounter(shards + rl.held_tensors(model, batch)) as counter:
         loss_and_grads(counted, model,
                        {n: t[:k * rows] for n, t in batch.items()}, k)
-        grads = {n: p.grad for n, p in model.named_parameters()}
-        sharded_adamw_update(grads, local_opt, local, AdamWConfig())
+        grads = tp.piece_grads(
+            [({n: p.grad for n, p in model.named_parameters()},
+              plan.splits)], {n: l.shape for n, l in local.items()})
+        sharded_adamw_update(*stored_grads(grads, local), local_opt, local,
+                             AdamWConfig())
     out = counter.result()
     if runs > k:
         # the second microbatch's section is the steady one
         for i, key in enumerate(("flops", "bytes")):
-            out[key] += (runs - k) * (marks[2][i] - marks[1][i])
+            out[key] += (runs - k) * (marks[2][0][i] - marks[1][0][i])
+        group.tally.add_between(marks[1][1], marks[2][1], runs - k)
     busiest = dict(coord=list(coord), microbatches=runs, rows=rows,
-                   compute_devices=len(set(owners)))
-    return (out, counter.top_bytes(5), rl.step_collectives(mesh, state),
-            _nbytes(shards), busiest)
+                   compute_devices=len(set(owners)) * T, model_group=T,
+                   whole_layers=plan.whole)
+    return (out, counter.top_bytes(5),
+            rl.step_collectives(mesh, state, plan.splits, coord, group.tally),
+            _nbytes(shards), busiest, group.tally)
 
 
 def _tree_cache(tree, specs, mesh, coord, placed, prefix=""):
@@ -179,11 +206,11 @@ def _tree_cache(tree, specs, mesh, coord, placed, prefix=""):
             for i, v in enumerate(tree)]
 
 
-def _serve(bundle, shape, mesh, specs, opts):
+def _serve(bundle, shape, mesh, specs, opts, model_rank=0):
     from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import roofline as rl
-    from repro_torch.launch.steps import (MeshCompute, make_prefill_step,
-                                          make_serve_step)
+    from repro_torch.launch.steps import MeshCompute, make_serve_step
     from repro_torch.models.layers import make_compute_copies
 
     cfg = bundle.cfg
@@ -195,8 +222,18 @@ def _serve(bundle, shape, mesh, specs, opts):
     params = {n: sharding.shard(p, pspecs[n], mesh)
               for n, p in model.named_parameters()}
     compute = MeshCompute(bundle, mesh)
-    coord = compute.rank_coord[0]
-    replica = compute.bind(mesh.device(coord), params)
+    # a prefill runs the counted rank's program on its group; decode keeps
+    # the whole replica (no split of the cache's attention yet)
+    prefill = shape.kind == "prefill"
+    coord = compute.coord(0, model_rank if prefill else 0)
+    plan = group = None
+    if prefill:
+        plan = compute.plan(model_rank)
+        replica = compute.bind_rank(mesh.device(coord), params, model_rank)
+        group = tp.ModelGroup(compute.group_devices(0),
+                              members=(model_rank,))
+    else:
+        replica = compute.bind(mesh.device(coord), params)
     make_compute_copies(replica, getattr(torch, cfg.dtype))
     # the rows of one data-parallel rank (``batch_spec``), all of them
     # on rank 0 where the dp axes do not divide the batch
@@ -207,8 +244,10 @@ def _serve(bundle, shape, mesh, specs, opts):
              for n, t in specs.items()}
     placed = {"params": params}
     shards = [leaf.local(coord) for leaf in params.values()]
-    if shape.kind == "prefill":
-        step, args = make_prefill_step(bundle), (replica, batch)
+    if prefill:
+        def step(model, feed):
+            return tp.group_prefill(bundle, group, {model_rank: model}, feed)
+        args = (replica, batch)
     else:
         full = bundle.abstract_cache(shape.global_batch, shape.seq_len)
         placed["cache"] = {}
@@ -218,17 +257,23 @@ def _serve(bundle, shape, mesh, specs, opts):
         step, args = make_serve_step(bundle), (replica, cache, batch)
     with rl.StepCounter(shards + rl.held_tensors(*args)) as counter:
         step(*args)
+    T = compute.n_model if prefill else 1
     busiest = dict(coord=list(coord), rows=rows,
-                   compute_devices=compute.n_dp if split else 1)
+                   compute_devices=(compute.n_dp if split else 1) * T,
+                   model_group=T, whole_layers=plan.whole if plan else [])
+    tally = group.tally if group is not None else None
     return (counter.result(), counter.top_bytes(5),
-            rl.step_collectives(mesh, placed), _nbytes(shards),
-            busiest)
+            rl.step_collectives(mesh, placed, plan and plan.splits, coord,
+                                tally),
+            _nbytes(shards), busiest, tally)
 
 
-def count_cell(cfg, shape, mesh, opts=()) -> dict:
+def count_cell(cfg, shape, mesh, opts=(), model_rank=0) -> dict:
     """Count the busiest device's step of ``cfg`` at ``shape`` (a
     ``ShapeConfig``) on ``mesh`` (of meta coordinates): the result keys
-    of :func:`run_cell` from ``n_chips`` on."""
+    of :func:`run_cell` from ``n_chips`` on.  On a ``model`` axis the
+    device is model rank ``model_rank`` of the busiest data-parallel
+    rank's group (a decode step's, of rank 0's: the whole replica)."""
     from repro_torch.launch import roofline as rl
     from repro_torch.models.registry import build_model, input_specs
 
@@ -237,9 +282,9 @@ def count_cell(cfg, shape, mesh, opts=()) -> dict:
     specs = input_specs(cfg, shape)
     train = shape.kind == "train"
     with torch.set_grad_enabled(train):
-        cost, top, coll, shard_bytes, busiest = (
-            _train(bundle, shape, mesh, specs) if train
-            else _serve(bundle, shape, mesh, specs, opts))
+        cost, top, coll, shard_bytes, busiest, tally = (
+            _train(bundle, shape, mesh, specs, model_rank) if train
+            else _serve(bundle, shape, mesh, specs, opts, model_rank))
     count_s = time.time() - t0
     n_chips = mesh.size
     flops, nbytes = cost["flops"], cost["bytes"]
@@ -255,6 +300,7 @@ def count_cell(cfg, shape, mesh, opts=()) -> dict:
                 "peak_per_device_gb": round(peak / 1e9, 3)},
         cost={"flops": flops, "bytes_accessed": nbytes},
         collectives=coll,
+        tp_collectives=tally.as_dict() if tally is not None else {},
         roofline=terms,
         model_flops=mf,
         useful_flops_ratio=(round(mf / (flops * n_chips), 4)
@@ -299,6 +345,60 @@ def all_cells():
                 yield arch, shape, mesh
 
 
+# the longest counts first (a meta op costs the same at any size, so a
+# cell's count takes about as long as it has ops: 32k prefills, then
+# trains, by depth), so that the short ones fill the end of a pooled sweep
+_SHAPE_ORDER = ("prefill_32k", "train_4k", "decode_32k", "long_500k")
+
+
+def _longest_first(cell) -> tuple:
+    from repro_torch.configs import ARCHS
+    arch, shape, _ = cell
+    order = (_SHAPE_ORDER.index(shape) if shape in _SHAPE_ORDER
+             else len(_SHAPE_ORDER))
+    return order, -ARCHS[arch].n_layers
+
+
+def _run_pool(out_dir: Path, timeout: int, jobs: int = 1) -> None:
+    """``--all``: every cell not yet written, one subprocess each, ``jobs``
+    at a time, the longest first; a cell whose subprocess fails or runs
+    longer than ``timeout`` seconds is written as ``failed``."""
+    cells = list(all_cells())
+
+    def path(cell):
+        return out_dir / f"{'__'.join(cell)}.json"
+
+    todo = sorted((c for c in cells if not path(c).exists()),
+                  key=_longest_first)
+    running: dict = {}
+    failed = 0
+    while todo or running:
+        while todo and len(running) < jobs:
+            cell = todo.pop(0)
+            print(f"[dryrun] {' x '.join(cell)} ...", flush=True)
+            running[cell] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 cell[0], "--shape", cell[1], "--mesh", cell[2], "--out",
+                 str(out_dir)]), time.time())
+        time.sleep(0.5)
+        for cell, (proc, t0) in list(running.items()):
+            rc = proc.poll()
+            if rc is None and time.time() - t0 > timeout:
+                proc.kill()
+                proc.wait()
+                rc = -9
+            if rc is None:
+                continue
+            del running[cell]
+            if rc != 0 and not path(cell).exists():
+                path(cell).write_text(json.dumps(
+                    dict(zip(("arch", "shape", "mesh"), cell),
+                         status="failed", returncode=rc), indent=1))
+                failed += 1
+    print(f"[dryrun] complete: {len(cells) - failed} ok/skipped, {failed} "
+          f"failed of {len(cells)}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
@@ -315,6 +415,9 @@ def main(argv=None) -> None:
                          "bf16_params")
     ap.add_argument("--timeout", type=int, default=3000,
                     help="per-cell timeout (s) in --all mode")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells counted at a time in --all mode (the "
+                         "longest first)")
     args = ap.parse_args(argv)
 
     out_dir = Path(args.out)
@@ -322,32 +425,8 @@ def main(argv=None) -> None:
     if args.save_hlo:
         print("[dryrun] --save-hlo: nothing written (the port runs its "
               "steps eagerly on the meta device; there is no HLO)")
-
     if args.all:
-        cells = list(all_cells())
-        done = failed = 0
-        for arch, shape, mesh in cells:
-            path = out_dir / f"{arch}__{shape}__{mesh}.json"
-            if path.exists():
-                done += 1
-                continue
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--mesh", mesh,
-                   "--out", str(out_dir)]
-            print(f"[dryrun] {arch} x {shape} x {mesh} ...", flush=True)
-            try:
-                rc = subprocess.run(cmd, timeout=args.timeout).returncode
-            except subprocess.TimeoutExpired:
-                rc = -9
-            if rc != 0 and not path.exists():
-                path.write_text(json.dumps(
-                    {"arch": arch, "shape": shape, "mesh": mesh,
-                     "status": "failed", "returncode": rc}, indent=1))
-                failed += 1
-            else:
-                done += 1
-        print(f"[dryrun] complete: {done} ok/skipped, {failed} failed "
-              f"of {len(cells)}")
+        _run_pool(out_dir, args.timeout, args.jobs)
         return
 
     if not (args.arch and args.shape):

@@ -109,20 +109,24 @@ def pick_hillclimb(rows: list[dict]) -> list[dict]:
 
 def cells_table(rows: list[dict]) -> str:
     """One line per (arch, shape) with both meshes side by side (single /
-    multi): status, per-device peak GB, TFLOPs, all-gather and
-    reduce-scatter GB, and the dominant roofline term."""
+    multi): status, per-device peak GB, TFLOPs, all-gather, all-reduce and
+    reduce-scatter GB, the layers that run whole on the device's model
+    group (the layer rule), and the dominant roofline term."""
     by = {(r["arch"], r["shape"], r["mesh"]): r for r in rows}
     out = ["| arch | shape | status | peak/dev GB | TFLOP/dev | AG GB | "
-           "RS GB | dominant |", "|---|---|---|---|---|---|---|---|"]
+           "AR GB | RS GB | whole layers | dominant |",
+           "|---|---|---|---|---|---|---|---|---|---|"]
 
     def cols(r):
         if r is None or r["status"] != "ok":
-            return ("—",) * 5
+            return ("—",) * 7
         c = r["collectives"]
         return (f"{r['memory']['peak_per_device_gb']:.1f}",
                 f"{r['cost']['flops'] / 1e12:.1f}",
                 f"{c['all-gather'] / 1e9:.1f}",
+                f"{c['all-reduce'] / 1e9:.2f}",
                 f"{c['reduce-scatter'] / 1e9:.2f}",
+                str(len(r.get("busiest", {}).get("whole_layers", []))),
                 r["roofline"]["dominant"].replace("_s", ""))
 
     for arch, shape in dict.fromkeys((r["arch"], r["shape"]) for r in rows):

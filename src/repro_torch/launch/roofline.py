@@ -265,43 +265,61 @@ def top_bytes(fn, *args, n: int = 15) -> list[tuple[int, str]]:
     return c.top_bytes(n)
 
 
-def step_collectives(mesh, state: dict) -> dict[str, int]:
-    """The bytes of the port's own transfers for one device in one step
-    (every device's blocks are alike), by the reference's five kinds,
-    each as the size of its result on that device (the reference sums
-    result shapes of per-device HLO):
+def step_collectives(mesh, state: dict, splits: dict | None = None,
+                     coord=None, tally=None) -> dict[str, int]:
+    """The bytes of the port's own transfers for one device in one step,
+    by the reference's five kinds, each as the size of its result on that
+    device (the reference sums result shapes of per-device HLO):
 
-    - ``all-gather``: every parameter leaf that is not one whole block on
-      the device, gathered whole into its replica (``MeshCompute.bind``),
-      and for a decode step every cache leaf of its rows split over an
-      axis other than the batch's, gathered to its whole length;
+    - ``all-gather``: every parameter leaf whose compute block the device
+      does not hold as its stored block (``tensor_parallel.held_block``;
+      ``splits`` are the device's model rank's blocks, none for a whole
+      replica), gathered into its replica (``MeshCompute.bind`` /
+      ``bind_rank``: over the data axes, or re-sliced across stored
+      blocks); for a decode step every cache leaf of its rows split over
+      an axis other than the batch's, gathered to its whole length;
     - ``reduce-scatter`` (training, ``"opt"`` in ``state``): the device's
-      block of each gradient that is sharded, reduced over the replicas
-      in rank order and sent to its owners;
-    - ``all-reduce`` (training): each gradient of a leaf held whole on
+      block of each gradient that is sharded, reduced over the ranks and
+      sent to its owners;
+    - ``all-reduce``: in training each gradient of a leaf held whole on
       every device;
-    - ``all-to-all`` and ``collective-permute``: 0 (the port has none).
+    - ``all-to-all`` and ``collective-permute``: 0 (the port has none);
 
-    ``state``: ``{"params": {name: Sharded}}``, plus ``"opt"`` for a
-    training state and ``"cache"`` (``{path: Sharded}`` of the full
-    batch) for a decode step.  On a one-device mesh nothing moves."""
+    and with ``tally`` (a ``tensor_parallel.Tally`` of the device's model
+    group) its activation collectives: the all-reduces at the layer
+    boundaries of forward, backward and recompute, and a prefill's
+    gathered logits.  ``coord``: the device's mesh coordinate (default
+    the first).  ``state``: ``{"params": {name: Sharded}}``, plus
+    ``"opt"`` for a training state and ``"cache"`` (``{path: Sharded}`` of
+    the full batch) for a decode step.  On a one-device mesh nothing
+    moves."""
+    from repro_torch.distributed import tensor_parallel as tp
+
     out = dict.fromkeys(COLLECTIVES, 0)
     if mesh.size == 1:
         return out
     train = "opt" in state
-    for leaf in state["params"].values():
+    splits = splits or {}
+    coord = tuple(coord) if coord is not None else next(mesh.coords())
+    for name, leaf in state["params"].items():
         item = leaf.dtype.itemsize
         whole = math.prod(leaf.shape) * item
-        if leaf.block_shape != leaf.shape:
-            out["all-gather"] += whole
-            if train:
+        sp = splits.get(name)
+        if not tp.held_block(leaf, sp, coord):
+            out["all-gather"] += math.prod(
+                sp.local_shape(leaf.shape) if sp else leaf.shape) * item
+        if train:
+            if leaf.block_shape != leaf.shape:
                 out["reduce-scatter"] += math.prod(leaf.block_shape) * item
-        elif train:
-            out["all-reduce"] += whole
+            else:
+                out["all-reduce"] += whole
     for leaf in state.get("cache", {}).values():
         rows = rows_shape(leaf)
         if rows != leaf.block_shape:
             out["all-gather"] += math.prod(rows) * leaf.dtype.itemsize
+    if tally is not None:
+        for kind in COLLECTIVES:
+            out[kind] += tally.total(kind)
     return out
 
 

@@ -14,17 +14,23 @@ is stored by the sharding rules: ``{"params": {name: Sharded}, "opt":
 {"mu": {name: Sharded}, "nu": ..., "step"}}``, parameters and both moments
 placed by ``param_spec`` (the reference's ZeRO-3 on top of TP), under the
 names a single-device checkpoint uses.  A step (:class:`MeshCompute`)
-binds one trainable replica per device of the mesh to the weights (a leaf
-that is one whole block on that device is used in place, any other is
-gathered into a buffer of the replica's), runs the reference's logical
-step there (microbatches of consecutive
-rows, each microbatch whole on the device of the first data-parallel rank
-that holds its rows, so MoE capacity and slot order stay per microbatch;
-a batch whose rows the data axes do not divide is replicated and each
-microbatch still runs once), reduces the replicas' gradients in rank
-order and updates each shard in place (``sharded_adamw_update``: one
-global norm over the shards).  Tensor-parallel splitting of the products
-is not done: every replica computes whole products.
+runs the reference's logical step: microbatches of consecutive rows, each
+microbatch whole on the devices of the first data-parallel rank that
+holds its rows, so MoE capacity and slot order stay per microbatch (a
+batch whose rows the data axes do not divide is replicated and each
+microbatch still runs once).  Those devices are the rank's model group,
+tensor-parallel as GSPMD splits the reference's products
+(``distributed/tensor_parallel.py``): each model rank's local replica
+holds its compute blocks (a stored block in place, any other gathered
+over the data axes), computes its heads, FFN columns, vocabulary rows or
+experts, the partials are all-reduced at the layer boundaries, and each
+rank's gradient blocks are reduced over the owner ranks in rank order.
+On a ``model`` axis of 1 the group is one device whose replica is the
+whole model, and the step is ``make_train_step``'s arithmetic, bitwise.
+Each shard is updated in place (``stored_grads``, then
+``sharded_adamw_update``: one global norm over the whole gradient).
+``make_prefill_step(bundle, mesh)`` is the prefill forward on data-parallel
+rank 0's devices, tensor-parallel alike.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.device import capture_graph
 from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.layers import trainable
@@ -80,16 +87,19 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig, mesh=None):
     gradients (microbatched by ``cfg.microbatches``), then AdamW, all in
     place.  ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d
     device tensors (nothing is read back to the host).  With ``mesh`` the
-    step takes a state of ``init_state(..., mesh=mesh)``."""
+    step takes a state of ``init_state(..., mesh=mesh)`` and computes on
+    :class:`MeshCompute` (``step.compute``)."""
     mb = max(1, bundle.cfg.microbatches)
     if mesh is not None:
         compute = MeshCompute(bundle, mesh)
 
         def sharded_step(state: dict, batch: dict):
             loss, grads = compute.loss_and_grads(state["params"], batch, mb)
-            metrics = sharded_adamw_update(grads, state["opt"],
+            grads, sq_sums = stored_grads(grads, state["params"])
+            metrics = sharded_adamw_update(grads, sq_sums, state["opt"],
                                            state["params"], opt_cfg)
             return state, dict(metrics, loss=loss)
+        sharded_step.compute = compute      # its replicas and tallies
         return sharded_step
 
     def train_step(state: dict, batch: dict):
@@ -162,17 +172,23 @@ def state_shardings(params, mesh) -> dict:
 
 
 class MeshCompute:
-    """The compute side of a sharded train step: one trainable replica of
-    the model per device of ``mesh``, built without memory and bound to
-    the weights each step (:meth:`bind`), the microbatches run on the
-    replicas and the gradients reduced."""
+    """The compute side of a sharded train step on ``mesh``.  Each
+    data-parallel rank's ``model`` ranks form a :class:`~repro_torch.
+    distributed.tensor_parallel.ModelGroup` (one rank on a ``model`` axis
+    of 1), one local replica per (device, model rank) holds that rank's
+    compute blocks (:meth:`bind_rank`; on a ``model`` axis of 1 the whole
+    model), each microbatch runs on its owner rank's group, and each
+    rank's gradient blocks are reduced over the owner ranks."""
 
     def __init__(self, bundle: ModelBundle, mesh):
         self.bundle, self.mesh = bundle, mesh
-        self.replicas: dict[torch.device, torch.nn.Module] = {}
+        self.replicas: dict = {}
         self.gathered: dict[tuple, torch.Tensor] = {}
+        self.plans: dict[int, tp.Plan] = {}
+        self.tallies: dict[int, tp.Tally] = {}
         dp = sharding.dp_axes(mesh)
         self.n_dp = sharding._size(mesh, dp)
+        self.n_model = tp.model_size(mesh)
         # each data-parallel rank's coordinate and device: its (pod, data)
         # coordinates, every other axis at 0
         self.rank_coord = []
@@ -183,32 +199,84 @@ class MeshCompute:
             self.rank_coord.append(tuple(at.values()))
         self.rank_device = [mesh.device(c) for c in self.rank_coord]
 
-    def replica(self, device) -> torch.nn.Module:
-        """The replica on ``device``: its parameters on the meta device
-        until :meth:`bind` points them at the weights."""
-        if device not in self.replicas:
-            self.replicas[device] = trainable(self.bundle.abstract_params())
-        return self.replicas[device]
+    def coord(self, rank: int, m: int = 0) -> tuple:
+        """The mesh coordinate of data-parallel ``rank``'s model rank
+        ``m``."""
+        at = dict(zip(self.mesh.axis_names, self.rank_coord[rank]))
+        if "model" in at:
+            at["model"] = m
+        return tuple(at.values())
+
+    def group_devices(self, rank: int) -> list:
+        """The devices of ``rank``'s model group, in model-rank order."""
+        return [self.mesh.device(self.coord(rank, m))
+                for m in range(self.n_model)]
+
+    def plan(self, m: int) -> tp.Plan:
+        """Model rank ``m``'s compute blocks (``tp.local_model``)."""
+        if m not in self.plans:
+            self.plans[m] = tp.local_model(self.bundle, self.mesh, m)
+        return self.plans[m]
+
+    def rank_replica(self, device, m: int) -> torch.nn.Module:
+        """Model rank ``m``'s local replica on ``device`` (on the meta
+        device until :meth:`bind_rank`): the plan's own for the first
+        device, so that no unbound copy is left holding parameters."""
+        key = (device, m)
+        if key not in self.replicas:
+            taken = any(k[1] == m for k in self.replicas)
+            self.replicas[key] = (
+                tp.local_model(self.bundle, self.mesh, m).model if taken
+                else self.plan(m).model)
+        return self.replicas[key]
+
+    def bind_rank(self, device, params: dict, m: int) -> torch.nn.Module:
+        """Model rank ``m``'s local replica on ``device`` bound to its
+        compute blocks of ``params`` (name -> ``Sharded``): a block that
+        is one stored block held on ``device`` is that tensor itself (no
+        copy; the step's in-place update reaches it), any other is
+        gathered (over the data axes, or re-sliced where the compute block
+        crosses the stored ones: kv heads, SSD's ``w_in``) into a buffer
+        the replica keeps.  On the ``(1, 1)`` mesh no weight is copied and
+        the replica holds no memory of its own."""
+        return self._bind(self.rank_replica(device, m), self.plan(m).splits,
+                          device, params, m)
+
+    def bind(self, device, params: dict) -> torch.nn.Module:
+        """The whole model on ``device``, its leaves gathered whole as
+        :meth:`bind_rank` gathers blocks: the decode step's replica,
+        which does not split over ``model``."""
+        key = (device, None)
+        if key not in self.replicas:
+            self.replicas[key] = trainable(self.bundle.abstract_params())
+        return self._bind(self.replicas[key], {}, device, params, None)
 
     @torch.no_grad()
-    def bind(self, device, params: dict) -> torch.nn.Module:
-        """The replica on ``device`` with each parameter pointed at the
-        weights of ``params`` (name -> ``Sharded``): a leaf that is one
-        whole block held on ``device`` is that tensor itself (no copy; the
-        step's in-place update reaches it), any other leaf is gathered
-        into a buffer the replica keeps.  On the ``(1, 1)`` mesh no weight
-        is copied and the replica holds no memory of its own."""
-        model = self.replica(device)
+    def _bind(self, model, splits, device, params, m):
         for n, p in list(model.named_parameters()):
-            leaf = params[n]
-            t = (leaf.tensors.get(((0,) * len(leaf.shape), device))
-                 if leaf.block_shape == leaf.shape else None)
+            leaf, sp = params[n], splits.get(n)
+            t = None
+            want = tp.region(leaf.shape, sp)
+            if want is not None and all(
+                    s.stop - s.start == b and s.start % b == 0
+                    for s, b in zip(want, leaf.block_shape)):
+                block = tuple(s.start // b for s, b in
+                              zip(want, leaf.block_shape))
+                t = leaf.tensors.get((block, device))
             if t is None:
-                t = self.gathered.get((device, n))
+                key = (device, m, n)
+                t = self.gathered.get(key)
                 if t is None:
-                    t = self.gathered[(device, n)] = torch.empty(
-                        leaf.shape, dtype=leaf.dtype, device=device)
-                sharding.gather_into(leaf, t)
+                    t = self.gathered[key] = torch.empty(
+                        sp.local_shape(leaf.shape) if sp else leaf.shape,
+                        dtype=leaf.dtype, device=device)
+                if sp is None:
+                    sharding.gather_into(leaf, t)
+                else:
+                    for off, where in sp.regions(leaf.shape):
+                        sharding.gather_region(leaf, where, t.narrow(
+                            sp.dim, off, where[sp.dim].stop
+                            - where[sp.dim].start))
             if p.is_meta or p.data_ptr() != t.data_ptr():
                 mod, _, name = n.rpartition(".")
                 model.get_submodule(mod)._parameters[name] = \
@@ -227,60 +295,110 @@ class MeshCompute:
         return [(i * (rows // mb)) // per_rank for i in range(mb)]
 
     def owners(self, batch: dict, mb: int) -> list[torch.device]:
-        """The device each microbatch runs on (:meth:`owner_ranks`)."""
+        """The device each microbatch runs on (:meth:`owner_ranks`; its
+        group's model rank 0's)."""
         return [self.rank_device[r] for r in self.owner_ranks(batch, mb)]
 
+    def group(self, rank: int) -> tp.ModelGroup:
+        """Data-parallel ``rank``'s model group, tallying into
+        ``tallies[rank]``."""
+        return tp.ModelGroup(self.group_devices(rank),
+                             tally=self.tallies.setdefault(rank, tp.Tally()))
+
+    def group_models(self, rank: int, params: dict) -> dict:
+        """``{model rank: bound local replica}`` of ``rank``'s group."""
+        return {m: self.bind_rank(d, params, m)
+                for m, d in enumerate(self.group_devices(rank))}
+
     def loss_and_grads(self, params: dict, batch: dict, mb: int = 1):
-        """The loss of ``batch`` (``loss_and_grads``'s order) and the whole
-        gradient of each parameter, on the device of rank 0's replica (None
-        where no microbatch reached the parameter)."""
-        micros = split_batch(batch, mb)
-        owners = self.owners(batch, mb)
-        models = {d: self.bind(d, params) for d in dict.fromkeys(owners)}
-        replicas = list(models.values())
-        for model in replicas:
+        """The loss of ``batch`` (``loss_and_grads``'s order: microbatch
+        losses summed from zero, then divided by ``mb``) and each
+        parameter's gradient, a :class:`~repro_torch.distributed.
+        tensor_parallel.Grad` of the model ranks' blocks (one whole piece
+        on a ``model`` axis of 1; None where no microbatch reached the
+        parameter)."""
+        owners = self.owner_ranks(batch, mb)
+        self.tallies = {}
+        groups = {r: self.group(r) for r in dict.fromkeys(owners)}
+        # one local replica per (device, model rank): owner groups on the
+        # same devices share them, and their microbatches accumulate into
+        # the same .grad in microbatch order
+        local = {}
+        for r in groups:
+            for m, d in enumerate(self.group_devices(r)):
+                if (d, m) not in local:
+                    local[(d, m)] = self.bind_rank(d, params, m)
+        for model in local.values():
             model.zero_grad(set_to_none=True)
-        home = owners[0]
+        home = groups[owners[0]].home
         with self.mesh:
-            if mb == 1:
-                loss = self.bundle.loss(
-                    models[home], {k: v.to(home) for k, v in batch.items()})
+            total = torch.zeros((), dtype=torch.float32, device=home)
+            for micro, r in zip(split_batch(batch, mb), owners):
+                g = groups[r]
+                loss = tp.group_loss(self.bundle, g, {
+                    m: local[(d, m)] for m, d in enumerate(g.devices)}, micro)
                 loss.backward()
-                loss = loss.detach()
-            else:
-                total = torch.zeros((), dtype=torch.float32, device=home)
-                for micro, dev in zip(micros, owners):
-                    loss = self.bundle.loss(
-                        models[dev], {k: v.to(dev) for k, v in micro.items()})
-                    loss.backward()
-                    total = total + loss.detach().to(home)
-                loss = total / mb
-        return loss, _reduce_grads(replicas, home, mb)
+                total = total + loss.detach().to(home)
+            loss = total / mb if mb > 1 else total
+        with torch.no_grad():
+            # each model rank's gradients summed over its replicas (one a
+            # device) in the order their owners first ran
+            by_rank = []
+            for m in range(self.n_model):
+                named = [dict(mod.named_parameters())
+                         for (_, k), mod in local.items() if k == m]
+                grads = {}
+                for n in named[0]:
+                    parts = [nm[n].grad for nm in named
+                             if nm[n].grad is not None]
+                    g = parts[0] if parts else None
+                    for other in parts[1:]:
+                        g = g + other.to(g.device)
+                    grads[n] = g
+                by_rank.append(grads)
+            shapes = {n: leaf.shape for n, leaf in params.items()}
+            return loss, tp.piece_grads(
+                [(g, self.plan(m).splits) for m, g in enumerate(by_rank)],
+                shapes, mb)
+
+    @torch.no_grad()
+    def prefill(self, params: dict, batch: dict) -> torch.Tensor:
+        """``make_prefill_step``'s logits of ``batch`` on data-parallel
+        rank 0's model group."""
+        with self.mesh:
+            return tp.group_prefill(self.bundle, self.group(0),
+                                    self.group_models(0, params), batch)
 
 
 @torch.no_grad()
-def _reduce_grads(replicas, home, mb: int) -> dict:
-    """Each parameter's gradient summed over the replicas in rank order
-    on ``home``, divided by ``mb`` (in place on one replica, as
-    ``loss_and_grads`` does)."""
-    grads = {}
-    named = [dict(m.named_parameters()) for m in replicas]
-    for n in named[0]:
-        parts = [m[n].grad.to(home) for m in named if m[n].grad is not None]
-        if not parts:
-            grads[n] = None
+def stored_grads(grads: dict, params: dict) -> tuple[dict, list]:
+    """What ``sharded_adamw_update`` takes from ``grads`` (name ->
+    :class:`~repro_torch.distributed.tensor_parallel.Grad` or None): each
+    leaf's gradient cut to its stored blocks (``{block index: tensor}``,
+    None for a zero gradient), and the sums of squares of the whole
+    gradient, each distinct piece once, leaf by leaf in ``params``'
+    order (a piece that is a whole leaf sums as ``adamw_update`` sums
+    it)."""
+    blocks, sq_sums = {}, []
+    for n, leaf in params.items():
+        g = grads.get(n)
+        if g is None:
+            blocks[n] = None
             continue
-        g = parts[0]
-        for other in parts[1:]:
-            g = g + other
-        if mb > 1:
-            g.div_(mb)
-        grads[n] = g
-    return grads
+        sq_sums += [torch.sum(torch.square(t.float())) for _, _, t in g.pieces]
+        blocks[n] = {b: g.block(leaf.slices(b))
+                     for b in dict.fromkeys(key[0] for key in leaf.tensors)}
+    return blocks, sq_sums
 
 
-def make_prefill_step(bundle: ModelBundle):
-    """(model, batch) -> last-position logits [B, padded_vocab]."""
+def make_prefill_step(bundle: ModelBundle, mesh=None):
+    """(model, batch) -> last-position logits [B, padded_vocab].  With
+    ``mesh`` the step takes the parameters placed on it (name ->
+    ``Sharded``, e.g. ``sharded_state``'s) and runs on data-parallel rank
+    0's model group (:meth:`MeshCompute.prefill`)."""
+    if mesh is not None:
+        return MeshCompute(bundle, mesh).prefill
+
     def prefill_step(params, batch):
         if bundle.cfg.n_enc_layers:
             return bundle.forward(params, batch)[:, -1, :]

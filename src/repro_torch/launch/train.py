@@ -34,8 +34,11 @@ from pathlib import Path
 def compressed_train_step(bundle, opt_cfg, mesh):
     """The reference's ``--compress-grads`` step on a state of
     ``init_state(..., mesh=mesh)``: one loss and backward over the whole
-    batch, int8 + error feedback on the reduced gradients, then AdamW."""
-    from repro_torch.launch.steps import MeshCompute
+    batch, int8 + error feedback on the reduced gradients (each leaf's
+    whole gradient, also where a model group computed it in blocks), then
+    AdamW."""
+    from repro_torch.distributed.tensor_parallel import Grad
+    from repro_torch.launch.steps import MeshCompute, stored_grads
     from repro_torch.optim.adamw import sharded_adamw_update
     from repro_torch.optim.compression import compress_decompress
 
@@ -43,9 +46,14 @@ def compressed_train_step(bundle, opt_cfg, mesh):
 
     def train_step(state, batch):
         loss, grads = compute.loss_and_grads(state["params"], batch)
+        grads = {n: g.whole().to(state["ef"][n].device)
+                 for n, g in grads.items()}
         grads, state["ef"] = compress_decompress(grads, state["ef"])
-        metrics = sharded_adamw_update(grads, state["opt"], state["params"],
-                                       opt_cfg)
+        grads, sq_sums = stored_grads(
+            {n: Grad(tuple(g.shape), 0, [(0, g.shape[0], g)])
+             for n, g in grads.items()}, state["params"])
+        metrics = sharded_adamw_update(grads, sq_sums, state["opt"],
+                                       state["params"], opt_cfg)
         return state, dict(metrics, loss=loss)
     return train_step
 

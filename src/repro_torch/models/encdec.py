@@ -23,8 +23,10 @@ from repro_torch.models.ffn import DenseFFN
 from repro_torch.models.layers import (Weights, decode_attention,
                                        flash_attention, glorot,
                                        make_compute_copies, rms_norm)
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.lm import (compute_dtype, generator, load_reference,
-                                   remat_call, sharded_xent, step_position)
+                                   logits_tp, remat_call, sharded_xent,
+                                   step_position, vocab_embed_tp, xent_tp)
 from repro_torch.models.mixers import Attention
 
 
@@ -61,7 +63,7 @@ class CrossAttention(Weights):
     def forward(self, x, k, v):
         B, Lt, _ = x.shape
         out = flash_attention(self.query(x), k, v, causal=False)
-        return out.reshape(B, Lt, -1) @ self.w("wo", x.dtype)
+        return self.out_product(out.reshape(B, Lt, -1), "wo")
 
 
 class EncLayer(Weights):
@@ -179,6 +181,77 @@ class EncDec(Weights):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         logits = x @ self.w("lm_head", x.dtype)
         return logits[:, 0, :self.cfg.vocab]
+
+
+# ---------------------------------------------------------------- model group
+# EncDec on a tensor-parallel model group (``distributed/tensor_parallel``;
+# the decoder-only counterparts are in ``models/lm.py``): every attention,
+# cross-attention and FFN split as the decoder-only layers' are.
+def enc_layer_tp(group, layers: dict, x: dict, positions: dict) -> dict:
+    """:meth:`EncLayer.forward` on the group."""
+    cfg = layers[group.members[0]].cfg
+    eps, dt = cfg.norm_eps, compute_dtype(cfg)
+    h = tp.norm_each(group, layers, "attn_norm", x, eps)
+    x = tp.residual(x, tp.branch(
+        group, {r: l.attn for r, l in layers.items()},
+        lambda m, r: m(h[r], group.at(positions, r)), dt))
+    h = tp.norm_each(group, layers, "ffn_norm", x, eps)
+    return tp.residual(x, tp.branch(
+        group, {r: l.ffn for r, l in layers.items()}, lambda m, r: m(h[r]),
+        dt))
+
+
+def dec_layer_tp(group, layers: dict, x: dict, positions: dict,
+                 enc: dict) -> dict:
+    """:meth:`DecLayer.forward` on the group; ``enc[r]`` is rank r's
+    normed encoder output (each rank's cross-attention projects its own
+    kv heads from it)."""
+    cfg = layers[group.members[0]].cfg
+    eps, dt = cfg.norm_eps, compute_dtype(cfg)
+    h = tp.norm_each(group, layers, "attn_norm", x, eps)
+    x = tp.residual(x, tp.branch(
+        group, {r: l.attn for r, l in layers.items()},
+        lambda m, r: m(h[r], group.at(positions, r)), dt))
+    h = tp.norm_each(group, layers, "cross_norm", x, eps)
+    x = tp.residual(x, tp.branch(
+        group, {r: l.cross for r, l in layers.items()},
+        lambda m, r: m(h[r], *m.kv(enc[r])), dt))
+    h = tp.norm_each(group, layers, "ffn_norm", x, eps)
+    return tp.residual(x, tp.branch(
+        group, {r: l.ffn for r, l in layers.items()}, lambda m, r: m(h[r]),
+        dt))
+
+
+def forward_tp(group, models: dict, feeds: dict) -> dict:
+    """:meth:`EncDec.forward` on the group: ``lm.logits_tp``'s blocks."""
+    m0 = models[group.members[0]]
+    cfg = m0.cfg
+    dt = compute_dtype(cfg)
+    x = {d: f["frames"].to(dt) for d, f in feeds.items()}
+    positions = {d: torch.arange(t.shape[1], device=d).expand(*t.shape[:2])
+                 for d, t in x.items()}
+    for i in range(len(m0.enc_layers)):
+        x = remat_call(cfg, enc_layer_tp, group,
+                       {r: models[r].enc_layers[i] for r in group.members},
+                       x, positions)
+    enc = {r: rms_norm(group.at(x, r), models[r].enc_norm, cfg.norm_eps)
+           for r in group.members}
+    y = vocab_embed_tp(group, models, feeds, dt)
+    positions = {d: torch.arange(t.shape[1], device=d).expand(*t.shape[:2])
+                 for d, t in y.items()}
+    for i in range(len(m0.dec_layers)):
+        y = remat_call(cfg, dec_layer_tp, group,
+                       {r: models[r].dec_layers[i] for r in group.members},
+                       y, positions, enc)
+    return logits_tp(group, models, y, last_only=False)
+
+
+def lm_loss_tp(group, models: dict, feeds: dict) -> torch.Tensor:
+    """:func:`lm_loss` on the group, on its home device."""
+    logits = {r: t[:, :-1] for r, t in forward_tp(group, models,
+                                                   feeds).items()}
+    targets = {d: f["tokens"][:, 1:] for d, f in feeds.items()}
+    return xent_tp(group, models, logits, targets)[group.home].mean()
 
 
 # ---------------------------------------------------------------- API

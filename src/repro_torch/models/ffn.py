@@ -12,12 +12,14 @@ bitwise.  ``moe_dispatch_report`` is the static analyzer decision under
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models.layers import Weights, geglu, glorot, silu, swiglu
+from repro_torch.models.layers import Weights, gelu, glorot, silu
 
 
 # ------------------------------------------------------------------ dense
@@ -28,7 +30,7 @@ class DenseFFN(Weights):
                  act: str | None = None, device=None):
         super().__init__()
         D, Fw = cfg.d_model, d_ff or cfg.d_ff
-        self.act = geglu if (act or cfg.ffn) == "geglu" else swiglu
+        self.gate = gelu if (act or cfg.ffn) == "geglu" else silu
         self.param("w_gate", D, Fw, device=device)
         self.param("w_up", D, Fw, device=device)
         self.param("w_down", Fw, D, device=device)
@@ -40,8 +42,10 @@ class DenseFFN(Weights):
             p.copy_(glorot(p.shape, gen, p.device))
 
     def forward(self, x):
-        return self.act(x, self.w("w_gate", x.dtype), self.w("w_up", x.dtype),
-                        self.w("w_down", x.dtype))
+        """``swiglu`` / ``geglu`` of ``layers.py``, op for op."""
+        g = x @ self.w("w_gate", x.dtype)
+        u = x @ self.w("w_up", x.dtype)
+        return self.out_product(self.gate(g) * u, "w_down")
 
 
 # ------------------------------------------------------------------ MoE
@@ -76,17 +80,26 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
                       / cfg.n_experts))
 
 
-def moe_ffn(m: MoEFFN, x: torch.Tensor) -> torch.Tensor:
-    """Token-choice top-k MoE with capacity-bounded gather / scatter
-    dispatch; x: [B, L, D].  Choices past an expert's capacity are dropped,
-    as in the reference (at decode, T = B)."""
+class MoERoute(NamedTuple):
+    """A batch's routing: slots per expert, the token of each slot (0 =
+    empty, else id + 1) and its occupancy [E, cap], each slot's gate
+    weight [E, cap], and each token's K slots in slot order [T, K] (the
+    sentinel E * cap for a dropped choice)."""
+    cap: int
+    slot_token: torch.Tensor
+    occupied: torch.Tensor
+    slot_w: torch.Tensor
+    order: torch.Tensor
+
+
+def moe_route(m: MoEFFN, xf: torch.Tensor) -> MoERoute:
+    """Top-k routing of ``xf`` [T, D] with capacity-bounded slots per
+    expert; choices past an expert's capacity are dropped, as in the
+    reference (at decode, T = B)."""
     cfg = m.cfg
-    B, L, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    T = B * L
-    dt = x.dtype
-    dev = x.device
-    xf = x.reshape(T, D)
+    T = xf.shape[0]
+    dt, dev = xf.dtype, xf.device
 
     logits = xf @ m.w("router", dt)
     probs = torch.softmax(logits.float(), dim=-1)
@@ -110,36 +123,89 @@ def moe_ffn(m: MoEFFN, x: torch.Tensor) -> torch.Tensor:
     slot_token = torch.zeros(E * cap + 1, dtype=torch.long, device=dev)
     slot_token.scatter_(0, dest, token_id + 1)              # 0 = empty
     slot_token = slot_token[:-1].reshape(E, cap)
-    occupied = slot_token > 0
-    gathered = torch.where(occupied[..., None],
-                           xf[torch.clamp(slot_token - 1, min=0)],
-                           0.0).to(dt)                      # [E, cap, D]
-    if cfg.moe_dispatch_shard:
-        gathered = constrain(gathered, "model", "dp", None)  # EP x token-slot
-
-    # grouped GEMM over experts
-    g = torch.bmm(gathered, m.w("w_gate", dt))
-    u = torch.bmm(gathered, m.w("w_up", dt))
-    y_e = torch.bmm(silu(g) * u, m.w("w_down", dt))       # [E, cap, D]
-
-    # weighted scatter back: each token's kept choices, summed in slot
-    # order (the reference's serial segment sum); dropped choices read the
-    # zero row at the sentinel
     flat_w = top_p.reshape(-1).to(dt)                       # [T*K]
     slot_w = torch.zeros(E * cap + 1, dtype=dt, device=dev)
     slot_w.scatter_(0, dest, torch.where(keep, flat_w, 0.0))
-    contrib = y_e * slot_w[:-1].reshape(E, cap)[..., None]
+    order = torch.sort(dest.reshape(T, K), dim=-1).values
+    return MoERoute(cap, slot_token, slot_token > 0,
+                    slot_w[:-1].reshape(E, cap), order)
+
+
+def moe_experts(m: MoEFFN, slot_token, occupied, xf, dt) -> torch.Tensor:
+    """The slots' tokens [E, cap, D] (zeros in empty slots) through the
+    grouped GEMM of ``m``'s experts."""
+    gathered = torch.where(occupied[..., None],
+                           xf[torch.clamp(slot_token - 1, min=0)],
+                           0.0).to(dt)                      # [E, cap, D]
+    if m.cfg.moe_dispatch_shard:
+        gathered = constrain(gathered, "model", "dp", None)  # EP x token-slot
+    g = torch.bmm(gathered, m.w("w_gate", dt))
+    u = torch.bmm(gathered, m.w("w_up", dt))
+    return torch.bmm(silu(g) * u, m.w("w_down", dt))       # [E, cap, D]
+
+
+def moe_combine(y_e, slot_w, occupied, order) -> torch.Tensor:
+    """The weighted scatter back: each token's kept choices, summed in slot
+    order (the reference's serial segment sum); ``order`` indexes the
+    [E * cap] slots of ``y_e``, one past them for a dropped choice (the
+    zero row)."""
+    E, cap, D = y_e.shape
+    contrib = y_e * slot_w[..., None]
     contrib = torch.where(occupied[..., None], contrib, 0.0).reshape(E * cap, D)
     rows = torch.cat([contrib, contrib.new_zeros((1, D))])  # + sentinel row
-    order = torch.sort(dest.reshape(T, K), dim=-1).values
     picked = rows[order]                                    # [T, K, D]
     out = picked[:, 0]
-    for k in range(1, K):
+    for k in range(1, order.shape[1]):
         out = out + picked[:, k]
+    return out
 
+
+def moe_ffn(m: MoEFFN, x: torch.Tensor) -> torch.Tensor:
+    """Token-choice top-k MoE with capacity-bounded gather / scatter
+    dispatch; x: [B, L, D]."""
+    B, L, D = x.shape
+    xf = x.reshape(B * L, D)
+    route = moe_route(m, xf)
+    y_e = moe_experts(m, route.slot_token, route.occupied, xf, x.dtype)
+    out = moe_combine(y_e, route.slot_w, route.occupied, route.order)
     if m.shared is not None:
         out = out + m.shared(xf)
     return out.reshape(B, L, D)
+
+
+def moe_tp(group, mods: dict, h: dict) -> dict:
+    """The split MoE layer on a tensor-parallel model group, experts over
+    ``model`` (EP), its output on every device: every rank routes alike
+    (the router is whole), runs the grouped GEMM of its ``E / T``
+    experts and combines its own experts' slots per token in slot order
+    (another rank's slots read the zero row); the ranks' combines are
+    all-reduced, so each token's choices are summed rank by rank (the
+    reference's single slot-order sum, reassociated where a token's
+    choices lie on more than one rank), and the shared experts (a split
+    dense FFN) are all-reduced apart and added, as the whole layer adds
+    them."""
+    routed, shared = {}, {}
+    for r in group.members:
+        m, x = mods[r], h[r]
+        B, L, D = x.shape
+        xf = x.reshape(B * L, D)
+        route = moe_route(m, xf)
+        n = m.w_gate.shape[0]
+        lo = slice(r * n, (r + 1) * n)
+        y_e = moe_experts(m, route.slot_token[lo], route.occupied[lo], xf,
+                          x.dtype)
+        local = route.order - r * n * route.cap
+        inside = (local >= 0) & (local < n * route.cap)
+        routed[r] = moe_combine(y_e, route.slot_w[lo], route.occupied[lo],
+                                torch.where(inside, local, n * route.cap)
+                                ).reshape(B, L, D)
+        if m.shared is not None:
+            shared[r] = m.shared(xf).reshape(B, L, D)
+    out = group.all_reduce(routed)
+    if shared:
+        extra = group.all_reduce(shared, h[group.members[0]].dtype)
+        out = {d: out[d] + extra[d] for d in out}
+    return out
 
 
 def moe_dispatch_report(cfg: ModelConfig, tokens: int) -> dict:

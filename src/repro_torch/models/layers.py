@@ -47,6 +47,17 @@ class Weights(nn.Module):
             torch.empty(shape, dtype=torch.float32, device=device),
             requires_grad=False))
 
+    def out_product(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """``x @ w(name)``, the layer's output product.  In a split module
+        of a tensor-parallel rank (``tp_split``) the product is a partial
+        sum that the model group all-reduces: there it keeps its float32
+        accumulator (:func:`wide_product`), and the sum is rounded once to
+        x's dtype after the reduction, as the whole product rounds once."""
+        w = self.w(name, x.dtype)
+        if getattr(self, "tp_split", False) and x.dtype != torch.float32:
+            return wide_product(x, w)
+        return x @ w
+
     def w(self, name: str, dtype: torch.dtype) -> torch.Tensor:
         """Parameter ``name`` in ``dtype``: itself, its compute copy (only
         while it requires no grad: a copy carries no gradient and goes
@@ -84,6 +95,37 @@ def trainable(model: nn.Module) -> nn.Module:
         if isinstance(m, Weights):
             m._compute = {}
     return model
+
+
+class _WideProduct(torch.autograd.Function):
+    """``x @ w`` of low-precision operands returned in float32: the
+    products of bfloat16 values are exact in float32 and are summed in
+    float32 (the card's bfloat16 GEMM with a float32 output, ``torch.mm(...,
+    out_dtype=float32)``; on the CPU the operands widened first).  The
+    backward is the plain product's: the output gradient (bfloat16 values)
+    in x's dtype, times each operand."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.device.type == "cpu":
+            out = x2.float() @ w.float()
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return g @ w.T, gw
+
+
+def wide_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` ([..., K] @ [K, N], one dtype) with a float32 output."""
+    return _WideProduct.apply(x, w)
 
 
 def glorot(shape, gen: torch.Generator, device=None) -> torch.Tensor:

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mixers as mix
@@ -132,15 +133,7 @@ class LM(Weights):
         cfg = self.cfg
         dt = compute_dtype(cfg)
         x = self.w("embed", dt)[batch["tokens"]]
-        if batch.get("embeds") is not None:
-            x = torch.cat([batch["embeds"].to(dt), x], dim=1)
-        B, L, _ = x.shape
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(L, device=x.device).expand(B, L)
-            if cfg.mrope_sections:
-                positions = positions[..., None].expand(B, L, 3)
-        return x, positions
+        return _with_prefix(cfg, batch, x)
 
     def forward(self, batch: dict, last_only: bool = False) -> torch.Tensor:
         """Full-sequence forward (training and prefill).  Logits [B, L,
@@ -173,6 +166,21 @@ class LM(Weights):
         return logits[:, 0, :cfg.vocab]
 
 
+def _with_prefix(cfg: ModelConfig, batch: dict, x: torch.Tensor):
+    """Token embeddings ``x`` behind the frontend-stub embeddings (when
+    the batch has them), and the positions ([B, L], or [B, L, 3] for
+    M-RoPE)."""
+    if batch.get("embeds") is not None:
+        x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+    B, L, _ = x.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(L, device=x.device).expand(B, L)
+        if cfg.mrope_sections:
+            positions = positions[..., None].expand(B, L, 3)
+    return x, positions
+
+
 def run_cycle(cycle: nn.ModuleDict, x, positions):
     """One pass over the mixer pattern."""
     for j in range(len(cycle)):
@@ -195,8 +203,9 @@ def sharded_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     The reference picks the target logit with a one-hot contraction (which
     keeps a vocab axis sharded); here it is a ``gather``, the same number
     for finite logits (the one-hot sum adds exact zeros) without a
-    [B, L, V] one-hot.  The port has no vocab sharding; the name is the
-    reference's."""
+    [B, L, V] one-hot.  On a model group the vocabulary is split over
+    the ranks and :func:`xent_tp` reduces the same three terms across
+    them."""
     logits = logits.float()
     m = logits.amax(dim=-1, keepdim=True).detach()
     lse = m.squeeze(-1) + torch.log(torch.exp(logits - m).sum(dim=-1))
@@ -211,6 +220,131 @@ def lm_loss(model: LM, batch: dict) -> torch.Tensor:
     n_prefix = 0 if batch.get("embeds") is None else batch["embeds"].shape[1]
     targets = batch["tokens"][:, 1:]
     return sharded_xent(logits[:, n_prefix:-1], targets).mean()
+
+
+# ------------------------------------------------------------ model group
+# The forward and loss on a tensor-parallel model group
+# (``distributed/tensor_parallel.py``): ``models[r]`` is rank r's local
+# replica, ``feeds[device]`` the batch on each member device; a
+# replicated activation is one tensor per device (``tp.Rep``).
+def vocab_embed_tp(group, models: dict, feeds: dict, dtype) -> dict:
+    """The token embeddings on every device: a vocabulary-parallel lookup
+    (ids outside a rank's rows give zeros) all-reduced, or where the
+    vocabulary does not split, the whole table's lookup on each
+    device."""
+    if not getattr(models[group.members[0]], "tp_split", False):
+        return {d: models[r].w("embed", dtype)[feeds[d]["tokens"]]
+                for d, r in group.places().items()}
+    parts = {}
+    for r in group.members:
+        w = models[r].w("embed", dtype)
+        ids = feeds[group.devices[r]]["tokens"] - r * w.shape[0]
+        inside = (ids >= 0) & (ids < w.shape[0])
+        parts[r] = torch.where(inside[..., None],
+                               w[torch.where(inside, ids, 0)], 0)
+    return group.all_reduce(parts)
+
+
+def layer_tp(group, layers: dict, x: dict, positions: dict) -> dict:
+    """:meth:`Layer.forward` on the group."""
+    l0 = layers[group.members[0]]
+    eps = l0.cfg.norm_eps
+    dt = compute_dtype(l0.cfg)
+    h = tp.norm_each(group, layers, "mixer_norm", x, eps)
+    mixers = {r: layers[r].mixer for r in group.members}
+    ssd = isinstance(l0.mixer, mix.SSD)
+    x = tp.residual(x, tp.branch(
+        group, mixers, lambda m, r: m(h[r], group.at(positions, r)), dt,
+        (lambda g, mods: g.all_reduce(mix.ssd_partials(g, mods, h), dt))
+        if ssd else None))
+    if l0.ffn is None:
+        return x
+    h = tp.norm_each(group, layers, "ffn_norm", x, eps)
+    ffns = {r: layers[r].ffn for r in group.members}
+    moe = isinstance(l0.ffn, ffn_lib.MoEFFN)
+    return tp.residual(x, tp.branch(
+        group, ffns, lambda m, r: m(h[r]), dt,
+        (lambda g, mods: ffn_lib.moe_tp(g, mods, h)) if moe else None))
+
+
+def run_cycle_tp(group, cycles: dict, x: dict, positions: dict) -> dict:
+    """:func:`run_cycle` on the group."""
+    for j in range(len(cycles[group.members[0]])):
+        x = layer_tp(group, {r: c[f"layer{j}"] for r, c in cycles.items()},
+                     x, positions)
+    return x
+
+
+def logits_tp(group, models: dict, x: dict, last_only: bool) -> dict:
+    """The final norm and the unembedding: each rank's logits over its
+    vocabulary rows (``{rank: [B, L, V / T]}``), or where the vocabulary
+    does not split, the whole logits on each device (by its first
+    member)."""
+    m0 = models[group.members[0]]
+    ranks = (group.members if getattr(m0, "tp_split", False)
+             else tuple(group.places().values()))
+    out = {}
+    for r in ranks:
+        m = models[r]
+        y = rms_norm(group.at(x, r), m.final_norm, m.cfg.norm_eps)
+        if last_only:
+            y = y[:, -1:]
+        head = (m.head(y.dtype) if isinstance(m, LM)
+                else m.w("lm_head", y.dtype))
+        out[r] = y @ head
+    return out
+
+
+def forward_tp(group, models: dict, feeds: dict,
+               last_only: bool = False) -> dict:
+    """:meth:`LM.forward` on the group: :func:`logits_tp`'s blocks."""
+    m0 = models[group.members[0]]
+    cfg = m0.cfg
+    x, positions = {}, {}
+    for d, t in vocab_embed_tp(group, models, feeds,
+                               compute_dtype(cfg)).items():
+        x[d], positions[d] = _with_prefix(cfg, feeds[d], t)
+    for c in range(len(m0.cycles)):
+        x = remat_call(cfg, run_cycle_tp, group,
+                       {r: models[r].cycles[c] for r in group.members}, x,
+                       positions)
+    for i in range(len(m0.tail)):
+        x = layer_tp(group, {r: models[r].tail[i] for r in group.members},
+                     x, positions)
+    return logits_tp(group, models, x, last_only)
+
+
+def xent_tp(group, models: dict, logits: dict, targets: dict) -> dict:
+    """:func:`sharded_xent` of :func:`logits_tp`'s blocks, on every
+    device: the max over the ranks (no gradient), the sum of exps over the
+    ranks, and the target logit from the rank whose rows hold it, each
+    all-reduced over [B, L]."""
+    if not getattr(models[group.members[0]], "tp_split", False):
+        return {group.devices[r]: sharded_xent(t, targets[group.devices[r]])
+                for r, t in logits.items()}
+    lf = {r: t.float() for r, t in logits.items()}
+    m = group.all_max({r: t.amax(dim=-1, keepdim=True).detach()
+                       for r, t in lf.items()})
+    s = group.all_reduce({r: torch.exp(t - group.at(m, r)).sum(dim=-1)
+                          for r, t in lf.items()})
+    picked = {}
+    for r, t in lf.items():
+        ids = group.at(targets, r).long() - r * t.shape[-1]
+        inside = (ids >= 0) & (ids < t.shape[-1])
+        got = torch.gather(t, -1, torch.where(inside, ids, 0)[..., None])
+        picked[r] = torch.where(inside, got.squeeze(-1), 0.0)
+    tgt = group.all_reduce(picked)
+    return {d: m[d].squeeze(-1) + torch.log(s[d]) - tgt[d] for d in s}
+
+
+def lm_loss_tp(group, models: dict, feeds: dict) -> torch.Tensor:
+    """:func:`lm_loss` on the group, on its home device."""
+    logits = forward_tp(group, models, feeds)
+    home = feeds[group.home]
+    n_prefix = 0 if home.get("embeds") is None else home["embeds"].shape[1]
+    logits = {r: t[:, n_prefix:-1] for r, t in logits.items()}
+    targets = {d: f["tokens"][:, 1:] for d, f in feeds.items()}
+    return xent_tp(group, models, logits, targets)[group.home].mean()
 
 
 # ------------------------------------------------------------------ API

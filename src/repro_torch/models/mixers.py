@@ -91,7 +91,7 @@ class Attention(Weights):
         out = _attention(cfg)(q, k, v, causal=cfg.causal, window=cfg.window,
                               causal_skip=cfg.flash_causal_skip)
         B, L = x.shape[:2]
-        return out.reshape(B, L, -1) @ self.w("wo", x.dtype)
+        return self.out_product(out.reshape(B, L, -1), "wo")
 
     @staticmethod
     def cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
@@ -179,7 +179,7 @@ class MLA(Weights):
         out = _attention(cfg)(q, k, v_p, causal=True,
                               causal_skip=cfg.flash_causal_skip)
         out = out[..., :cfg.v_head_dim].reshape(B, L, H * cfg.v_head_dim)
-        return out @ self.w("wo", x.dtype)
+        return self.out_product(out, "wo")
 
     @staticmethod
     def cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
@@ -298,7 +298,7 @@ class RGLRU(Weights):
         a, gated = self._gates(u)
         h = lru_scan(a, gated)
         y = h.to(x.dtype) * gelu(g)
-        return y @ self.w("w_out", x.dtype)
+        return self.out_product(y, "w_out")
 
     @staticmethod
     def cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
@@ -379,6 +379,9 @@ class SSD(Weights):
         self.cfg = cfg
         D = cfg.d_model
         di, n, H = cfg.d_inner, cfg.d_state, cfg.n_ssd_heads
+        # the widths the forward reads: a tensor-parallel rank's module
+        # holds its heads' share of d_inner and of the heads
+        self.d_inner, self.d_state, self.n_heads = di, n, H
         self.param("w_in", D, 2 * di + 2 * n + H, device=device)  # z,x,B,C,dt
         self.param("conv_w", cfg.conv_width, di + 2 * n, device=device)
         self.param("conv_b", di + 2 * n, device=device)
@@ -404,23 +407,30 @@ class SSD(Weights):
         self.w_out.copy_(glorot(self.w_out.shape, gen, self.w_out.device))
 
     def _proj(self, x):
-        cfg = self.cfg
-        di, n = cfg.d_inner, cfg.d_state
+        di, n = self.d_inner, self.d_state
         zxbcdt = x @ self.w("w_in", x.dtype)
         return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
                 zxbcdt[..., 2 * di + 2 * n:])
 
-    def _post(self, y, z, x_in, d_skip):
-        cfg = self.cfg
+    def _gated(self, y, z, x_in, d_skip):
+        """The D skip and the output gate: what ``out_norm`` normalizes."""
         b, l = y.shape[:2]
-        y = (y + d_skip * x_in).reshape(b, l, cfg.d_inner)   # D skip
-        y = rms_norm(y * silu(z), self.out_norm, cfg.norm_eps)
+        y = (y + d_skip * x_in).reshape(b, l, self.d_inner)   # D skip
+        return y * silu(z)
+
+    def _post(self, y, z, x_in, d_skip):
+        y = rms_norm(self._gated(y, z, x_in, d_skip), self.out_norm,
+                     self.cfg.norm_eps)
         return y @ self.w("w_out", y.dtype)
 
     def forward(self, x, positions):
         del positions
+        return self._post(*self._scan(x), self.w("d_skip", x.dtype)[:, None])
+
+    def _scan(self, x):
+        """The projection, the conv and the chunked scan: (y, z, x_in)."""
         cfg = self.cfg
-        di, n, H, P = cfg.d_inner, cfg.d_state, cfg.n_ssd_heads, cfg.ssd_head_dim
+        di, n, H, P = self.d_inner, self.d_state, self.n_heads, cfg.ssd_head_dim
         z, xbc, dt_raw = self._proj(x)
         xbc = silu(causal_conv(xbc, self.conv_w, self.conv_b))
         x_in = xbc[..., :di].reshape(*x.shape[:2], H, P)
@@ -431,7 +441,7 @@ class SSD(Weights):
         x_dt = x_in * dt[..., None].to(x.dtype)
         y = ssd_scan(x_dt.float(), dA, Bm.float(), Cm.float(),
                      cfg.ssd_chunk).to(x.dtype)
-        return self._post(y, z, x_in, self.w("d_skip", x.dtype)[:, None])
+        return y, z, x_in
 
     @staticmethod
     def cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
@@ -445,7 +455,7 @@ class SSD(Weights):
     def decode(self, x, cache, pos):
         del pos
         cfg = self.cfg
-        di, n, H, P = cfg.d_inner, cfg.d_state, cfg.n_ssd_heads, cfg.ssd_head_dim
+        di, n, H, P = self.d_inner, self.d_state, self.n_heads, cfg.ssd_head_dim
         B = x.shape[0]
         z, xbc, dt_raw = self._proj(x)
         hist = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)], dim=1)
@@ -467,6 +477,31 @@ class SSD(Weights):
         cache["conv"].copy_(hist[:, 1:])
         y = y[:, None].to(x.dtype)                               # [B,1,H,P]
         return self._post(y, z, x_in, self.w("d_skip", x.dtype)[:, None])
+
+
+def ssd_partials(group, mods: dict, h: dict) -> dict:
+    """The split SSD on a tensor-parallel model group: each rank runs its
+    heads (``mods[r]`` holds their share of ``w_in``, the conv, the
+    per-head tables and ``out_norm``; B and C whole), ``out_norm``'s mean
+    square is the all-reduced sum of the ranks' squares over the whole
+    ``d_inner``, and each rank's rows of ``w_out`` give its partial of the
+    output."""
+    gated = {}
+    for r in group.members:
+        m = mods[r]
+        y, z, x_in = m._scan(h[r])
+        gated[r] = m._gated(y, z, x_in, m.w("d_skip", h[r].dtype)[:, None])
+    sq = group.all_reduce({r: (g.float() * g.float()).sum(dim=-1,
+                                                         keepdim=True)
+                           for r, g in gated.items()})
+    out = {}
+    for r, g in gated.items():
+        m = mods[r]
+        var = group.at(sq, r) / m.cfg.d_inner
+        y = ((g.float() * torch.rsqrt(var + m.cfg.norm_eps))
+             * m.out_norm.float()).to(g.dtype)
+        out[r] = m.out_product(y, "w_out")
+    return out
 
 
 # ===================================================================== registry

@@ -102,28 +102,28 @@ def adamw_update(grads: dict, opt_state: dict, params: dict,
 
 
 @torch.no_grad()
-def sharded_adamw_update(grads: dict, opt_state: dict, params: dict,
-                         cfg: AdamWConfig) -> dict:
+def sharded_adamw_update(grads: dict, sq_sums, opt_state: dict,
+                         params: dict, cfg: AdamWConfig) -> dict:
     """:func:`adamw_update` on a state placed by the sharding rules:
     ``params``, ``opt_state["mu"]`` and ``["nu"]`` map each name to a
     :class:`~repro_torch.distributed.sharding.Sharded` leaf, ``grads`` to
-    the whole reduced gradient (or None for a zero one).  The global norm
-    is that of the whole gradients, summed leaf by leaf as
-    :func:`adamw_update` sums it; then each copy of each block is updated
-    on its own device from its slice of the gradient.  Where every block
-    lies on the gradients' device this is :func:`adamw_update`'s
-    arithmetic, bitwise, however the leaves are cut."""
-    g32 = {n: (grads[n].float() if grads.get(n) is not None
-               else torch.zeros(leaf.shape, dtype=torch.float32,
-                                device=leaf.device))
-           for n, leaf in params.items()}
-    step, k, gnorm = _step_scalars(
-        cfg, opt_state, (torch.sum(torch.square(g)) for g in g32.values()))
+    ``{block index: the gradient of that stored block}`` (each block once,
+    however many devices hold it) or None for a zero gradient.  The
+    global norm is the square root of the sum of ``sq_sums``, the sums of
+    squares of the whole gradient's distinct parts in a fixed order
+    (``launch.steps.stored_grads``); then each copy of each stored block
+    is updated on its own device from its block's gradient.  Where each
+    part is a whole leaf's gradient, summed in ``params``' order, this is
+    :func:`adamw_update`'s arithmetic, bitwise, however the leaves are
+    cut."""
+    step, k, gnorm = _step_scalars(cfg, opt_state, sq_sums)
     for n, leaf in params.items():
-        g = g32.pop(n)
+        g = grads.get(n)
         mu, nu = opt_state["mu"][n].tensors, opt_state["nu"][n].tensors
         for key, p in leaf.tensors.items():
-            _apply(cfg, p, g[leaf.slices(key[0])].to(p.device), mu[key],
-                   nu[key], k)
+            part = (g[key[0]].float() if g is not None
+                    else torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device))
+            _apply(cfg, p, part.to(p.device), mu[key], nu[key], k)
     opt_state["step"].copy_(step)
     return {"grad_norm": gnorm, "lr": k["lr"]}

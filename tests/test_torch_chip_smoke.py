@@ -24,6 +24,18 @@ def smoke():
     return mod
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the LM rehearsals: their tensor-parallel
+    steps are thousands of small ops, and with the suite's parallel
+    workers each spreading every op over all cores, they spent 40x longer
+    waiting for each other than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _meta(*shape):
     return torch.empty(shape, dtype=torch.float32, device="meta")
 
@@ -381,13 +393,20 @@ def test_train_work_counts_the_step(smoke):
         1e3 * (work["flops"] / 989e12 + 28 * n / 3.35e12), rel=1e-12)
 
 
-def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch,
+                                                    one_thread):
     """``chip_smoke.py``'s LM distribution phase on reduced qwen2.5-3b on
-    the CPU (the calls that need the card stubbed): the sharded steps with
-    every shard's bytes as its spec predicts, the loss falling and every
-    step bitwise the single-device step's, ``psum8`` within its budget,
-    the pipeline bitwise its serial run, the elastic restore bitwise onto
-    ``(1, 2)`` and a finite step after it, the ``(1, 1)`` mesh bitwise."""
+    the CPU (the calls that need the card stubbed): the tensor-parallel
+    steps on ``(2, 2)`` and ``(1, 4)`` with every shard's bytes as its
+    spec predicts, the loss falling and the reference's gates against the
+    single-device run's (the row-parallel sums reassociate: the first
+    step's loss and gradient norm, the parameters after the last),
+    ``psum8`` within its budget, the pipeline bitwise its serial run, the
+    elastic restore bitwise onto ``(1, 2)`` and a finite step after it,
+    the ``(1, 1)`` mesh bitwise, reduced deepseek-v2-lite-16b on one
+    device and on ``(1, 4)`` within the gates, one float32 step of each
+    on its tensor-parallel meshes within the float32 gates, and the
+    reversed-microbatch witness beside the tensor-parallel runs."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.reduced import reduce_config
     from repro_torch.data.lm import TokenPipeline
@@ -417,12 +436,37 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch):
         state, m = step(state, feed)
         single["losses"].append(m["loss"].item())
         single["grad_norms"].append(m["grad_norm"].item())
+    single.update(params_steps=smoke.DIST_STEPS, params_host={
+        n: p.detach().clone() for n, p in state["params"].named_parameters()})
+    moe_cfg = reduce_config(ARCHS[smoke.TP_MOE_ARCH])
     out = smoke.drive_distributed(torch, cpu, cfg, single=single,
-                                  batch=batch, seq=seq)
+                                  batch=batch, seq=seq, moe_cfg=moe_cfg)
     train = out["train"]
     assert len(train["losses"]) == smoke.DIST_STEPS
-    assert train["bitwise_single"] is True
-    assert train["losses"] == single["losses"]
+    for run, mesh in ((train, smoke.DIST_MESH),
+                      (out["train_tp"], smoke.TP_MESH),
+                      (out["moe"]["sharded"], smoke.TP_MESH)):
+        assert run["mesh"] == mesh and run["bitwise_single"] is not None
+        gates = run["gates"]
+        assert gates["first_loss_diff"] < smoke.TP_LOSS_TOL
+        assert gates["first_norm_rel"] < smoke.TP_NORM_TOL
+        assert gates["max_param_diff"] < smoke.TP_PARAM_TOL
+        assert run["tp_bytes"]["all-reduce"]["forward"] > 0
+    assert out["moe"]["single"]["arch"] == moe_cfg.name
+    f32 = out["f32_tp"]
+    assert [r["arch"] for r in f32] == [cfg.name, moe_cfg.name]
+    assert [[g["mesh"] for g in r["meshes"]] for r in f32] == [
+        [smoke.DIST_MESH, smoke.TP_MESH], [smoke.TP_MESH]]
+    for got in f32[0]["meshes"] + f32[1]["meshes"]:
+        assert got["loss_diff"] < smoke.F32_LOSS_TOL
+        assert got["norm_rel"] < smoke.F32_NORM_TOL
+        assert 0 < got["grad_rel"] < smoke.F32_GRAD_TOL
+        assert np.isfinite(got["change_diff"])
+    witness = out["witness"]
+    assert list(witness) == ["reversed microbatches", str(smoke.DIST_MESH),
+                             str(smoke.TP_MESH)]
+    assert all(len(w["loss_diff"]) == smoke.DIST_STEPS
+               for w in witness.values())
     assert out["mesh_1x1_full"]["bitwise_single"] is True
     assert out["mesh_1x1_full"]["mesh"] == (1, 1)
     assert train["losses"][-1] < train["losses"][0]
@@ -439,7 +483,8 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     assert out["mesh_1x1"] is True
 
 
-def test_lm_dryrun_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+def test_lm_dryrun_phase_rehearses_on_the_cpu(smoke, monkeypatch,
+                                              one_thread):
     """``chip_smoke.py``'s LM dry-run phase on reduced qwen2.5-3b on the
     CPU (the calls that need the card stubbed): the meta count of the
     train step on the (1, 1) mesh, its FLOPs equal to ``FlopCounterMode``
@@ -464,6 +509,9 @@ def test_lm_dryrun_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     flops = out["counted"]["cost"]["flops"]
     assert out["card"]["flops"] == flops > 0
     assert out["counted"]["busiest"]["microbatches"] == 4
+    assert out["tp_card"]["flops"] == sum(r["flops"] for r in out[
+        "tp_ranks"]) > 0
+    assert [r["busiest"]["model_group"] for r in out["tp_ranks"]] == [2, 2]
     causes = out["causes"]
     assert causes["early_stop"] == 0 and causes["full_chunks"] > 0
     assert out["train_work"]["flops"] + causes["full_chunks"] == flops

@@ -41,6 +41,7 @@ from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.reduced import reduce_config
 from repro_torch.distributed import sharding as ts
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch import dryrun, report
 from repro_torch.launch import roofline as rl
 from repro_torch.launch import steps
@@ -333,6 +334,21 @@ def test_step_collectives_from_the_rules():
                    "all-to-all": 0, "collective-permute": 0}
     serve = rl.step_collectives(mesh, {"params": state["params"]})
     assert serve == dict(got, **{"all-reduce": 0, "reduce-scatter": 0})
+    # a model rank's compute blocks: only those its coordinate does not
+    # hold as its stored block are gathered (here everything split over
+    # data, and nothing re-sliced), and the group's tally adds on
+    plan = steps.MeshCompute(bundle, mesh).plan(0)
+    tally = tp.Tally()
+    tally.add("all-reduce", "forward", 7)
+    tally.add("all-gather", "forward", 5)
+    ranked = rl.step_collectives(mesh, state, plan.splits, (0, 0), tally)
+    ag = sum(int(np.prod(plan.splits[n].local_shape(l.shape)
+                         if n in plan.splits else l.shape)) * 4
+             for n, l in state["params"].items()
+             if not tp.held_block(l, plan.splits.get(n), (0, 0)))
+    assert ranked == dict(got, **{"all-gather": ag + 5,
+                                  "all-reduce": ar + 7})
+    assert 0 < ag < got["all-gather"]
     one = Mesh.on("meta", (1, 1), ("data", "model"))
     assert not any(rl.step_collectives(
         one, steps.abstract_state(bundle, one)).values())
@@ -351,7 +367,8 @@ def test_train_count_scales_one_microbatch_to_the_unscaled_step():
     shape = ShapeConfig("t", 16, 8, "train")
     counted = dryrun.count_cell(cfg, shape, mesh)
     assert counted["busiest"] == dict(coord=[0, 0], microbatches=4, rows=2,
-                                      compute_devices=1)
+                                      compute_devices=1, model_group=1,
+                                      whole_layers=[])
     bundle = build_model(cfg)
     state = steps.abstract_state(bundle, mesh)
     step = steps.make_train_step(bundle, AdamWConfig(), mesh=mesh)
@@ -366,21 +383,29 @@ def test_train_count_scales_one_microbatch_to_the_unscaled_step():
     assert mem["activation_bytes"] == whole["peak_bytes"] - whole[
         "held_bytes"]
     assert counted["collectives"] == dict.fromkeys(rl.COLLECTIVES, 0)
+    assert counted["tp_collectives"] == {}
 
 
 def test_serving_counts_gather_the_replica_and_cache():
     """Reduced deepseek-v2-lite-16b (MLA + MoE) on a (data 2, model 2)
     mesh: a decode cell's device runs its dp rank's rows against their
-    cache, gathers the parameters not whole on it and the cache leaves
-    split over ``model``; ``infer_tp`` keeps the parameters off the data
-    axis; a prefill cell runs the prefill step on its rows."""
+    cache on the whole replica, gathers the parameters not whole on it
+    and the cache leaves split over ``model``; ``infer_tp`` keeps the
+    parameters off the data axis; a prefill cell runs model rank 0's
+    share of the tensor-parallel prefill step on its rows, its layer
+    all-reduces and the gathered logits tallied."""
     cfg = reduce_config(ARCHS["deepseek-v2-lite-16b"])
     mesh = Mesh.on("meta", (2, 2), ("data", "model"))
     dec = dryrun.count_cell(cfg, ShapeConfig("d", 64, 4, "decode"), mesh)
     tp = dryrun.count_cell(cfg, ShapeConfig("d", 64, 4, "decode"), mesh,
                            ("infer_tp",))
     pre = dryrun.count_cell(cfg, ShapeConfig("p", 64, 4, "prefill"), mesh)
-    assert dec["busiest"] == dict(coord=[0, 0], rows=2, compute_devices=2)
+    assert dec["busiest"] == dict(coord=[0, 0], rows=2, compute_devices=2,
+                                  model_group=1, whole_layers=[])
+    assert pre["busiest"] == dict(coord=[0, 0], rows=2, compute_devices=4,
+                                  model_group=2, whole_layers=[])
+    assert set(pre["tp_collectives"]) == {"all-reduce", "all-gather"}
+    assert dec["tp_collectives"] == {}
     assert dec["cost"]["flops"] > 0 and pre["cost"]["flops"] > dec["cost"][
         "flops"]
     assert dec["collectives"]["all-gather"] > 0
@@ -451,9 +476,10 @@ def test_report_main_names_each_mesh_by_its_shape(tmp_path, capsys):
     report.main(["--out", str(tmp_path), "--what", "cells"])
     lines = capsys.readouterr().out.splitlines()
     assert ("| deepseek-v2-236b | train_4k | ok / ok | 71.2 / 71.2 | 5.0 / "
-            "5.0 | 2.5 / 2.5 | 0.30 / 0.30 | compute / memory |") in lines
+            "5.0 | 2.5 / 2.5 | 0.01 / 0.01 | 0.30 / 0.30 | 0 / 0 | "
+            "compute / memory |") in lines
     assert ("| mamba2-780m | train_4k | missing / failed | — / — | — / — | "
-            "— / — | — / — | — / — |") in lines
+            "— / — | — / — | — / — | — / — | — / — |") in lines
     assert len([l for l in lines if l.startswith("| ") and "---" not in l
                 and not l.startswith("| arch")]) == 5
 
@@ -491,9 +517,15 @@ def test_dryrun_cli_writes_the_reference_keys(reduced_cell, tmp_path,
     assert mem["peak_per_device_gb"] == round(
         (mem["shard_bytes"] + mem["replica_bytes"] + mem["activation_bytes"])
         / 1e9, 3)
-    # 32 rows in 4 microbatches over 16 data ranks: 4 devices run one each
+    # 32 rows in 4 microbatches over 16 data ranks: 4 model groups of 16
+    # devices run one each; the reduced config's 4 heads do not divide
+    # over 16 ranks, so its attention layers run whole
     assert r["busiest"]["microbatches"] == 1
-    assert r["busiest"]["compute_devices"] == 4
+    assert r["busiest"]["compute_devices"] == 64
+    assert r["busiest"]["model_group"] == 16
+    assert r["busiest"]["whole_layers"] == ["cycles.0.layer0.mixer",
+                                            "cycles.1.layer0.mixer"]
+    assert r["tp_collectives"]["all-reduce"]["forward"] > 0
     assert r["model_flops"] == rl.model_flops(configs.ARCHS["qwen2.5-3b"],
                                               configs.SHAPES["train_4k"])
     dryrun.main(["--arch", "qwen2.5-3b", "--shape", "long_500k", "--out",
@@ -516,14 +548,32 @@ def test_dryrun_all_skips_done_cells_and_records_a_timeout(tmp_path,
     for arch, shape, mesh in cells:
         if (arch, shape, mesh) != missing:
             (tmp_path / f"{arch}__{shape}__{mesh}.json").write_text("{}")
-    ran = []
+    ran, clock = [], [0.0]
 
-    def run(cmd, timeout):
-        ran.append(cmd)
-        raise subprocess.TimeoutExpired(cmd, timeout)
+    class Hung:
+        """A cell subprocess that never ends until it is killed."""
 
-    monkeypatch.setattr(subprocess, "run", run)
+        def __init__(self, cmd):
+            ran.append(cmd)
+            self.rc = None
+
+        def poll(self):
+            return self.rc
+
+        def kill(self):
+            self.rc = -9
+
+        def wait(self):
+            return self.rc
+
+    def sleep(s):
+        clock[0] += s
+
+    monkeypatch.setattr(subprocess, "Popen", Hung)
+    monkeypatch.setattr(dryrun.time, "sleep", sleep)
+    monkeypatch.setattr(dryrun.time, "time", lambda: clock[0])
     dryrun.main(["--all", "--out", str(tmp_path), "--timeout", "7"])
+    assert clock[0] > 7
     assert len(ran) == 1 and ran[0][3:9] == [
         "--arch", "mamba2-780m", "--shape", "long_500k", "--mesh", "multi"]
     r = json.loads((tmp_path / "mamba2-780m__long_500k__multi.json")
@@ -533,3 +583,48 @@ def test_dryrun_all_skips_done_cells_and_records_a_timeout(tmp_path,
     assert "complete: 79 ok/skipped, 1 failed of 80" in capsys.readouterr().out
     assert all((tmp_path / f"{a}__{s}__{m}.json").read_text() == "{}"
                for a, s, m in cells if (a, s, m) != missing)
+
+
+def test_dryrun_all_jobs_counts_cells_side_by_side(tmp_path, monkeypatch,
+                                                   capsys):
+    """``--all --jobs 3`` keeps up to three cell subprocesses running,
+    starts only the cells not yet written, and writes a cell whose
+    subprocess fails as ``failed``."""
+    import subprocess
+
+    cells = list(dryrun.all_cells())
+    todo = [c for c in cells if c[0] == "qwen2.5-3b"][:5]
+    for arch, shape, mesh in [c for c in cells if c not in todo]:
+        (tmp_path / f"{arch}__{shape}__{mesh}.json").write_text("{}")
+    started, live, most = [], [], [0]
+
+    class Cell:
+        def __init__(self, cmd):
+            self.cell = (cmd[4], cmd[6], cmd[8])
+            self.polls = 0
+            started.append(self.cell)
+            live.append(self)
+            most[0] = max(most[0], len(live))
+
+        def poll(self):
+            self.polls += 1
+            if self.polls < 3:
+                return None
+            live.remove(self)
+            if self.cell == todo[0]:
+                return 1
+            (tmp_path / f"{'__'.join(self.cell)}.json").write_text(
+                '{"status": "ok"}')
+            return 0
+
+    monkeypatch.setattr(subprocess, "Popen", Cell)
+    monkeypatch.setattr(dryrun.time, "sleep", lambda s: None)
+    dryrun.main(["--all", "--jobs", "3", "--out", str(tmp_path)])
+    # the 32k prefills first, then the trains, decodes, long contexts
+    assert started == sorted(todo, key=lambda c: [
+        "prefill_32k", "train_4k", "decode_32k", "long_500k"].index(c[1]))
+    assert most[0] == 3
+    r = json.loads((tmp_path / f"{'__'.join(todo[0])}.json").read_text())
+    assert r == dict(zip(("arch", "shape", "mesh"), todo[0]),
+                     status="failed", returncode=1)
+    assert "complete: 79 ok/skipped, 1 failed of 80" in capsys.readouterr().out

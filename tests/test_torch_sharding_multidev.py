@@ -5,12 +5,18 @@ the port's own single-device paths, on the same numpy inputs:
 
 - sharded training: reduced phi3 (d 64, 2 layers) and reduced
   deepseek-v2-lite (MoE), microbatches 2, batch 8 x 16, one step on
-  ``(data 4, model 2)``, in bfloat16 and float32 compute: bitwise the
-  port's single-device step; loss within 1e-3 and parameters within 5e-3
-  of the reference's sharded step (its gates,
-  ``tests/test_sharding_multidev.py:113-117``), and in float32 the
-  gradient norm and each parameter's change within tight tolerances; the
-  ``(1, 1)`` mesh equals ``make_train_step`` bitwise for every arch;
+  ``(data 4, model 1)`` and ``(data 4, model 2)``, in bfloat16 and
+  float32 compute: on ``model`` 1 bitwise the port's single-device step,
+  on ``model`` 2 (tensor-parallel: the row-parallel sums reassociate)
+  within the reference's gates of it (loss 1e-3, parameters 5e-3,
+  ``tests/test_sharding_multidev.py:113-117``) and in float32 within the
+  float32 gates below; on both within the reference's gates of the
+  reference's sharded step, and in float32 the gradient norm and each
+  parameter's change within tight tolerances; the same against a second
+  reference run (its own subprocess, float32) of reduced qwen2.5-3b
+  (GQA), recurrentgemma-9b (RG-LRU), mamba2-780m (SSD) and
+  seamless-m4t-medium (enc-dec) on ``(data 4, model 2)``; the ``(1, 1)``
+  mesh equals ``make_train_step`` bitwise for every arch;
 - ``pipeline_apply``: within 1e-6 of the reference's and bitwise equal to
   the port's serial loop;
 - ``psum8`` on 8 rank inputs: bitwise equal to the reference's
@@ -40,6 +46,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCHS
 from repro_torch.configs.reduced import reduce_config
 from repro_torch.distributed import sharding as ts
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.pipeline import pipeline_apply
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import Mesh
@@ -120,17 +127,89 @@ _SCRIPT = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
-    path = tmp_path_factory.mktemp("ref_multidev") / "ref.pkl"
+# the reference's sharded step (float32) of the archs whose tensor-parallel
+# split the first script does not reach: GQA with 2 kv heads, RG-LRU with
+# local attention on 1 kv head, SSD, and the encoder-decoder
+TP_ARCHS = ("qwen2.5-3b", "recurrentgemma-9b", "mamba2-780m",
+            "seamless-m4t-medium")
+_TP_SCRIPT = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import dataclasses, json, pickle
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.configs import ARCHS
+    from repro.configs.reduced import reduce_config
+    from repro.models.registry import build_model
+    from repro.launch.mesh import make_mesh_for_devices
+    from repro.launch.steps import init_state, make_train_step
+    from repro.distributed.sharding import params_shardings, batch_shardings
+    from repro.optim.adamw import AdamWConfig
+
+    out = {}
+    mesh = make_mesh_for_devices(8, model_parallel=2)
+    for arch in json.loads(sys.argv[2]):
+        cfg = dataclasses.replace(reduce_config(ARCHS[arch]),
+                                  microbatches=2, dtype="float32")
+        bundle = build_model(cfg)
+        rng = np.random.default_rng(0)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (8, 16)).astype(
+            np.int32)}
+        if cfg.n_enc_layers:
+            batch["frames"] = rng.normal(size=(8, 16, cfg.d_model)).astype(
+                np.float32)
+        feed = {k: jnp.asarray(v) for k, v in batch.items()}
+        step = make_train_step(bundle, AdamWConfig(lr=1e-3, warmup_steps=0))
+        with mesh:
+            state = init_state(bundle)
+            init = jax.tree.map(np.asarray, state["params"])
+            state = dict(state, params=jax.device_put(
+                state["params"], params_shardings(state["params"], mesh)))
+            s2, m2 = jax.jit(step, in_shardings=(
+                None, batch_shardings(feed, mesh)))(state, feed)
+        out[arch] = {
+            "batch": batch, "init": init, "loss": float(m2["loss"]),
+            "grad_norm": float(m2["grad_norm"]),
+            "params": jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                   s2["params"])}
+    with open(sys.argv[1], "wb") as fh:
+        pickle.dump(out, fh)
+    print("RESULT:" + json.dumps({"ok": True}))
+""")
+
+
+def _run_reference(path, script, *args):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(
         os.path.join(os.path.dirname(__file__), "..", "src")))
-    proc = subprocess.run([sys.executable, "-c", _SCRIPT, str(path)],
+    proc = subprocess.run([sys.executable, "-c", script, str(path), *args],
                           env=env, capture_output=True, text=True,
                           timeout=900)
     assert proc.returncode == 0, proc.stderr[-3000:]
     with open(path, "rb") as fh:          # written by the script above
         return pickle.load(fh)
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return _run_reference(tmp_path_factory.mktemp("ref_multidev") / "ref.pkl",
+                          _SCRIPT)
+
+
+@pytest.fixture(scope="module")
+def ref_tp(tmp_path_factory):
+    return _run_reference(tmp_path_factory.mktemp("ref_tp") / "ref.pkl",
+                          _TP_SCRIPT, json.dumps(TP_ARCHS))
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: a tensor-parallel step of a reduced arch is
+    thousands of small ops, and with the suite's parallel workers each
+    spreading every op over all cores, they spent 40x longer waiting for
+    each other than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def mesh_of(data, model):
@@ -167,12 +246,13 @@ def flatten(tree, prefix=""):
             for k, v in flatten(sub, f"{prefix}{key}/").items()}
 
 
-def single_and_sharded(cfg, init_tree, tokens, mesh):
+def single_and_sharded(cfg, init_tree, tokens, mesh, batch=None):
     """One step of the port from the reference's parameters: single
     device and sharded on ``mesh``; returns ((metrics, {name: tensor}),
-    (metrics, state))."""
+    (metrics, state)).  ``batch``: numpy inputs (default ``tokens``)."""
     bundle = build_model(cfg)
-    batch = {"tokens": torch.as_tensor(tokens).long()}
+    batch = ({k: torch.as_tensor(v) for k, v in batch.items()} if batch
+             else {"tokens": torch.as_tensor(tokens).long()})
     model = bundle.params_from_jax(init_tree, device=CPU)
     single = steps.train_state(bundle, model)
     _, m1 = steps.make_train_step(bundle, OPT)(single, batch)
@@ -182,34 +262,19 @@ def single_and_sharded(cfg, init_tree, tokens, mesh):
     return (m1, dict(single["params"].named_parameters())), (m2, sharded)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "deepseek-v2-lite-16b"])
-def test_sharded_training_matches_single_device_and_reference(arch, dtype,
-                                                              ref):
-    """One step on ``(data 4, model 2)`` from the reference's parameters:
-    bitwise the port's single-device step (every coordinate on one device,
-    so one replica and the same arithmetic), and within the reference's
-    gates of its sharded step.  In float32 also the gradient norm (rel
-    ``F32_NORM_TOL``), the loss (``F32_LOSS_TOL``) and each parameter's
-    change from its initial value (``F32_CHANGE_TOL``): the first AdamW
-    step moves an element by about the learning rate, which the parameter
-    gate would not see."""
-    r = ref[(arch, dtype)]
-    (m1, single), (m2, sharded) = single_and_sharded(
-        reduced(arch, dtype=dtype), r["init"], r["tokens"], mesh_of(4, 2))
-    for k in ("loss", "grad_norm", "lr"):
-        assert torch.equal(m1[k], m2[k]), k
-    f32 = dtype == "float32"
+def assert_within_reference_gates(r, m2, sharded, f32):
+    """The port's sharded step (``m2``, ``sharded``) within the
+    reference's gates of the reference's sharded step ``r``; in float32
+    the gradient norm and each parameter's change within the float32
+    gates."""
     assert abs(m2["loss"].item() - r["loss"]) \
         < (F32_LOSS_TOL if f32 else LOSS_TOL)
     if f32:
         assert m2["grad_norm"].item() == pytest.approx(r["grad_norm"],
                                                        rel=F32_NORM_TOL)
     flat_ref, flat_init = flatten(r["params"]), flatten(r["init"])
-    assert len(sharded["params"]) == len(single)
     for name, leaf in sharded["params"].items():
         got = ts.unshard(leaf, CPU)
-        assert torch.equal(got, single[name]), name
         want = ref_leaf(flat_ref, name)
         assert np.abs(got.numpy() - want).max() < PARAM_TOL, name
         if f32:
@@ -218,6 +283,64 @@ def test_sharded_training_matches_single_device_and_reference(arch, dtype,
                 < F32_CHANGE_TOL, name
         assert ts.normalize(leaf.spec) == ts.normalize(
             ts.param_spec(name, leaf.shape, leaf.mesh))
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (4, 2)], ids=["4x1", "4x2"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "deepseek-v2-lite-16b"])
+def test_sharded_training_matches_single_device_and_reference(arch, dtype,
+                                                              shape, ref):
+    """One step on ``(data 4, model shape[1])`` from the reference's
+    parameters.  With ``model`` 1: bitwise the port's single-device step
+    (every coordinate on one device, so one replica and the same
+    arithmetic).  With ``model`` 2 the step is tensor-parallel, and its
+    row-parallel sums reassociate as the reference's do: the loss within
+    1e-3 and every parameter within 5e-3 of the single-device step, and
+    in float32 within the float32 gates (loss ``F32_LOSS_TOL``, gradient
+    norm rel ``F32_NORM_TOL``, each parameter's change
+    ``F32_CHANGE_TOL``).  On both, within the reference's gates of its
+    sharded step, and in float32 within the float32 gates: the first
+    AdamW step moves an element by about the learning rate, which the
+    parameter gate would not see."""
+    r = ref[(arch, dtype)]
+    (m1, single), (m2, sharded) = single_and_sharded(
+        reduced(arch, dtype=dtype), r["init"], r["tokens"], mesh_of(*shape))
+    f32 = dtype == "float32"
+    assert len(sharded["params"]) == len(single)
+    flat_init = flatten(r["init"])
+    if shape[1] == 1:
+        for k in ("loss", "grad_norm", "lr"):
+            assert torch.equal(m1[k], m2[k]), k
+        for name, leaf in sharded["params"].items():
+            assert torch.equal(ts.unshard(leaf, CPU), single[name]), name
+    else:
+        assert abs(m2["loss"].item() - m1["loss"].item()) < (
+            F32_LOSS_TOL if f32 else LOSS_TOL)
+        if f32:
+            assert m2["grad_norm"].item() == pytest.approx(
+                m1["grad_norm"].item(), rel=F32_NORM_TOL)
+        for name, leaf in sharded["params"].items():
+            got = ts.unshard(leaf, CPU)
+            assert (got - single[name]).abs().max().item() < PARAM_TOL, name
+            if f32:
+                init = torch.as_tensor(ref_leaf(flat_init, name))
+                assert ((got - init) - (single[name] - init)).abs().max() \
+                    .item() < F32_CHANGE_TOL, name
+    assert_within_reference_gates(r, m2, sharded, f32)
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_step_matches_the_reference(arch, ref_tp):
+    """Reduced ``arch`` in float32, microbatches 2, batch 8 x 16, one
+    tensor-parallel step on ``(data 4, model 2)`` from the reference's
+    parameters: within the reference's gates and the float32 gates of the
+    reference's sharded step (on its 8 forced host devices, the same
+    mesh)."""
+    r = ref_tp[arch]
+    _, (m2, sharded) = single_and_sharded(
+        reduced(arch, dtype="float32"), r["init"], None, mesh_of(4, 2),
+        batch=r["batch"])
+    assert_within_reference_gates(r, m2, sharded, True)
 
 
 def _arch_batch(cfg, rows, seq=8):
@@ -268,7 +391,9 @@ def test_mesh_1x1_equals_make_train_step_bitwise(arch):
 
 def test_replicated_batch_counts_each_row_once():
     """6 rows on ``(data 4, model 2)``: ``batch_spec``'s guard drops dp
-    (the batch is replicated) and each microbatch still counts once."""
+    (the batch is replicated) and each microbatch still counts once: the
+    step is bitwise the ``(data 1, model 2)`` step, whose one group runs
+    every row, and within the reference's gates of one device's."""
     cfg = reduced("phi3-mini-3.8b")
     bundle = build_model(cfg)
     batch = {"tokens": torch.as_tensor(
@@ -277,20 +402,29 @@ def test_replicated_batch_counts_each_row_once():
     assert ts.batch_spec("tokens", (6, 16), mesh) == (None, None)
     single = steps.init_state(bundle, 0, CPU)
     sharded = steps.init_state(bundle, 0, CPU, mesh=mesh)
+    one = steps.init_state(bundle, 0, CPU, mesh=mesh_of(1, 2))
     _, m1 = steps.make_train_step(bundle, OPT)(single, batch)
     _, m2 = steps.make_train_step(bundle, OPT, mesh=mesh)(sharded, batch)
-    assert torch.equal(m1["loss"], m2["loss"])
-    assert torch.equal(m1["grad_norm"], m2["grad_norm"])
+    _, m3 = steps.make_train_step(bundle, OPT, mesh=mesh_of(1, 2))(one,
+                                                                   batch)
+    assert torch.equal(m3["loss"], m2["loss"])
+    assert torch.equal(m3["grad_norm"], m2["grad_norm"])
+    assert abs(m1["loss"].item() - m2["loss"].item()) < LOSS_TOL
     for name, p in single["params"].named_parameters():
-        assert torch.equal(ts.unshard(sharded["params"][name], CPU), p)
+        got = ts.unshard(sharded["params"][name], CPU)
+        assert torch.equal(got, ts.unshard(one["params"][name], CPU))
+        assert (got - p).abs().max().item() < PARAM_TOL, name
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (4, 2)])
 def test_replica_uses_whole_blocks_in_place(shape):
-    """A leaf that is one whole block on the replica's device is the
-    replica's parameter itself (no gathered copy; on the ``(1, 1)`` mesh
-    that is every leaf), any other is gathered into a buffer the replica
-    keeps; after an update the next bind sees the new values."""
+    """A compute block that is one stored block on the replica's device is
+    the replica's parameter itself (no gathered copy; on the ``(1, 1)``
+    mesh every leaf, whole), any other is gathered into a buffer the
+    replica keeps.  The replica is model rank 0's local one: on ``(1, 1)``
+    the whole model, on ``(4, 2)`` its blocks (heads, columns, vocabulary
+    rows), gathered over data where the rules split them there.  After an
+    update the next bind sees the new values."""
     cfg = reduced("phi3-mini-3.8b")
     bundle = build_model(cfg)
     batch = {"tokens": torch.as_tensor(
@@ -299,20 +433,34 @@ def test_replica_uses_whole_blocks_in_place(shape):
     state = steps.init_state(bundle, 0, CPU, mesh=mesh)
     compute = steps.MeshCompute(bundle, mesh)
     step = steps.make_train_step(bundle, OPT, mesh=mesh)
+    split = shape[1] > 1
+    splits = compute.plan(0).splits
+
+    def bind():
+        return compute.bind_rank(CPU, state["params"], 0)
+
+    def block(n):
+        whole = ts.unshard(state["params"][n], CPU)
+        sp = splits.get(n)
+        if sp is None:
+            return whole
+        return torch.cat([whole[w] for _, w in sp.regions(whole.shape)],
+                         sp.dim)
+
     step(state, batch)
-    model = compute.bind(CPU, state["params"])
     kinds = set()
-    for n, p in model.named_parameters():
+    for n, p in bind().named_parameters():
         leaf = state["params"][n]
-        whole = leaf.block_shape == leaf.shape
-        kinds.add(whole)
-        assert (p.data_ptr() == leaf.local((0, 0)).data_ptr()) == whole, n
-        assert ((CPU, n) in compute.gathered) == (not whole), n
-        assert torch.equal(p, ts.unshard(leaf, CPU)), n
+        held = tp.held_block(leaf, splits.get(n), (0, 0))
+        kinds.add(held)
+        assert (p.data_ptr() == leaf.local((0, 0)).data_ptr()) == held, n
+        assert ((CPU, 0, n) in compute.gathered) == (not held), n
+        assert torch.equal(p, block(n)), n
     assert kinds == ({True} if shape == (1, 1) else {True, False})
+    assert split == bool(splits)
     step(state, batch)
-    for n, p in compute.bind(CPU, state["params"]).named_parameters():
-        assert torch.equal(p, ts.unshard(state["params"][n], CPU)), n
+    for n, p in bind().named_parameters():
+        assert torch.equal(p, block(n)), n
 
 
 def test_microbatches_route_whole_on_the_first_rank_holding_them():
