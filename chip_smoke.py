@@ -87,7 +87,21 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    onto (data 1, model 2) bitwise with every shard by the new spec, one
    finite step with the microbatches doubled); two steps of reduced
    qwen2.5-3b on the (1, 1) mesh bitwise ``make_train_step``'s; then
-   the LM dry-run: ``launch/dryrun.py::count_cell`` of qwen2.5-3b's
+   the LM decode on a ``model`` axis (``make_serve_step(bundle, mesh)``,
+   the cache placed by ``cache_shardings``): qwen2.5-3b whole on (data 1,
+   model 4) and (data 2, model 2), mamba2-780m whole on (1, 4) and
+   deepseek-v2-lite-16b at 4 layers on (1, 4) and (2, 2), each fed one
+   device's greedy bfloat16 tokens (batch 4 x (16 + 16)): in float32
+   within 1e-4 of one device's logits at every step with its MoE dropped
+   choices; in bfloat16 no further from one device's float32 logits than
+   1.5 times one device's bfloat16 logits (the distance to one device's
+   bfloat16 logits and the greedy agreement logged),
+   ``CapturedDecode(bundle, serve_step)`` replays bitwise the eager mesh
+   steps, per-step wall, a profiled replay, one rank's tally; the (1, 1)
+   mesh bitwise the single-device decode; qwen2.5-3b in float32, one step
+   at position 32767 of a 32,768-deep cache filled from a seeded
+   generator on (1, 4), within 1e-4 of one device's, both timed; then the
+   LM dry-run: ``launch/dryrun.py::count_cell`` of qwen2.5-3b's
    train step (8 x 512, 4 microbatches, remat) on the (1, 1) mesh of meta
    coordinates against the same step on the card (FLOPs equal under
    ``FlopCounterMode``, the peak within 15 %, the roofline bound's share
@@ -3417,6 +3431,347 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
                 f32_tp=f32, witness=witness, wall_s=wall, part_s=walls)
 
 
+# ------------------------------------------------------------ LM decode on model
+# make_serve_step(bundle, mesh) on meshes whose coordinates share the card:
+# (arch, layers (None: all), meshes); each arch's bfloat16 serve loop on
+# one device (batch LM_BATCH x (LM_PROMPT + LM_GEN), greedy) gives the
+# tokens every other run is fed (teacher forcing): one device in float32,
+# then on each mesh the bfloat16 step, its CUDA graph, and the float32 step
+TP_DECODE_ARCHS = (("qwen2.5-3b", None, ((1, 4), (2, 2))),
+                   ("mamba2-780m", None, ((1, 4),)),
+                   ("deepseek-v2-lite-16b", 4, ((1, 4), (2, 2))))
+# float32 on a mesh against one device at every step: 1e-4 (the tests' gate
+# against the reference's sharded serve step), with the MoE dropped
+# choices equal.  bfloat16 cannot be held to one device's bfloat16 run:
+# any reassociation (the split-KV combine, the row-parallel partial sums,
+# another GEMM kernel for a column slice) flips a few roundings in the
+# first layer, and those spread through every later bfloat16 op
+# (scripts/tp_decode_drift.py on an NVIDIA H100 80GB HBM3 at 700 W:
+# qwen2.5-3b's (1, 4) logits 3.1e-2 from one device's at 2 layers, 8.6e-2
+# at 36; in float32 4.1e-6; the (d, 1) meshes, which reassociate nothing,
+# bitwise).  So the mesh's bfloat16 logits are held against one device's
+# float32 logits, no further from them than TP_DECODE_BF16_SLACK times one
+# device's own bfloat16 logits are; their distance to one device's
+# bfloat16 logits and the greedy agreement are logged
+TP_DECODE_F32_TOL, TP_DECODE_BF16_SLACK = 1e-4, 1.5
+# one float32 qwen2.5-3b step at the last position of a cache this deep,
+# filled from a seeded generator, on (1, 4)
+TP_DECODE_LONG, TP_DECODE_LONG_MESH = 32768, (1, 4)
+
+
+def placed_params(model, mesh) -> dict:
+    """``model``'s parameters placed on ``mesh`` by ``params_shardings``."""
+    from repro_torch.distributed import sharding
+    specs = sharding.params_shardings(model, mesh)
+    return {n: sharding.shard(p, specs[n], mesh)
+            for n, p in model.named_parameters()}
+
+
+@contextlib.contextmanager
+def recording_drops(enabled=True):
+    """While active, every MoE routing's dropped choices (``[tokens, K]``
+    booleans) are appended to the yielded list (none when ``enabled`` is
+    false: a CUDA-graph capture must not keep them)."""
+    from repro_torch.models import ffn
+    drops, route = [], ffn.moe_route
+
+    def recording(m, xf):
+        out = route(m, xf)
+        drops.append((out.order == m.cfg.n_experts * out.cap).clone())
+        return out
+
+    if enabled:
+        ffn.moe_route = recording
+    try:
+        yield drops
+    finally:
+        ffn.moe_route = route
+
+
+def forced_loop(decode, params, cache, tokens) -> list:
+    """The decode step fed ``tokens[:, t]`` at position t: its logits at
+    every step (``cache`` written in place)."""
+    out = []
+    for t in range(tokens.shape[1]):
+        logits, cache = decode(params, cache, tokens[:, t:t + 1], t)
+        out.append(logits)
+    return out
+
+
+def compare_drops(single, mesh, n_steps, per_layer) -> tuple[int, int]:
+    """The mesh's dropped choices (``per_layer`` routings of each MoE layer
+    and step, after each other) against the single device's (one each):
+    ``(dropped choices of one device, mesh routings that differ)``."""
+    if not single:
+        return 0, 0
+    n_moe = len(single) // n_steps
+    if len(mesh) != len(single) * per_layer:
+        raise AssertionError(f"{len(mesh)} routings on the mesh, "
+                             f"{len(single)} x {per_layer} expected")
+    differ = 0
+    for k, want in enumerate(single):
+        for got in mesh[k * per_layer:(k + 1) * per_layer]:
+            differ += not bool((got == want).all())
+    return int(sum(int(d.sum()) for d in single)), differ
+
+
+def max_err(torch, xs, ys) -> float:
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(xs, ys))
+
+
+def mesh_step(bundle, mesh):
+    """``make_serve_step(bundle, mesh)`` called as ``bundle.decode_step``
+    is."""
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(bundle, mesh)
+    return step, lambda p, c, tok, t: step(p, c, {"tokens": tok, "pos": t})
+
+
+def drive_tp_decode_mesh(torch, bundle, bundle32, params, dev, shape, tokens,
+                         ref, profile=True):
+    """One mesh of the decode phase, from the parameters ``params`` placed
+    on it: ``tokens`` through the eager bfloat16 mesh step, timed (held
+    against one device's float32 logits, no further than
+    ``TP_DECODE_BF16_SLACK`` times one device's bfloat16 logits; their
+    distance to one device's bfloat16 logits, the greedy agreement and
+    the MoE drops logged), then through ``CapturedDecode`` (the capture
+    run, then a timed run of replays on the zeroed cache: both bitwise
+    the eager steps) and a profiled replay; then the float32 mesh step
+    (``bundle32``), within ``TP_DECODE_F32_TOL`` of one device's at every
+    step with its MoE dropped choices equal.  ``ref``: one device's
+    bfloat16 and float32 logits and drops."""
+    import gc
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import CapturedDecode, cache_leaves
+
+    batch, n = tokens.shape
+    mesh = params[next(iter(params))].mesh
+    label = f"{bundle.cfg.name} on {shape}"
+
+    def fresh(b):
+        return sharding.shard_cache(b.init_cache(batch, n, dev), mesh)
+
+    step, eager = mesh_step(bundle, mesh)
+    per_layer = 0
+    with recording_drops(bool(ref["drops"])) as drops:
+        got, eager_s = synced_wall(torch, lambda: forced_loop(
+            eager, params, fresh(bundle), tokens))
+        per_layer = len(step.compute.tallies) * step.compute.n_model
+    n_drops, differ = compare_drops(ref["drops"], drops, n, per_layer)
+    err = max_err(torch, ref["bf16"], got)
+    err32 = max_err(torch, ref["f32"], got)
+    agree = float(np.mean([bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                           for a, b in zip(ref["bf16"], got)]))
+    decode = CapturedDecode(bundle, step)
+    cap_cache = fresh(bundle)
+    replay, first_s = synced_wall(torch, lambda: forced_loop(
+        decode, params, cap_cache, tokens))
+    for t in cache_leaves(cap_cache):
+        t.zero_()
+    replay2, replay_s = synced_wall(torch, lambda: forced_loop(
+        decode, params, cap_cache, tokens))
+    bitwise = all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(got, replay, replay2))
+    rec = dict(arch=bundle.cfg.name, mesh=shape, steps=n,
+               max_abs_err=err, err_vs_f32=err32,
+               single_err_vs_f32=ref["bf16_vs_f32"], greedy_agree=agree,
+               replay_bitwise=bitwise, drops=n_drops,
+               routings_differing_bf16=differ, captures=decode.captures,
+               eager_step_ms=1e3 * eager_s / n,
+               replay_step_ms=1e3 * replay_s / n, capture_run_s=first_s,
+               tally=step.compute.tallies[0].as_dict(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    rec["profile"] = (profile_lm_step(torch, decode, params, cap_cache,
+                                      tokens[:, :1], n - 1)
+                      if profile and dev.type == "cuda" else None)
+    del step, eager, decode, cap_cache, got, replay, replay2
+    gc.collect()
+    torch.cuda.empty_cache()
+    step32, eager32 = mesh_step(bundle32, mesh)
+    with recording_drops(bool(ref["drops"])) as drops32:
+        got32 = forced_loop(eager32, params, fresh(bundle32), tokens)
+    f32_err = max_err(torch, ref["f32"], got32)
+    n32, differ32 = compare_drops(ref["drops32"], drops32, n, per_layer)
+    rec.update(f32_max_abs_err=f32_err, f32_drops=n32,
+               f32_routings_differing=differ32)
+    log(f"  mesh {shape}: bfloat16 logits {err:.3e} from one device's "
+        f"bfloat16 logits (greedy agreement {agree:.3f}), {err32:.3e} from "
+        f"its float32 logits (one device's bfloat16: "
+        f"{ref['bf16_vs_f32']:.3e}; gate {TP_DECODE_BF16_SLACK}x); "
+        f"bfloat16 MoE routings differing from one device's {differ} of "
+        f"{len(drops)}; replays bitwise the eager steps: {bitwise}; "
+        f"float32 logits {f32_err:.3e} from one device's (gate "
+        f"{TP_DECODE_F32_TOL}), dropped choices {n32}, routings differing "
+        f"{differ32}; per step: eager {rec['eager_step_ms']:.3f} ms, "
+        f"replayed {rec['replay_step_ms']:.3f} ms (host wall over {n} "
+        f"steps; the ranks share one card and run in turn), capture run "
+        f"{first_s:.2f} s; peak {rec['peak_gib']:.2f} GiB; rank 0's tally "
+        f"a bfloat16 step {json.dumps(rec['tally'])}")
+    if err32 > TP_DECODE_BF16_SLACK * ref["bf16_vs_f32"]:
+        raise AssertionError(f"{label}: bfloat16 logits {err32:.3e} from one "
+                             "device's float32 logits, one device's "
+                             f"bfloat16 {ref['bf16_vs_f32']:.3e}")
+    if f32_err > TP_DECODE_F32_TOL:
+        raise AssertionError(f"{label}: float32 logits {f32_err:.3e} from "
+                             "one device's")
+    if differ32:
+        raise AssertionError(f"{label}: {differ32} float32 MoE routings drop "
+                             "other choices than one device's")
+    if not bitwise:
+        raise AssertionError(f"{label}: captured replays differ from the "
+                             "eager mesh steps")
+    if dev.type == "cuda" and rec["captures"] != 1:
+        raise AssertionError(f"{label}: {rec['captures']} captures")
+    return rec
+
+
+def drive_tp_decode_arch(torch, arch, cfg, dev, meshes, batch=LM_BATCH,
+                         prompt_len=LM_PROMPT, gen=LM_GEN, one=False):
+    """One arch of the decode phase: the single-device bfloat16 serve loop
+    (greedy), the single-device float32 decode fed its tokens, then each
+    mesh (:func:`drive_tp_decode_mesh`); with ``one`` also the ``(1, 1)``
+    mesh, bitwise the single-device bfloat16 decode."""
+    import gc
+
+    from repro_torch.models.registry import build_model
+
+    bundle = build_model(cfg)
+    bundle32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    torch.cuda.reset_peak_memory_stats()
+    model = bundle.init(0, dev)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, prompt_len)), device=dev)
+    moe = cfg.ffn == "moe"
+    with recording_drops(moe) as drops:
+        single, toks = serve_loop(torch, bundle, model, bundle.decode_step,
+                                  prompts, gen, bundle.init_cache(
+                                      batch, prompt_len + gen, dev))
+    tokens = torch.cat([prompts, toks], dim=1)
+    model32 = bundle32.init(0, dev)
+    with recording_drops(moe) as drops32:
+        single32 = forced_loop(bundle32.decode_step, model32,
+                               bundle32.init_cache(batch, prompt_len + gen,
+                                                   dev), tokens)
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = dict(bf16=single, f32=single32, drops=drops, drops32=drops32,
+               bf16_vs_f32=max_err(torch, single32, single))
+    log(f"== LM decode on a model axis: {arch} ({cfg.n_layers} layers, "
+        f"{cfg.dtype}), batch {batch} x ({prompt_len} + {gen}) tokens, one "
+        f"device's greedy tokens {toks[0, :8].tolist()}...; one device's "
+        f"bfloat16 logits {ref['bf16_vs_f32']:.3e} from its float32 logits")
+    out = dict(arch=arch, layers=cfg.n_layers, meshes=[],
+               single_err_vs_f32=ref["bf16_vs_f32"])
+    for shape in meshes:
+        params = placed_params(model, mesh_on(dev, shape))
+        out["meshes"].append(drive_tp_decode_mesh(
+            torch, bundle, bundle32, params, dev, shape, tokens, ref))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if one:
+        from repro_torch.distributed import sharding
+        mesh = mesh_on(dev, (1, 1))
+        _, eager = mesh_step(bundle, mesh)
+        got = forced_loop(eager, placed_params(model, mesh),
+                          sharding.shard_cache(bundle.init_cache(
+                              batch, prompt_len + gen, dev), mesh), tokens)
+        out["mesh_1x1_bitwise"] = all(torch.equal(a, b)
+                                      for a, b in zip(single, got))
+        log(f"  mesh (1, 1): bitwise the single-device decode at every "
+            f"step: {out['mesh_1x1_bitwise']}")
+        if not out["mesh_1x1_bitwise"]:
+            raise AssertionError("the (1, 1) mesh decode differs from the "
+                                 "single-device decode")
+    return out
+
+
+def drive_tp_decode_long(torch, cfg, dev, shape, tokens, pos):
+    """One float32 decode step of ``cfg`` at position ``pos`` against a
+    ``pos + 1``-deep cache filled from a seeded ``torch.Generator``, on one
+    device and on the mesh ``shape`` from the same parameters: logits
+    within ``TP_DECODE_F32_TOL``; the step timed on both."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import cache_leaves
+    from repro_torch.models.registry import build_model
+
+    bundle = build_model(dataclasses.replace(cfg, dtype="float32"))
+    model = bundle.init(0, dev)
+    cache = bundle.init_cache(tokens.shape[0], pos + 1, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for t in cache_leaves(cache):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    mesh = mesh_on(dev, shape)
+    params = placed_params(model, mesh)
+    placed = sharding.shard_cache(cache, mesh)
+    step, eager = mesh_step(bundle, mesh)
+    a, _ = bundle.decode_step(model, cache, tokens, pos)
+    b, _ = eager(params, placed, tokens, pos)
+    err = (a - b).abs().max().item()
+    single_ms = mesh_ms = None
+    if dev.type == "cuda":
+        # the same step again (it rewrites its slot with the same values)
+        single_ms = device_ms(torch, lambda: bundle.decode_step(
+            model, cache, tokens, pos), reps=3, inner=1)
+        mesh_ms = device_ms(torch, lambda: eager(params, placed, tokens,
+                                                 pos), reps=3, inner=1)
+    rec = dict(arch=cfg.name, mesh=shape, depth=pos + 1, max_abs_err=err,
+               single_ms=single_ms, mesh_ms=mesh_ms,
+               tally=step.compute.tallies[0].as_dict())
+    log(f"  float32, mesh {shape}, one step at position {pos} of a "
+        f"{pos + 1}-deep cache filled from a seeded generator: logits "
+        f"within {err:.3e} of one device's (gate {TP_DECODE_F32_TOL}); the "
+        f"step by CUDA events: one device {single_ms} ms, the mesh "
+        f"{mesh_ms} ms (its ranks share one card and run in turn: this "
+        f"time says nothing of {shape[1]} cards); rank 0's tally "
+        f"{json.dumps(rec['tally'])}")
+    if err > TP_DECODE_F32_TOL:
+        raise AssertionError(f"{cfg.name} float32 at position {pos} on "
+                             f"{shape}: logits {err:.3e} from one device's")
+    return rec
+
+
+def drive_tp_decode(torch, dev, card="", configs=None, long_len=TP_DECODE_LONG,
+                    batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN):
+    """The decode-on-``model`` phase: each of ``configs`` ((arch, config,
+    meshes); default ``TP_DECODE_ARCHS`` at full width) through
+    :func:`drive_tp_decode_arch` (the first also on the ``(1, 1)`` mesh),
+    then the first config's float32 step at position ``long_len - 1`` on
+    ``TP_DECODE_LONG_MESH`` (:func:`drive_tp_decode_long`)."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+
+    t0 = time.perf_counter()
+    if configs is None:
+        configs = [(arch, ARCHS[arch] if n is None
+                    else dataclasses.replace(ARCHS[arch], n_layers=n), meshes)
+                   for arch, n, meshes in TP_DECODE_ARCHS]
+    runs = []
+    for i, (arch, cfg, meshes) in enumerate(configs):
+        runs.append(drive_tp_decode_arch(torch, arch, cfg, dev, meshes,
+                                         batch, prompt_len, gen, one=i == 0))
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = configs[0][1]
+    long = drive_tp_decode_long(
+        torch, cfg, dev, TP_DECODE_LONG_MESH, torch.as_tensor(
+            np.random.default_rng(1).integers(0, cfg.vocab, (batch, 1)),
+            device=dev), long_len - 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"LM decode-on-model phase: {wall:.1f} s on {card or 'no card'}; "
+        "summary " + json.dumps(
+            [{k: v for k, v in m.items() if k != "profile"}
+             | (m["profile"] or {}) for r in runs for m in r["meshes"]]
+            + [long], default=str))
+    return dict(runs=runs, long=long, wall_s=wall)
+
+
 # ------------------------------------------------------------ LM dry-run
 # the dry-run's count (launch/dryrun.py, on the meta device) of the
 # training phase's qwen2.5-3b step (batch 8 x 512, 4 microbatches, remat
@@ -3478,6 +3833,13 @@ def finish_dryrun_cells(procs, out_dir: str,
                 f"{proc.returncode}):")
             for line in text.strip().splitlines():
                 log(f"  {line}")
+            if rec.get("status") == "ok":
+                coll = rec["collectives"]
+                log(f"  one device a step (counts, not timings): all-gather "
+                    f"{coll['all-gather'] / 1e9:.3f} GB, all-reduce "
+                    f"{coll['all-reduce'] / 1e9:.3f} GB; its model group's "
+                    f"collectives {json.dumps(rec['tp_collectives'])}; "
+                    f"busiest {json.dumps(rec['busiest'])}")
             if proc.returncode or rec.get("status") not in (
                     "ok", "skipped-by-design"):
                 raise AssertionError(f"dry-run cell {arch} x {shape} x "
@@ -3834,6 +4196,7 @@ def main() -> int:
                                   if r["arch"] == DIST_ARCH))
     for r in trained["full"]:
         r.pop("params_host", None)
+    drive_tp_decode(torch, dev, card=card)
     drive_dryrun(torch, dev, ARCHS[DRYRUN_ARCH], card=card)
     drive_examples(dev)
 

@@ -367,6 +367,37 @@ def shard(t: torch.Tensor, spec, mesh: Mesh) -> Sharded:
                        copy=True))
 
 
+def _shard_tree(tree, specs: dict, mesh: Mesh, prefix: str = ""):
+    """A nested dict / list of tensors with each leaf placed by
+    ``specs[dotted path]`` (:func:`shard`): the same tree of
+    ``Sharded`` leaves."""
+    if isinstance(tree, torch.Tensor):
+        return shard(tree, specs[prefix[:-1]], mesh)
+    if isinstance(tree, dict):
+        return {k: _shard_tree(v, specs, mesh, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    return [_shard_tree(v, specs, mesh, f"{prefix}{i}.")
+            for i, v in enumerate(tree)]
+
+
+def shard_cache(cache, mesh: Mesh):
+    """A decode cache placed by :func:`cache_shardings` (the reference's
+    ``cache_shardings`` in a serve step's ``in_shardings``): the cache's
+    tree of ``Sharded`` leaves, what ``make_serve_step(bundle, mesh)``
+    takes."""
+    return _shard_tree(cache, cache_shardings(cache, mesh), mesh)
+
+
+def tree_leaves(tree, prefix: str = "") -> dict:
+    """``{dotted path: leaf}`` of a nested dict / list whose leaves are
+    tensors or ``Sharded``."""
+    if isinstance(tree, (torch.Tensor, Sharded)):
+        return {prefix[:-1]: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return {k: v for key, sub in items
+            for k, v in tree_leaves(sub, f"{prefix}{key}.").items()}
+
+
 def zeros_like(leaf: Sharded, dtype=None) -> Sharded:
     """Zeros placed as ``leaf`` is (in ``dtype``, default its own)."""
     dtype = dtype or leaf.dtype

@@ -34,6 +34,20 @@ main weight and its heads (experts, channels) divide over the group; else
 it runs whole, once on each device, its weights gathered over ``model``
 (:attr:`Plan.whole` names such layers).
 
+*Decode* (:func:`group_decode`): each rank reads and writes its own
+blocks of the cache placed by ``cache_shardings`` (:class:`CacheBlock`).
+Attention's k and v are split over the cache length, so each rank runs the
+softmax over its slice for every head and the group combines the slices
+(``mixers.attention_decode_tp``: an all-max, then all-reduces of the
+rescaled sums and values); the new token's k and v are all-gathered and
+written by the rank whose slice holds the slot, a write predicated on the
+device (:func:`owner_write`).  A leaf whose compute region crosses the
+stored blocks (SSD's conv) is gathered for the step and its stored shares
+written back (:func:`gather_region`, :func:`write_back`); a layer that runs
+whole gathers and writes back every leaf (:func:`whole_decode`).  An MoE
+layer routes the whole step's batch, every data-parallel rank's rows
+gathered (:func:`gather_rows`), as the single-device step does.
+
 *Gradients.*  A rank's gradient is that of its compute block; the blocks
 of the ranks that hold the same slice (a replicated leaf, kv heads shared
 by several ranks' queries, SSD's ``B``/``C``) are summed in rank order,
@@ -56,8 +70,9 @@ Rep = dict   # torch.device -> torch.Tensor: one tensor per distinct device
 
 class Tally:
     """Bytes of the group's collectives for one rank: ``bytes[(kind,
-    phase)]``, kind one of ``roofline.COLLECTIVES``, phase "forward" or
-    "backward"."""
+    phase)]``, kind one of ``roofline.COLLECTIVES``, phase "forward",
+    "backward" or "cache" (a decode's cache regions gathered and written
+    back)."""
 
     def __init__(self):
         self.bytes = collections.Counter()
@@ -102,6 +117,13 @@ class ModelGroup:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def tally_rank(self) -> int:
+        """The rank whose bytes the tally holds where ranks differ (a
+        decode's cache regions): the first member.  The activation
+        collectives move the same bytes on every rank."""
+        return self.members[0]
 
     @property
     def home(self) -> torch.device:
@@ -530,3 +552,241 @@ def group_prefill(bundle, group: ModelGroup, models: dict, batch: dict):
     else:
         full = {group.devices[r]: t for r, t in logits.items()}
     return full[group.home][:, 0]
+
+
+# ------------------------------------------------------------ decode
+@dataclasses.dataclass
+class CacheBlock:
+    """A model rank's stored block of one decode-cache leaf on its
+    data-parallel rank's rows: the tensor ``t`` (one tensor for the ranks
+    that hold the same block on one device), its offset ``lo`` in each
+    dimension of ``shape`` (the leaf on those rows, whole over ``model``)
+    and the ``Sharded`` leaf's ``(block, device)`` key of it."""
+    t: torch.Tensor
+    lo: tuple
+    shape: tuple
+    key: tuple
+
+    @property
+    def whole(self) -> bool:
+        return tuple(self.t.shape) == tuple(self.shape)
+
+    @property
+    def dim(self) -> int | None:
+        """The dimension split over ``model`` (None for a whole block)."""
+        for d in range(1, len(self.shape)):
+            if self.t.shape[d] != self.shape[d]:
+                return d
+        return None
+
+    def slab(self, dim: int, a: int, b: int) -> torch.Tensor:
+        """The block's part of the leaf's range ``[a, b)`` of ``dim``."""
+        return self.t.narrow(dim, a - self.lo[dim], b - a)
+
+
+def cache_blocks(tree, coord):
+    """The blocks mesh coordinate ``coord`` holds of a cache tree of
+    ``Sharded`` leaves (``sharding.shard_cache``), as :class:`CacheBlock`
+    in the same tree."""
+    if isinstance(tree, sharding.Sharded):
+        key = tree.where[tuple(coord)]
+        t = tree.tensors[key]
+        starts = [s.start for s in tree.slices(key[0])]
+        return CacheBlock(t, (0, *starts[1:]), (t.shape[0], *tree.shape[1:]),
+                          key)
+    if isinstance(tree, dict):
+        return {k: cache_blocks(v, coord) for k, v in tree.items()}
+    return [cache_blocks(v, coord) for v in tree]
+
+
+def _nbytes(t: torch.Tensor, dim: int, n: int) -> int:
+    """Bytes of ``n`` positions of ``t`` along ``dim``."""
+    return t.numel() // max(t.shape[dim], 1) * n * t.element_size()
+
+
+def owner_write(blk: CacheBlock, dim: int, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """Write ``new`` (one position along ``dim``) at the leaf's position
+    ``slot`` (a 0-d device tensor) into ``blk`` if its slice holds it; a
+    block that does not rewrites what it had at its clamped position.  The
+    choice is made on the device, so the step reads nothing on the host
+    and can be captured."""
+    n = blk.t.shape[dim]
+    local = slot - blk.lo[dim]
+    inside = (local >= 0) & (local < n)
+    idx = torch.clamp(local, 0, n - 1).reshape(1)
+    keep = blk.t.index_select(dim, idx)
+    blk.t.index_copy_(dim, idx, torch.where(inside, new.to(blk.t.dtype),
+                                            keep))
+
+
+def gather_region(group: ModelGroup, blocks: dict, r: int, dim: int,
+                  ranges) -> torch.Tensor:
+    """Rank ``r``'s compute region of one cache leaf: the ``ranges`` of
+    ``dim`` (concatenated) of its rows, copied from the group's stored
+    blocks (``blocks[rank]``: each block index once, the copy on r's device
+    first).  In counted mode only r's own block is read (the rest arrives
+    into the buffer).  The bytes not from r's own block are tallied, for
+    the tally's rank, as a cache all-gather."""
+    own = blocks[r]
+    shape = list(own.shape)
+    shape[dim] = sum(b - a for a, b in ranges)
+    out = own.t.new_empty(shape)
+    sources = {own.key[0]: own}
+    for s in group.members:
+        b = blocks[s]
+        prev = sources.get(b.key[0])
+        if prev is None or (prev.t.device != own.t.device
+                            and b.t.device == own.t.device):
+            sources[b.key[0]] = b
+    if group.counted:
+        sources = {own.key[0]: own}
+    from_own, off = 0, 0
+    for a, b in ranges:
+        for src in sources.values():
+            lo = max(a, src.lo[dim])
+            hi = min(b, src.lo[dim] + src.t.shape[dim])
+            if lo < hi:
+                out.narrow(dim, off + lo - a, hi - lo).copy_(
+                    src.slab(dim, lo, hi))
+                if src is own:
+                    from_own += _nbytes(out, dim, hi - lo)
+        off += b - a
+    if r == group.tally_rank:
+        group.tally.add("all-gather", "cache",
+                        out.numel() * out.element_size() - from_own)
+    return out
+
+
+def _uncovered(lo: int, hi: int, filled: list) -> list:
+    """The parts of ``[lo, hi)`` outside the intervals of ``filled``."""
+    parts = [(lo, hi)] if lo < hi else []
+    for a, b in filled:
+        parts = [p for x, y in parts
+                 for p in ((x, min(y, a)), (max(x, b), y)) if p[0] < p[1]]
+    return parts
+
+
+def write_back(group: ModelGroup, blocks: dict, bufs: dict,
+               dim: int) -> None:
+    """Write the ranks' compute regions (``bufs[rank] = (tensor,
+    ranges)``, made by :func:`gather_region` and since updated) into the
+    members' stored blocks, each distinct tensor once: each part from a
+    rank that stores the block where its region holds that part, else
+    from the first rank (in rank order) whose region does.  In counted
+    mode the rank's own block takes only its own region's part (the rest
+    arrives).  The bytes a block takes from other ranks are tallied for
+    the tally's rank."""
+    done = set()
+    for s in group.members:
+        blk = blocks[s]
+        if blk.key in done:
+            continue
+        done.add(blk.key)
+        storing = [q for q in group.members if blocks[q].key == blk.key]
+        order = ([q for q in storing if q in bufs]
+                 + [q for q in bufs if q not in storing])
+        start, n = blk.lo[dim], blk.t.shape[dim]
+        filled, from_storing = [], 0
+        for q in order:
+            buf, ranges = bufs[q]
+            off = 0
+            for a, b in ranges:
+                for lo, hi in _uncovered(max(a, start), min(b, start + n),
+                                         filled):
+                    blk.slab(dim, lo, hi).copy_(
+                        buf.narrow(dim, off + lo - a, hi - lo))
+                    filled.append((lo, hi))
+                    if q in storing:
+                        from_storing += _nbytes(blk.t, dim, hi - lo)
+                off += b - a
+        if group.tally_rank in storing:
+            group.tally.add("all-gather", "cache",
+                            blk.t.numel() * blk.t.element_size()
+                            - from_storing)
+
+
+def whole_decode(group: ModelGroup, mods: dict, caches: dict, run,
+                 write: bool = True) -> Rep:
+    """A module that runs whole on the group (the layer rule): on each
+    device, by its first member, ``run(module, rank, cache)`` with each
+    leaf of the module's cache (``caches[rank]``: name -> CacheBlock) at
+    its whole rows: the stored block itself where it is whole, else
+    gathered, and (``write``) written back once every device has run."""
+    views, pending = {}, []
+    for d, r in group.places().items():
+        views[r] = {}
+        for name, blk in caches[r].items():
+            if blk.whole:
+                views[r][name] = blk.t
+                continue
+            dim = blk.dim
+            ranges = ((0, blk.shape[dim]),)
+            buf = gather_region(group, {q: caches[q][name]
+                                        for q in group.members}, r, dim,
+                                ranges)
+            views[r][name] = buf
+            pending.append((name, dim, r, buf, ranges))
+    out = {d: run(mods[r], r, views[r]) for d, r in group.places().items()}
+    if write:
+        for name in dict.fromkeys(p[0] for p in pending):
+            parts = [p for p in pending if p[0] == name]
+            write_back(group, {q: caches[q][name] for q in group.members},
+                       {r: (buf, ranges) for _, _, r, buf, ranges in parts},
+                       parts[0][1])
+    return out
+
+
+def gather_rows(groups: dict, parts: dict, n_ranks: int) -> dict:
+    """Every data-parallel rank's rows (``parts[rank]``, on its group's
+    home) concatenated in rank order, on every device of each group of
+    ``groups`` ({rank: ModelGroup}): ``{rank: Rep}``.  Where only some of
+    the ``n_ranks`` ranks run here (counted mode), the others' rows arrive
+    into the buffer.  Tallied into each group's tally as an all-gather."""
+    out = {}
+    for b, g in groups.items():
+        if len(parts) == n_ranks:
+            full = torch.cat([parts[k].to(g.home) for k in sorted(parts)])
+        else:
+            own = parts[b]
+            n = own.shape[0]
+            full = own.new_empty((n * n_ranks, *own.shape[1:]))
+            full.narrow(0, b * n, n).copy_(own)
+        g._count("all-gather", full)
+        out[b] = g.rep(full)
+    return out
+
+
+@dataclasses.dataclass
+class DecodeRun:
+    """One data-parallel rank's part of a decode step: its model group,
+    each member's bound replica, its rows' tokens on each device
+    (``feeds[device]["tokens"]``), each member's cache blocks (a tree of
+    :class:`CacheBlock`), the position on each device, and which rows of
+    the step's batch are its."""
+    rank: int
+    group: ModelGroup
+    models: dict
+    feeds: dict
+    caches: dict
+    pos: Rep
+    rows: slice
+
+
+def group_decode(bundle, runs: list, n_ranks: int) -> dict:
+    """``make_serve_step``'s logits [rows, vocab] of each run's rows
+    (:class:`DecodeRun`, rows split over ``n_ranks`` data-parallel
+    ranks), ``{rank: tensor}`` on each group's home device; every cache
+    block written in place."""
+    from repro_torch.models import encdec, lm
+    mod = encdec if bundle.cfg.n_enc_layers else lm
+    blocks = mod.decode_tp(runs, n_ranks)
+    out = {}
+    for run in runs:
+        g, logits = run.group, blocks[run.rank]
+        if getattr(run.models[g.members[0]], "tp_split", False):
+            full = g.all_gather(logits, dim=-1)
+        else:
+            full = {g.devices[r]: t for r, t in logits.items()}
+        out[run.rank] = full[g.home][:, 0, :bundle.cfg.vocab]
+    return out

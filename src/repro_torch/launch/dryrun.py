@@ -30,9 +30,14 @@ tallied (``tp_collectives``, and into ``collectives``):
   the device's replica of the parameters placed by ``params_shardings``
   (tensor-parallel on a ``model`` axis), with the serving compute
   copies;
-- *decode*: the serve step on those rows against their cache, placed by
-  ``cache_shardings`` and gathered to its whole length, on the whole
-  replica (the decode step is not split over ``model`` yet).
+- *decode*: the serve step (``MeshCompute.decode`` in counted mode) on
+  the rows of data-parallel rank 0 against the cache placed by
+  ``cache_shardings``, on the device's replica as for a prefill: the
+  rank reads and writes its own cache blocks (k and v over its slice of
+  the length, combined across the group by the split-KV softmax's
+  all-reduces), gathers only what crosses its blocks (SSD's conv
+  window, the leaves of a layer that runs whole) and, where the batch is
+  split over the data axes, the MoE layers' inputs of every rank's rows.
 
 Microbatches of one step have one shape, so a device that runs more than
 three counts three (the first creates the gradients, the second is the
@@ -58,8 +63,7 @@ layers that run whole on it (``whole_layers``, the layer rule of
 
 ``memory``: ``shard_bytes`` (the blocks the device holds by the rules),
 ``replica_bytes`` (what its step holds on entry beyond them: the gathered
-replica, serving's compute copies, the batch, a decode step's gathered
-cache), ``activation_bytes`` (the step's peak above what it holds on
+replica, serving's compute copies, the batch), ``activation_bytes`` (the step's peak above what it holds on
 entry) and ``peak_per_device_gb``, their sum.  ``compile_s`` is the
 count's own wall time (there is no compile).  The reference's
 ``lower_s``, ``xla_flops_once``, ``xla_bytes_once`` and ``hlo_path``
@@ -185,35 +189,12 @@ def _train(bundle, shape, mesh, specs, model_rank=0):
             _nbytes(shards), busiest, group.tally)
 
 
-def _tree_cache(tree, specs, mesh, coord, placed, prefix=""):
-    """The device's decode cache: each leaf of the full-batch cache placed
-    by its spec into ``placed`` (path -> Sharded), and in the returned
-    tree the block ``coord`` holds where that block is its rows' whole
-    leaf, else a gathered (meta) leaf of that shape."""
-    from repro_torch.distributed import sharding
-    from repro_torch.launch import roofline as rl
-    if isinstance(tree, torch.Tensor):
-        path = prefix[:-1]
-        leaf = placed[path] = sharding.shard(tree, specs[path], mesh)
-        block = leaf.local(coord)
-        rows = rl.rows_shape(leaf)
-        return (block if tuple(block.shape) == rows
-                else _meta(rows, leaf.dtype))
-    if isinstance(tree, dict):
-        return {k: _tree_cache(v, specs, mesh, coord, placed,
-                               f"{prefix}{k}.") for k, v in tree.items()}
-    return [_tree_cache(v, specs, mesh, coord, placed, f"{prefix}{i}.")
-            for i, v in enumerate(tree)]
-
-
 def _serve(bundle, shape, mesh, specs, opts, model_rank=0):
     from repro_torch.distributed import sharding
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import roofline as rl
-    from repro_torch.launch.steps import MeshCompute, make_serve_step
-    from repro_torch.models.layers import make_compute_copies
+    from repro_torch.launch.steps import MeshCompute
 
-    cfg = bundle.cfg
     model = bundle.abstract_params()
     if "bf16_params" in opts:
         model.to(torch.bfloat16)
@@ -222,48 +203,46 @@ def _serve(bundle, shape, mesh, specs, opts, model_rank=0):
     params = {n: sharding.shard(p, pspecs[n], mesh)
               for n, p in model.named_parameters()}
     compute = MeshCompute(bundle, mesh)
-    # a prefill runs the counted rank's program on its group; decode keeps
-    # the whole replica (no split of the cache's attention yet)
-    prefill = shape.kind == "prefill"
-    coord = compute.coord(0, model_rank if prefill else 0)
-    plan = group = None
-    if prefill:
-        plan = compute.plan(model_rank)
-        replica = compute.bind_rank(mesh.device(coord), params, model_rank)
-        group = tp.ModelGroup(compute.group_devices(0),
-                              members=(model_rank,))
-    else:
-        replica = compute.bind(mesh.device(coord), params)
-    make_compute_copies(replica, getattr(torch, cfg.dtype))
+    # the counted rank's program on data-parallel rank 0's group: its
+    # local replica (its compute blocks, with serving's compute copies)
+    coord = compute.coord(0, model_rank)
+    plan = compute.plan(model_rank)
+    replica = compute.serving_replica(mesh.device(coord), params,
+                                      model_rank)
     # the rows of one data-parallel rank (``batch_spec``), all of them
     # on rank 0 where the dp axes do not divide the batch
     name, leaf = next(iter(specs.items()))
     split = sharding.batch_spec(name, tuple(leaf.shape), mesh)[0] is not None
     rows = leaf.shape[0] // (compute.n_dp if split else 1)
-    batch = {n: _meta((rows, *t.shape[1:]) if t.ndim else (), t.dtype)
-             for n, t in specs.items()}
-    placed = {"params": params}
     shards = [leaf.local(coord) for leaf in params.values()]
-    if prefill:
-        def step(model, feed):
-            return tp.group_prefill(bundle, group, {model_rank: model}, feed)
-        args = (replica, batch)
+    if shape.kind == "prefill":
+        group = tp.ModelGroup(compute.group_devices(0),
+                              members=(model_rank,))
+        batch = {n: _meta((rows, *t.shape[1:]), t.dtype)
+                 for n, t in specs.items()}
+
+        def step():
+            tp.group_prefill(bundle, group, {model_rank: replica}, batch)
     else:
-        full = bundle.abstract_cache(shape.global_batch, shape.seq_len)
-        placed["cache"] = {}
-        cache = _tree_cache(full, sharding.cache_shardings(full, mesh), mesh,
-                            coord, placed["cache"])
-        shards += [leaf.local(coord) for leaf in placed["cache"].values()]
-        step, args = make_serve_step(bundle), (replica, cache, batch)
-    with rl.StepCounter(shards + rl.held_tensors(*args)) as counter:
-        step(*args)
-    T = compute.n_model if prefill else 1
+        # the whole batch goes in; the counted rank runs rank 0's rows
+        # against its own blocks of the placed cache
+        batch = dict(specs)
+        cache = sharding.shard_cache(
+            bundle.abstract_cache(shape.global_batch, shape.seq_len), mesh)
+        shards += [leaf.local(coord)
+                   for leaf in sharding.tree_leaves(cache).values()]
+
+        def step():
+            compute.decode(params, cache, batch, model_rank)
+    with rl.StepCounter(shards + rl.held_tensors(replica, batch)) as counter:
+        step()
+    tally = group.tally if shape.kind == "prefill" else compute.tallies[0]
+    T = compute.n_model
     busiest = dict(coord=list(coord), rows=rows,
                    compute_devices=(compute.n_dp if split else 1) * T,
-                   model_group=T, whole_layers=plan.whole if plan else [])
-    tally = group.tally if group is not None else None
+                   model_group=T, whole_layers=plan.whole)
     return (counter.result(), counter.top_bytes(5),
-            rl.step_collectives(mesh, placed, plan and plan.splits, coord,
+            rl.step_collectives(mesh, {"params": params}, plan.splits, coord,
                                 tally),
             _nbytes(shards), busiest, tally)
 
@@ -273,7 +252,7 @@ def count_cell(cfg, shape, mesh, opts=(), model_rank=0) -> dict:
     ``ShapeConfig``) on ``mesh`` (of meta coordinates): the result keys
     of :func:`run_cell` from ``n_chips`` on.  On a ``model`` axis the
     device is model rank ``model_rank`` of the busiest data-parallel
-    rank's group (a decode step's, of rank 0's: the whole replica)."""
+    rank's group (a prefill's and a decode step's: of rank 0's)."""
     from repro_torch.launch import roofline as rl
     from repro_torch.models.registry import build_model, input_specs
 

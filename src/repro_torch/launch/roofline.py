@@ -273,11 +273,9 @@ def step_collectives(mesh, state: dict, splits: dict | None = None,
 
     - ``all-gather``: every parameter leaf whose compute block the device
       does not hold as its stored block (``tensor_parallel.held_block``;
-      ``splits`` are the device's model rank's blocks, none for a whole
-      replica), gathered into its replica (``MeshCompute.bind`` /
-      ``bind_rank``: over the data axes, or re-sliced across stored
-      blocks); for a decode step every cache leaf of its rows split over
-      an axis other than the batch's, gathered to its whole length;
+      ``splits`` are the device's model rank's blocks), gathered into its
+      replica (``MeshCompute.bind_rank``: over the data axes, or re-sliced
+      across stored blocks);
     - ``reduce-scatter`` (training, ``"opt"`` in ``state``): the device's
       block of each gradient that is sharded, reduced over the ranks and
       sent to its owners;
@@ -287,11 +285,14 @@ def step_collectives(mesh, state: dict, splits: dict | None = None,
 
     and with ``tally`` (a ``tensor_parallel.Tally`` of the device's model
     group) its activation collectives: the all-reduces at the layer
-    boundaries of forward, backward and recompute, and a prefill's
-    gathered logits.  ``coord``: the device's mesh coordinate (default
-    the first).  ``state``: ``{"params": {name: Sharded}}``, plus
-    ``"opt"`` for a training state and ``"cache"`` (``{path: Sharded}`` of
-    the full batch) for a decode step.  On a one-device mesh nothing
+    boundaries of forward, backward and recompute, a prefill's gathered
+    logits, a decode step's split-KV combine, gathered heads and logits,
+    and the cache regions it gathers and writes back (the "cache" phase:
+    SSD's conv window, the leaves of a layer that runs whole).  A decode
+    step reads and writes its own cache blocks in place, so the placed
+    cache moves nothing else.  ``coord``: the device's mesh coordinate
+    (default the first).  ``state``: ``{"params": {name: Sharded}}``, plus
+    ``"opt"`` for a training state.  On a one-device mesh nothing
     moves."""
     from repro_torch.distributed import tensor_parallel as tp
 
@@ -313,26 +314,10 @@ def step_collectives(mesh, state: dict, splits: dict | None = None,
                 out["reduce-scatter"] += math.prod(leaf.block_shape) * item
             else:
                 out["all-reduce"] += whole
-    for leaf in state.get("cache", {}).values():
-        rows = rows_shape(leaf)
-        if rows != leaf.block_shape:
-            out["all-gather"] += math.prod(rows) * leaf.dtype.itemsize
     if tally is not None:
         for kind in COLLECTIVES:
             out[kind] += tally.total(kind)
     return out
-
-
-def _axes(entry) -> set:
-    return set((entry,) if isinstance(entry, str) else entry or ())
-
-
-def rows_shape(leaf) -> tuple[int, ...]:
-    """The shape of a cache leaf (a ``Sharded`` of the full batch) on one
-    device once its splits over axes other than the batch axes ("pod",
-    "data") are gathered: the device's rows at their whole length."""
-    return tuple(b if _axes(e) <= {"pod", "data"} else d
-                 for b, d, e in zip(leaf.block_shape, leaf.shape, leaf.spec))
 
 
 def roofline_terms(flops_per_chip: float, bytes_per_chip: float,

@@ -30,7 +30,14 @@ whole model, and the step is ``make_train_step``'s arithmetic, bitwise.
 Each shard is updated in place (``stored_grads``, then
 ``sharded_adamw_update``: one global norm over the whole gradient).
 ``make_prefill_step(bundle, mesh)`` is the prefill forward on data-parallel
-rank 0's devices, tensor-parallel alike.
+rank 0's devices, tensor-parallel alike.  ``make_serve_step(bundle, mesh)``
+is the decode step against a cache placed by ``cache_shardings``
+(``sharding.shard_cache``): each data-parallel rank's model group runs its
+rows, each model rank on its own blocks of the weights and of the cache
+(k and v split over the length, combined by the split-KV softmax), and
+each rank's cache blocks are written in place (:meth:`MeshCompute.decode`);
+``CapturedDecode(bundle, serve_step)`` captures that step as one CUDA
+graph.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ from repro_torch.distributed import sharding
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm as lm_lib
-from repro_torch.models.layers import trainable
+from repro_torch.models.layers import make_compute_copies, trainable
 from repro_torch.models.registry import ModelBundle
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      sharded_adamw_update)
@@ -172,17 +179,20 @@ def state_shardings(params, mesh) -> dict:
 
 
 class MeshCompute:
-    """The compute side of a sharded train step on ``mesh``.  Each
-    data-parallel rank's ``model`` ranks form a :class:`~repro_torch.
-    distributed.tensor_parallel.ModelGroup` (one rank on a ``model`` axis
-    of 1), one local replica per (device, model rank) holds that rank's
-    compute blocks (:meth:`bind_rank`; on a ``model`` axis of 1 the whole
-    model), each microbatch runs on its owner rank's group, and each
-    rank's gradient blocks are reduced over the owner ranks."""
+    """The compute side of a sharded train, prefill or decode step on
+    ``mesh``.  Each data-parallel rank's ``model`` ranks form a
+    :class:`~repro_torch.distributed.tensor_parallel.ModelGroup` (one rank
+    on a ``model`` axis of 1), one local replica per (device, model rank)
+    holds that rank's compute blocks (:meth:`bind_rank`; on a ``model``
+    axis of 1 the whole model), each microbatch runs on its owner rank's
+    group, and each rank's gradient blocks are reduced over the owner
+    ranks; a decode step runs each rank's rows on its group
+    (:meth:`decode`)."""
 
     def __init__(self, bundle: ModelBundle, mesh):
         self.bundle, self.mesh = bundle, mesh
         self.replicas: dict = {}
+        self.serving: dict = {}
         self.gathered: dict[tuple, torch.Tensor] = {}
         self.plans: dict[int, tp.Plan] = {}
         self.tallies: dict[int, tp.Tally] = {}
@@ -242,14 +252,17 @@ class MeshCompute:
         return self._bind(self.rank_replica(device, m), self.plan(m).splits,
                           device, params, m)
 
-    def bind(self, device, params: dict) -> torch.nn.Module:
-        """The whole model on ``device``, its leaves gathered whole as
-        :meth:`bind_rank` gathers blocks: the decode step's replica,
-        which does not split over ``model``."""
-        key = (device, None)
-        if key not in self.replicas:
-            self.replicas[key] = trainable(self.bundle.abstract_params())
-        return self._bind(self.replicas[key], {}, device, params, None)
+    def serving_replica(self, device, params: dict, m: int):
+        """:meth:`bind_rank`'s replica with its compute copies
+        (``make_compute_copies``), made on the first decode with
+        ``params`` and kept: a decode step reads weights that do not
+        change (after an update of ``params``, a new step)."""
+        key = (device, m)
+        if self.serving.get(key) is not params:
+            make_compute_copies(self.bind_rank(device, params, m),
+                                getattr(torch, self.bundle.cfg.dtype))
+            self.serving[key] = params
+        return self.replicas[key]
 
     @torch.no_grad()
     def _bind(self, model, splits, device, params, m):
@@ -369,6 +382,66 @@ class MeshCompute:
             return tp.group_prefill(self.bundle, self.group(0),
                                     self.group_models(0, params), batch)
 
+    @torch.no_grad()
+    def decode(self, params: dict, cache, batch: dict,
+               model_rank: int | None = None):
+        """``make_serve_step``'s step on the mesh: ``(logits [B, vocab],
+        cache)`` for ``batch`` (``{"tokens" [B, 1], "pos"}``) against
+        ``cache`` (``sharding.shard_cache``'s tree), every rank's cache
+        blocks written in place.  Rows split over the data axes
+        (``batch_spec``) run on their ranks' model groups; a batch they do
+        not divide runs on rank 0's, and its cache blocks are then copied
+        to the data-parallel replicas on other devices.  Each group's
+        bytes are tallied into ``tallies[rank]``.  With ``model_rank``
+        (the dry-run's counted mode) only that rank of rank 0's group
+        runs, on its rows."""
+        cfg = self.bundle.cfg
+        home = self.rank_device[0]
+        tokens = torch.as_tensor(batch["tokens"], device=home).long()
+        limit = (encdec_lib.position_limit if cfg.n_enc_layers
+                 else lm_lib.position_limit)(cfg, cache)
+        pos = lm_lib.step_position(batch["pos"], limit, home)
+        spec = sharding.batch_spec("tokens", tuple(tokens.shape), self.mesh)
+        n_ranks = self.n_dp if spec[0] is not None else 1
+        per = tokens.shape[0] // n_ranks
+        members = None if model_rank is None else (model_rank,)
+        self.tallies = {}
+        runs = []
+        for b in (range(n_ranks) if model_rank is None else (0,)):
+            g = tp.ModelGroup(self.group_devices(b), members=members,
+                              tally=self.tallies.setdefault(b, tp.Tally()))
+            rows = slice(b * per, (b + 1) * per)
+            runs.append(tp.DecodeRun(
+                b, g, {m: self.serving_replica(g.devices[m], params, m)
+                       for m in g.members},
+                {d: {"tokens": tokens[rows].to(d)} for d in g.places()},
+                {m: tp.cache_blocks(cache, self.coord(b, m))
+                 for m in g.members}, g.rep(pos), rows))
+        with self.mesh:
+            out = tp.group_decode(self.bundle, runs, n_ranks)
+        logits = torch.cat([out[b].to(home) for b in sorted(out)])
+        if n_ranks == 1 and self.n_dp > 1 and model_rank is None:
+            self._copy_to_replicas(cache)
+        return logits, cache
+
+    def decode_step(self, params: dict, cache, tokens, pos):
+        """:meth:`decode` with ``bundle.decode_step``'s arguments (what
+        :class:`CapturedDecode` calls)."""
+        return self.decode(params, cache, {"tokens": tokens, "pos": pos})
+
+    @torch.no_grad()
+    def _copy_to_replicas(self, cache) -> None:
+        """Each cache block rank 0's group wrote, copied to the copies of
+        the same block on other devices (rows replicated over the data
+        axes; on one device the coordinates share one tensor)."""
+        written = [self.coord(0, m) for m in range(self.n_model)]
+        for leaf in sharding.tree_leaves(cache).values():
+            src = {leaf.where[c][0]: leaf.tensors[leaf.where[c]]
+                   for c in written}
+            for (block, _), t in leaf.tensors.items():
+                if t is not src[block]:
+                    t.copy_(src[block])
+
 
 @torch.no_grad()
 def stored_grads(grads: dict, params: dict) -> tuple[dict, list]:
@@ -406,8 +479,20 @@ def make_prefill_step(bundle: ModelBundle, mesh=None):
     return prefill_step
 
 
-def make_serve_step(bundle: ModelBundle):
-    """(model, cache, {"tokens", "pos"}) -> (logits, cache)."""
+def make_serve_step(bundle: ModelBundle, mesh=None):
+    """(model, cache, {"tokens", "pos"}) -> (logits, cache).  With
+    ``mesh`` the step takes the parameters placed on it (name ->
+    ``Sharded``) and a cache placed by ``sharding.shard_cache`` and runs
+    :meth:`MeshCompute.decode` (``serve_step.compute``: its replicas and
+    tallies)."""
+    if mesh is not None:
+        compute = MeshCompute(bundle, mesh)
+
+        def sharded_serve_step(params, cache, batch):
+            return compute.decode(params, cache, batch)
+        sharded_serve_step.compute = compute
+        return sharded_serve_step
+
     def serve_step(params, cache, batch):
         return bundle.decode_step(params, cache, batch["tokens"],
                                   batch["pos"])
@@ -415,9 +500,12 @@ def make_serve_step(bundle: ModelBundle):
 
 
 def cache_leaves(cache) -> list[torch.Tensor]:
-    """The tensors of a cache pytree, in a fixed order."""
+    """The tensors of a cache pytree (a placed cache: each ``Sharded``
+    leaf's distinct tensors), in a fixed order."""
     if isinstance(cache, torch.Tensor):
         return [cache]
+    if isinstance(cache, sharding.Sharded):
+        return list(cache.tensors.values())
     items = cache.values() if isinstance(cache, dict) else cache
     return [t for item in items for t in cache_leaves(item)]
 
@@ -451,6 +539,10 @@ class CapturedDecode:
     """``bundle.decode_step`` captured as one ``torch.cuda.CUDAGraph`` per
     cache (so one per (batch, max_len) in a serve loop).  Call it as the
     step: ``decode(params, cache, tokens, pos) -> (logits, cache)``.
+    ``serve_step``, a ``make_serve_step(bundle, mesh)``, captures that
+    mesh step instead (``params`` placed on the mesh, ``cache`` by
+    ``sharding.shard_cache``; its replicas shared): one graph per placed
+    cache, holding every rank's ops.
 
     The graph reads and writes the cache it was captured with, in place,
     and ``pos`` reaches it through a device scalar; a new cache (or model,
@@ -458,8 +550,10 @@ class CapturedDecode:
     the same body (static inputs, then the step) runs uncaptured.  The
     logits returned are a copy, valid after later calls."""
 
-    def __init__(self, bundle: ModelBundle):
+    def __init__(self, bundle: ModelBundle, serve_step=None):
         self.bundle = bundle
+        self.step = (bundle.decode_step if serve_step is None
+                     else serve_step.compute.decode_step)
         self._limit = (encdec_lib.position_limit if bundle.cfg.n_enc_layers
                        else lm_lib.position_limit)
         self._steps: dict[tuple, _Captured] = {}
@@ -477,8 +571,7 @@ class CapturedDecode:
         step = self._steps.get(key)
         if step is None:
             step = self._steps[key] = _Captured(
-                self.bundle.decode_step, params, cache, tuple(tokens.shape),
-                dev)
+                self.step, params, cache, tuple(tokens.shape), dev)
         step.tokens.copy_(tokens)
         if isinstance(pos, torch.Tensor):
             step.pos.copy_(pos)

@@ -24,6 +24,7 @@ from repro_torch.models.layers import (Weights, decode_attention,
                                        flash_attention, glorot,
                                        make_compute_copies, rms_norm)
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.models import mixers as mix
 from repro_torch.models.lm import (compute_dtype, generator, load_reference,
                                    logits_tp, remat_call, sharded_xent,
                                    step_position, vocab_embed_tp, xent_tp)
@@ -124,7 +125,7 @@ class DecLayer(Weights):
         q = self.cross.query(rms_norm(x, self.cross_norm, eps))
         out = decode_attention(q, cache["cross_k"], cache["cross_v"],
                                cache["cross_k"].shape[1])
-        x = x + out.reshape(x.shape[0], 1, -1) @ self.cross.w("wo", x.dtype)
+        x = x + self.cross.out_product(out.reshape(x.shape[0], 1, -1), "wo")
         return x + self.ffn(rms_norm(x, self.ffn_norm, eps))
 
 
@@ -244,6 +245,72 @@ def forward_tp(group, models: dict, feeds: dict) -> dict:
                        {r: models[r].dec_layers[i] for r in group.members},
                        y, positions, enc)
     return logits_tp(group, models, y, last_only=False)
+
+
+def cross_decode_tp(group, mods: dict, h: dict, caches: dict,
+                    dtype) -> dict:
+    """The decoder step's cross-attention on the group (``caches[r]``:
+    rank r's blocks ``{"k", "v"}`` of ``cross_k`` / ``cross_v``, split
+    over the source length as the self-attention cache is, never
+    written): the split-KV combine of ``mixers.attend_tp`` over every
+    source position, each rank's heads through its rows of ``wo``,
+    all-reduced; a module that runs whole reads the whole cache."""
+    mem = group.members
+    m0 = mods[mem[0]]
+    length, Hkv = caches[mem[0]]["k"].shape[1:3]
+    if not getattr(m0, "tp_split", False):
+        def run(m, r, c):
+            out = decode_attention(m.query(h[r]), c["k"], c["v"], length)
+            return m.out_product(out.reshape(h[r].shape[0], 1, -1), "wo")
+        return tp.whole_decode(group, mods, caches, run, write=False)
+    hq = m0.cfg.n_heads
+    out = mix.attend_tp(group, {r: mods[r].query(h[r]) for r in mem},
+                        {r: caches[r]["k"] for r in mem},
+                        {r: caches[r]["v"] for r in mem},
+                        dict.fromkeys(group.places(), length), hq,
+                        hq * group.size // Hkv)
+    return group.all_reduce({r: mods[r].out_product(
+        out[r].reshape(h[r].shape[0], 1, -1), "wo") for r in mem}, dtype)
+
+
+def dec_layer_decode_tp(group, layers: dict, x: dict, caches: dict,
+                        pos: dict) -> dict:
+    """:meth:`DecLayer.decode` on the group; ``caches[r]`` is rank r's
+    blocks of the layer's cache (``{"self": {"k", "v"}, "cross_k",
+    "cross_v"}``)."""
+    cfg = layers[group.members[0]].cfg
+    eps, dt = cfg.norm_eps, compute_dtype(cfg)
+    h = tp.norm_each(group, layers, "attn_norm", x, eps)
+    x = tp.residual(x, mix.decode_tp(
+        group, {r: l.attn for r, l in layers.items()}, h,
+        {r: c["self"] for r, c in caches.items()}, pos, dt))
+    h = tp.norm_each(group, layers, "cross_norm", x, eps)
+    x = tp.residual(x, cross_decode_tp(
+        group, {r: l.cross for r, l in layers.items()}, h,
+        {r: {"k": c["cross_k"], "v": c["cross_v"]}
+         for r, c in caches.items()}, dt))
+    h = tp.norm_each(group, layers, "ffn_norm", x, eps)
+    return tp.residual(x, tp.branch(
+        group, {r: l.ffn for r, l in layers.items()}, lambda m, r: m(h[r]),
+        dt))
+
+
+def decode_tp(runs, n_ranks: int) -> dict:
+    """:meth:`EncDec.decode` on the model group of every run of a decode
+    step (``tp.DecodeRun``; the enc-dec has no MoE, so the runs are
+    independent): ``{rank: lm.logits_tp's blocks}``."""
+    del n_ranks
+    out = {}
+    for run in runs:
+        g, models = run.group, run.models
+        m0 = models[g.members[0]]
+        x = vocab_embed_tp(g, models, run.feeds, compute_dtype(m0.cfg))
+        for i in range(len(m0.dec_layers)):
+            x = dec_layer_decode_tp(
+                g, {r: models[r].dec_layers[i] for r in g.members}, x,
+                {r: run.caches[r]["dec"][i] for r in g.members}, run.pos)
+        out[run.rank] = logits_tp(g, models, x, last_only=False)
+    return out
 
 
 def lm_loss_tp(group, models: dict, feeds: dict) -> torch.Tensor:

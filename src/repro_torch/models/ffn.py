@@ -173,7 +173,8 @@ def moe_ffn(m: MoEFFN, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, L, D)
 
 
-def moe_tp(group, mods: dict, h: dict) -> dict:
+def moe_tp(group, mods: dict, h: dict, full: dict | None = None,
+           rows: slice | None = None) -> dict:
     """The split MoE layer on a tensor-parallel model group, experts over
     ``model`` (EP), its output on every device: every rank routes alike
     (the router is whole), runs the grouped GEMM of its ``E / T``
@@ -183,18 +184,23 @@ def moe_tp(group, mods: dict, h: dict) -> dict:
     reference's single slot-order sum, reassociated where a token's
     choices lie on more than one rank), and the shared experts (a split
     dense FFN) are all-reduced apart and added, as the whole layer adds
-    them."""
+    them.  With ``full`` (a decode step whose rows are split over the
+    data-parallel ranks: the whole batch's inputs on every device, of
+    which this group's are ``rows``), every group routes the whole batch
+    and combines its own rows."""
     routed, shared = {}, {}
     for r in group.members:
         m, x = mods[r], h[r]
         B, L, D = x.shape
         xf = x.reshape(B * L, D)
-        route = moe_route(m, xf)
+        src = xf if full is None else group.at(full, r).reshape(-1, D)
+        route = moe_route(m, src)
         n = m.w_gate.shape[0]
         lo = slice(r * n, (r + 1) * n)
-        y_e = moe_experts(m, route.slot_token[lo], route.occupied[lo], xf,
+        y_e = moe_experts(m, route.slot_token[lo], route.occupied[lo], src,
                           x.dtype)
-        local = route.order - r * n * route.cap
+        order = route.order if rows is None else route.order[rows]
+        local = order - r * n * route.cap
         inside = (local >= 0) & (local < n * route.cap)
         routed[r] = moe_combine(y_e, route.slot_w[lo], route.occupied[lo],
                                 torch.where(inside, local, n * route.cap)

@@ -409,6 +409,47 @@ def decode_attention(
     return out.reshape(B, 1, Hq, Dh).to(q.dtype)
 
 
+def decode_attention_partial(q, k_cache, v_cache, cur_len, offset: int, *,
+                             window: int | None = None):
+    """:func:`decode_attention`'s softmax over one slice of the cache, kept
+    apart for a combine across slices (split-KV): ``k_cache`` / ``v_cache``
+    [B, Lr, Hkv, Dh] hold the global positions ``offset .. offset + Lr``.
+    Returns float32 ``(m, l, acc)``: each row's max [B, 1, Hkv, G], the
+    sum of ``exp(s - m)`` over the visible positions and the
+    exp-weighted values [B, 1, Hkv, G, Dh].  A slice with no visible
+    position gives ``m = NEG`` and ``l``, ``acc`` zero."""
+    B, Lr, Hkv, Dh = k_cache.shape
+    G = q.shape[2] // Hkv
+    scale = 1.0 / np.sqrt(Dh)
+    qg = q.reshape(B, 1, Hkv, G, Dh).float()
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k_cache.float()) * scale
+    pos = torch.arange(Lr, device=q.device) + offset
+    mask = pos < cur_len
+    if window is not None:
+        mask = mask & (pos > cur_len - 1 - window)
+    s = torch.where(mask, s, NEG)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bqhgk,bkhd->bqhgd", p, v_cache.float())
+    return m, p.sum(dim=-1), acc
+
+
+def rescale_partial(m, l, acc, m_all):
+    """A slice's sum and values rescaled to the max over every slice."""
+    c = torch.exp(m - m_all)
+    return l * c, acc * c[..., None]
+
+
+def finish_partials(l, acc, dtype) -> torch.Tensor:
+    """The attention output [B, 1, Hq, Dh] in ``dtype`` from the summed
+    (rescaled) sums and values of every slice, divided once (the combine:
+    the max over the slices, then :func:`rescale_partial` of each slice,
+    summed, then this; ``mixers.attend_tp`` runs it on a model group)."""
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    B, _, Hkv, G, Dh = out.shape
+    return out.reshape(B, 1, Hkv * G, Dh).to(dtype)
+
+
 # --------------------------------------------------------------- activations
 # jax.nn's formulas written out op by op: in bfloat16 each op rounds, as the
 # reference's do on the CPU (torch's fused F.silu / F.gelu round once, and

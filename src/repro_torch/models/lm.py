@@ -314,6 +314,76 @@ def forward_tp(group, models: dict, feeds: dict,
     return logits_tp(group, models, x, last_only)
 
 
+def layer_decode_tp(runs, layers: dict, x: dict, caches: dict,
+                    n_ranks: int) -> dict:
+    """:meth:`Layer.decode` on the model group of every run of a decode
+    step (``tp.DecodeRun``; ``layers[rank][r]`` is the layer of model rank
+    r of data-parallel ``rank``, ``caches[rank][r]`` its cache blocks,
+    ``x[rank]`` the residual stream): each group's mixer
+    (``mixers.decode_tp``) and FFN on its own rows, but an MoE layer whose
+    batch is split over ``n_ranks`` > 1 data-parallel ranks routes every
+    rank's rows together (``tp.gather_rows``), as the single-device step
+    routes its whole batch."""
+    out = {}
+    for run in runs:
+        g, ls = run.group, layers[run.rank]
+        l0 = ls[g.members[0]]
+        eps, dt = l0.cfg.norm_eps, compute_dtype(l0.cfg)
+        h = tp.norm_each(g, ls, "mixer_norm", x[run.rank], eps)
+        out[run.rank] = tp.residual(x[run.rank], mix.decode_tp(
+            g, {r: layer.mixer for r, layer in ls.items()}, h,
+            caches[run.rank], run.pos, dt))
+    if l0.ffn is None:
+        return out
+    h = {run.rank: tp.norm_each(run.group, layers[run.rank], "ffn_norm",
+                                out[run.rank], eps) for run in runs}
+    moe = isinstance(l0.ffn, ffn_lib.MoEFFN)
+    full = None
+    if moe and n_ranks > 1:
+        full = tp.gather_rows(
+            {run.rank: run.group for run in runs},
+            {run.rank: h[run.rank][run.group.members[0]] for run in runs},
+            n_ranks)
+    for run in runs:
+        g, hb = run.group, h[run.rank]
+        ffns = {r: layer.ffn for r, layer in layers[run.rank].items()}
+        if full is None:
+            y = tp.branch(g, ffns, lambda m, r: m(hb[r]), dt,
+                          (lambda gg, mods: ffn_lib.moe_tp(gg, mods, hb))
+                          if moe else None)
+        else:
+            # the whole batch routed on every group, its own rows kept
+            fb = full[run.rank]
+            y = tp.branch(g, ffns, lambda m, r: ffn_lib.moe_ffn(
+                m, g.at(fb, r))[run.rows], dt, lambda gg, mods:
+                ffn_lib.moe_tp(gg, mods, hb, fb, run.rows))
+        out[run.rank] = tp.residual(out[run.rank], y)
+    return out
+
+
+def decode_tp(runs, n_ranks: int) -> dict:
+    """:meth:`LM.decode` on the model group of every run of a decode step
+    (``tp.DecodeRun``): ``{rank: logits_tp's blocks [B, 1, V / T]}``, the
+    cache blocks written in place."""
+    run0 = runs[0]
+    cfg = run0.models[run0.group.members[0]].cfg
+    dt = compute_dtype(cfg)
+    x = {run.rank: vocab_embed_tp(run.group, run.models, run.feeds, dt)
+         for run in runs}
+    layers = {run.rank: {r: run.models[r].layers()
+                         for r in run.group.members} for run in runs}
+    caches = {run.rank: {r: layer_caches(cfg, run.caches[r])
+                         for r in run.group.members} for run in runs}
+    for i in range(cfg.n_layers):
+        x = layer_decode_tp(
+            runs, {b: {r: ls[i] for r, ls in by.items()}
+                   for b, by in layers.items()}, x,
+            {b: {r: cs[i] for r, cs in by.items()}
+             for b, by in caches.items()}, n_ranks)
+    return {run.rank: logits_tp(run.group, run.models, x[run.rank], False)
+            for run in runs}
+
+
 def xent_tp(group, models: dict, logits: dict, targets: dict) -> dict:
     """:func:`sharded_xent` of :func:`logits_tp`'s blocks, on every
     device: the max over the ranks (no gradient), the sum of exps over the

@@ -14,6 +14,10 @@ Uniform interface per mixer (the reference's four functions per row of
 ``pos`` is a 0-d int tensor on the device (tokens already in the cache):
 the decode step reads nothing on the host, so it can be captured in a
 CUDA graph.  Parameter names are the reference's pytree keys.
+
+:func:`decode_tp` is one decode step of a mixer on a tensor-parallel model
+group (``distributed/tensor_parallel.py``), each rank on its own blocks of
+the cache placed by ``cache_shardings``.
 """
 from __future__ import annotations
 
@@ -22,10 +26,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import (NEG, Weights, apply_rope,
-                                       decode_attention, flash_attention,
+                                       decode_attention,
+                                       decode_attention_partial,
+                                       finish_partials, flash_attention,
                                        flash_attention_vjp, gelu, glorot,
-                                       rms_norm, silu)
+                                       rescale_partial, rms_norm, silu)
 
 
 def _attention(cfg: ModelConfig):
@@ -119,7 +126,7 @@ class Attention(Weights):
         else:
             valid = pos + 1
         out = decode_attention(q, cache["k"], cache["v"], valid)
-        return out.reshape(B, 1, -1) @ self.w("wo", x.dtype)
+        return self.out_product(out.reshape(B, 1, -1), "wo")
 
 
 # ===================================================================== MLA
@@ -191,31 +198,41 @@ class MLA(Weights):
     def decode(self, x, cache, pos):
         """Absorbed-matmul decode: attention runs in the rank-r latent
         space over the cached (kv_c, k_pe)."""
-        cfg = self.cfg
-        B = x.shape[0]
-        H = cfg.n_heads
-        qn, qr, kv_c, kpe = self._qc(x, _step_positions(pos, B))
+        qn, qr, kv_c, kpe = self._qc(x, _step_positions(pos, x.shape[0]))
+        self._write(cache, kv_c, kpe, pos)
+        return self.out_product(self._attend(qn, qr, cache, pos), "wo")
+
+    @staticmethod
+    def _write(cache, kv_c, kpe, pos) -> None:
         slot = pos.reshape(1)
         cache["kv_c"].index_copy_(1, slot, kv_c.to(cache["kv_c"].dtype))
         cache["kpe"].index_copy_(1, slot, kpe.to(cache["kpe"].dtype))
+
+    def _attend(self, qn, qr, cache, pos):
+        """The heads' output [B, 1, H * v_head_dim] over the latent
+        cache."""
+        cfg = self.cfg
+        B = qn.shape[0]
+        H = cfg.n_heads
+        x_dtype = qn.dtype
         kv_cache, pe_cache = cache["kv_c"], cache["kpe"]
         # absorb W_uk into the query: q_lat [B, 1, H, r]
-        w_uk = self.w("w_uk", x.dtype).reshape(cfg.kv_lora_rank, H,
+        w_uk = self.w("w_uk", x_dtype).reshape(cfg.kv_lora_rank, H,
                                                cfg.qk_nope_head_dim)
         q_lat = torch.einsum("bqhn,rhn->bqhr", qn, w_uk)
         scale = 1.0 / np.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
         s = (torch.einsum("bqhr,bkr->bhqk", q_lat.float(), kv_cache.float())
              + torch.einsum("bqhr,bkr->bhqk", qr.float(),
                             pe_cache.float())) * scale
-        mask = torch.arange(kv_cache.shape[1], device=x.device) < pos + 1
+        mask = torch.arange(kv_cache.shape[1], device=qn.device) < pos + 1
         s = torch.where(mask, s, NEG)
         prob = torch.softmax(s, dim=-1)
         out_lat = torch.einsum("bhqk,bkr->bqhr", prob,
-                               kv_cache.float()).to(x.dtype)
-        w_uv = self.w("w_uv", x.dtype).reshape(cfg.kv_lora_rank, H,
+                               kv_cache.float()).to(x_dtype)
+        w_uv = self.w("w_uv", x_dtype).reshape(cfg.kv_lora_rank, H,
                                                cfg.v_head_dim)
         out = torch.einsum("bqhr,rhv->bqhv", out_lat, w_uv)
-        return out.reshape(B, 1, H * cfg.v_head_dim) @ self.w("wo", x.dtype)
+        return out.reshape(B, 1, H * cfg.v_head_dim)
 
 
 # ===================================================================== RG-LRU
@@ -321,7 +338,7 @@ class RGLRU(Weights):
         cache["h"].copy_(h)
         cache["conv"].copy_(hist[:, 1:])
         y = h[:, None].to(x.dtype) * gelu(g)
-        return y @ self.w("w_out", x.dtype)
+        return self.out_product(y, "w_out")
 
 
 # ===================================================================== SSD
@@ -454,6 +471,12 @@ class SSD(Weights):
 
     def decode(self, x, cache, pos):
         del pos
+        return self._post(*self._step(x, cache),
+                          self.w("d_skip", x.dtype)[:, None])
+
+    def _step(self, x, cache):
+        """The projection, the conv over the cached window and one state
+        update, both written in place: (y, z, x_in) as :meth:`_scan`."""
         cfg = self.cfg
         di, n, H, P = self.d_inner, self.d_state, self.n_heads, cfg.ssd_head_dim
         B = x.shape[0]
@@ -475,21 +498,22 @@ class SSD(Weights):
         y = torch.einsum("bhpn,bn->bhp", s, Cm[:, 0].float())
         cache["state"].copy_(s)
         cache["conv"].copy_(hist[:, 1:])
-        y = y[:, None].to(x.dtype)                               # [B,1,H,P]
-        return self._post(y, z, x_in, self.w("d_skip", x.dtype)[:, None])
+        return y[:, None].to(x.dtype), z, x_in                   # [B,1,H,P]
 
 
-def ssd_partials(group, mods: dict, h: dict) -> dict:
+def ssd_partials(group, mods: dict, h: dict, scan=None) -> dict:
     """The split SSD on a tensor-parallel model group: each rank runs its
     heads (``mods[r]`` holds their share of ``w_in``, the conv, the
     per-head tables and ``out_norm``; B and C whole), ``out_norm``'s mean
     square is the all-reduced sum of the ranks' squares over the whole
     ``d_inner``, and each rank's rows of ``w_out`` give its partial of the
-    output."""
+    output.  ``scan(module, rank)`` gives a rank's (y, z, x_in): the
+    full-sequence scan by default, one decode step in
+    :func:`ssd_decode_tp`."""
     gated = {}
     for r in group.members:
         m = mods[r]
-        y, z, x_in = m._scan(h[r])
+        y, z, x_in = scan(m, r) if scan else m._scan(h[r])
         gated[r] = m._gated(y, z, x_in, m.w("d_skip", h[r].dtype)[:, None])
     sq = group.all_reduce({r: (g.float() * g.float()).sum(dim=-1,
                                                          keepdim=True)
@@ -501,6 +525,183 @@ def ssd_partials(group, mods: dict, h: dict) -> dict:
         y = ((g.float() * torch.rsqrt(var + m.cfg.norm_eps))
              * m.out_norm.float()).to(g.dtype)
         out[r] = m.out_product(y, "w_out")
+    return out
+
+
+# ===================================================================== group decode
+def decode_tp(group, mods: dict, h: dict, caches: dict, pos: dict,
+              dtype) -> dict:
+    """One decode step of a mixer on a tensor-parallel model group, its
+    output on every device (``tp.Rep``) in ``dtype``: ``mods[r]`` is rank
+    r's module, ``h[r]`` its input [B, 1, D], ``caches[r]`` its blocks of
+    the layer's cache (name -> ``tp.CacheBlock``), ``pos`` the position on
+    each device.  A module that runs whole (the layer rule) runs
+    :meth:`decode` on each device with its cache leaves whole; on a group
+    of one rank that is the single-device decode itself."""
+    m0 = mods[group.members[0]]
+    if not getattr(m0, "tp_split", False):
+        return tp.whole_decode(group, mods, caches, lambda m, r, c: m.decode(
+            h[r], c, group.at(pos, r)))
+    if isinstance(m0, Attention):
+        return attention_decode_tp(group, mods, h, caches, pos, dtype)
+    if isinstance(m0, MLA):
+        return mla_decode_tp(group, mods, h, caches, pos, dtype)
+    if isinstance(m0, RGLRU):
+        return group.all_reduce({r: mods[r].decode(h[r], _tensors(caches[r]),
+                                                   group.at(pos, r))
+                                 for r in group.members}, dtype)
+    return ssd_decode_tp(group, mods, h, caches, dtype)
+
+
+def _tensors(blocks: dict) -> dict:
+    """A rank's cache blocks as the tensors a module's ``decode`` takes;
+    each must be the rank's compute block (heads, channels) or whole."""
+    return {n: b.t for n, b in blocks.items()}
+
+
+def _take(t: torch.Tensor, dim: int, idx: list[int]) -> torch.Tensor:
+    """``t``'s positions ``idx`` along ``dim`` (Python ints: slices, no
+    device index)."""
+    if idx == list(range(t.shape[dim])):
+        return t
+    runs, start = [], 0
+    for i in range(1, len(idx) + 1):
+        if i == len(idx) or idx[i] != idx[i - 1] + 1:
+            runs.append(t.narrow(dim, idx[start], i - start))
+            start = i
+    return runs[0] if len(runs) == 1 else torch.cat(runs, dim)
+
+
+def _kv_layout(group, hq: int, Hkv: int) -> tuple[int, list[int]]:
+    """The group size of the GQA heads, and where each kv head lies in the
+    ranks' kv heads gathered in rank order (each taken from the first rank
+    whose queries read it)."""
+    G = hq * group.size // Hkv
+    nk = max(1, hq // G)
+    idx = []
+    for j in range(Hkv):
+        r = j * G // hq
+        idx.append(r * nk + j - r * hq // G)
+    return G, idx
+
+
+def attend_tp(group, q: dict, kb: dict, vb: dict, valid: dict, hq: int,
+              G: int) -> dict:
+    """Each member's attention output of its own ``hq`` query heads
+    [B, 1, hq, Dh] (``q[r]`` its heads' queries) against the cache blocks
+    ``kb[r]``, ``vb[r]`` (``tp.CacheBlock`` [B, L, Hkv, Dh]) of which the
+    first ``valid`` positions (on each device) are visible.  Blocks split
+    over the length: the queries of every head are all-gathered, each rank
+    runs the softmax of every head over its slice
+    (``decode_attention_partial``, float32) and the group combines the
+    slices: the all-max of the row maxima, the all-reduces of the sums and
+    values rescaled to it, divided once.  A whole (replicated) cache: each
+    rank reads its own kv heads from its copy."""
+    mem = group.members
+    if kb[mem[0]].whole:
+        out = {}
+        for r in mem:
+            k0, nk = r * hq // G, max(1, hq // G)
+            out[r] = decode_attention(q[r], kb[r].t.narrow(2, k0, nk),
+                                      vb[r].t.narrow(2, k0, nk),
+                                      group.at(valid, r))
+        return out
+    q_all = group.all_gather(q, dim=2)
+    parts = {r: decode_attention_partial(
+        group.at(q_all, r), kb[r].t, vb[r].t, group.at(valid, r),
+        kb[r].lo[1]) for r in mem}
+    m_all = group.all_max({r: p[0] for r, p in parts.items()})
+    scaled = {r: rescale_partial(*p, group.at(m_all, r))
+              for r, p in parts.items()}
+    l_sum = group.all_reduce({r: s[0] for r, s in scaled.items()})
+    acc = group.all_reduce({r: s[1] for r, s in scaled.items()})
+    return {r: finish_partials(group.at(l_sum, r), group.at(acc, r),
+                               q[r].dtype).narrow(2, r * hq, hq)
+            for r in mem}
+
+
+def attention_decode_tp(group, mods: dict, h: dict, caches: dict, pos: dict,
+                        dtype) -> dict:
+    """:meth:`Attention.decode` on a model group whose ranks split the
+    heads: each rank projects its q heads and its kv heads; the new
+    token's k and v of every kv head are all-gathered (each head once)
+    and written by the rank whose length slice holds the slot (``pos``,
+    ``pos % clen`` in a window's ring), a write predicated on the device
+    (a cache replicated over ``model`` is written once a device); then
+    :func:`attend_tp`, and each rank's heads through its rows of ``wo``,
+    all-reduced."""
+    mem = group.members
+    cfg = mods[mem[0]].cfg
+    hq = cfg.n_heads
+    k_blk = {r: caches[r]["k"] for r in mem}
+    v_blk = {r: caches[r]["v"] for r in mem}
+    clen, Hkv = k_blk[mem[0]].shape[1:3]
+    G, idx = _kv_layout(group, hq, Hkv)
+    q, k, v = {}, {}, {}
+    for r in mem:
+        positions = _step_positions(group.at(pos, r), h[r].shape[0],
+                                    bool(cfg.mrope_sections))
+        q[r], k[r], v[r] = mods[r]._qkv(h[r], positions)
+    k_all = group.all_gather(k, dim=2)
+    v_all = group.all_gather(v, dim=2)
+    slot, valid = {}, {}
+    for d, p in pos.items():
+        slot[d] = p % clen if cfg.window else p
+        valid[d] = torch.clamp(p + 1, max=clen) if cfg.window else p + 1
+    if k_blk[mem[0]].whole:
+        for d, r in group.places().items():
+            for blk, new in ((k_blk[r], k_all[d]), (v_blk[r], v_all[d])):
+                blk.t.index_copy_(1, slot[d].reshape(1),
+                                  _take(new, 2, idx).to(blk.t.dtype))
+    else:
+        for r in mem:
+            d = group.devices[r]
+            tp.owner_write(k_blk[r], 1, slot[d], _take(k_all[d], 2, idx))
+            tp.owner_write(v_blk[r], 1, slot[d], _take(v_all[d], 2, idx))
+    out = attend_tp(group, q, k_blk, v_blk, valid, hq, G)
+    return group.all_reduce({r: mods[r].out_product(
+        out[r].reshape(h[r].shape[0], 1, -1), "wo") for r in mem}, dtype)
+
+
+def mla_decode_tp(group, mods: dict, h: dict, caches: dict, pos: dict,
+                  dtype) -> dict:
+    """:meth:`MLA.decode` on a model group whose ranks split the heads:
+    the latent cache is replicated over ``model`` (one copy a device,
+    written once a device); each rank runs its heads' whole softmax over
+    it and its rows of ``wo``, all-reduced."""
+    mem = group.members
+    for r in mem:
+        if not all(b.whole for b in caches[r].values()):
+            raise ValueError("MLA's latent cache is split over model: "
+                             f"{[b.t.shape for b in caches[r].values()]}")
+    qc = {r: mods[r]._qc(h[r], _step_positions(group.at(pos, r),
+                                                h[r].shape[0]))
+          for r in mem}
+    for d, r in group.places().items():
+        MLA._write(_tensors(caches[r]), qc[r][2], qc[r][3], pos[d])
+    return group.all_reduce({r: mods[r].out_product(mods[r]._attend(
+        qc[r][0], qc[r][1], _tensors(caches[r]), group.at(pos, r)), "wo")
+        for r in mem}, dtype)
+
+
+def ssd_decode_tp(group, mods: dict, h: dict, caches: dict, dtype) -> dict:
+    """:meth:`SSD.decode` on a model group whose ranks split the heads:
+    each rank's state block is its heads'; the conv window is stored split
+    evenly over its channels, which crosses the rank's compute channels
+    (its x slice, B and C whole), so each rank's region is gathered for
+    the step (``tp.gather_region``) and the stored shares written back
+    after it (``tp.write_back``); the output as :func:`ssd_partials`."""
+    mem, T = group.members, group.size
+    conv = {r: caches[r]["conv"] for r in mem}
+    regions = {}
+    for r in mem:
+        dl, n = mods[r].d_inner, mods[r].d_state
+        ranges = ((r * dl, (r + 1) * dl), (dl * T, dl * T + 2 * n))
+        regions[r] = (tp.gather_region(group, conv, r, 2, ranges), ranges)
+    out = group.all_reduce(ssd_partials(group, mods, h, lambda m, r: m._step(
+        h[r], {"state": caches[r]["state"].t, "conv": regions[r][0]})),
+        dtype)
+    tp.write_back(group, conv, regions, 2)
     return out
 
 

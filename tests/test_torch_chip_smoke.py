@@ -483,6 +483,50 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch,
     assert out["mesh_1x1"] is True
 
 
+def test_lm_decode_on_model_phase_rehearses_on_the_cpu(smoke, monkeypatch,
+                                                       one_thread):
+    """``chip_smoke.py``'s decode-on-``model`` phase on the CPU at reduced
+    widths (the calls that need the card stubbed): each arch's meshes of
+    ``TP_DECODE_ARCHS`` teacher-forced from one device's greedy loop: the
+    float32 mesh step within its gate of one device's with the same MoE
+    drops, the bfloat16 step within its slack of one device's float32
+    logits, the ``CapturedDecode`` body bitwise the eager mesh steps, the
+    ``(1, 1)`` mesh bitwise, and the float32 step at the last position of
+    a filled cache within its gate."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.reduced import reduce_config
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    assert [a for a, _, _ in smoke.TP_DECODE_ARCHS] == [
+        "qwen2.5-3b", "mamba2-780m", "deepseek-v2-lite-16b"]
+    configs = [(arch, reduce_config(ARCHS[arch]), meshes)
+               for arch, _, meshes in smoke.TP_DECODE_ARCHS]
+    out = smoke.drive_tp_decode(torch, torch.device("cpu"), configs=configs,
+                                long_len=64, prompt_len=4, gen=4)
+    assert [[m["mesh"] for m in r["meshes"]] for r in out["runs"]] == [
+        [(1, 4), (2, 2)], [(1, 4)], [(1, 4), (2, 2)]]
+    for run in out["runs"]:
+        for m in run["meshes"]:
+            assert m["f32_max_abs_err"] < smoke.TP_DECODE_F32_TOL
+            assert m["f32_routings_differing"] == 0
+            assert m["err_vs_f32"] <= (smoke.TP_DECODE_BF16_SLACK
+                                       * m["single_err_vs_f32"])
+            assert m["replay_bitwise"] and m["captures"] == 0
+            assert m["tally"]["all-reduce"]["forward"] > 0
+            assert 0 <= m["greedy_agree"] <= 1
+    assert out["runs"][0]["mesh_1x1_bitwise"] is True
+    assert all(m["f32_drops"] > 0 for m in out["runs"][2]["meshes"])
+    # SSD: the conv window crosses the ranks' channels
+    assert "cache" in out["runs"][1]["meshes"][0]["tally"]["all-gather"]
+    long = out["long"]
+    assert (long["arch"], long["mesh"], long["depth"]) == (
+        "qwen2.5-3b", (1, 4), 64)
+    assert long["max_abs_err"] < smoke.TP_DECODE_F32_TOL
+
+
 def test_lm_dryrun_phase_rehearses_on_the_cpu(smoke, monkeypatch,
                                               one_thread):
     """``chip_smoke.py``'s LM dry-run phase on reduced qwen2.5-3b on the

@@ -388,33 +388,85 @@ def test_train_count_scales_one_microbatch_to_the_unscaled_step():
 
 def test_serving_counts_gather_the_replica_and_cache():
     """Reduced deepseek-v2-lite-16b (MLA + MoE) on a (data 2, model 2)
-    mesh: a decode cell's device runs its dp rank's rows against their
-    cache on the whole replica, gathers the parameters not whole on it
-    and the cache leaves split over ``model``; ``infer_tp`` keeps the
-    parameters off the data axis; a prefill cell runs model rank 0's
-    share of the tensor-parallel prefill step on its rows, its layer
-    all-reduces and the gathered logits tallied."""
+    mesh: a decode cell counts model rank 0 of dp rank 0's group, on its
+    rows against its own blocks of the placed cache (nothing of the cache
+    gathered: the latent cache is replicated over ``model``), its layer
+    all-reduces, the MoE layers' gathered rows of both dp ranks and the
+    gathered logits tallied, and ``step_collectives``' all-reduce is the
+    tally's; ``infer_tp`` keeps the parameters off the data axis; a
+    prefill cell runs model rank 0's share of the tensor-parallel prefill
+    step on its rows, its layer all-reduces and the gathered logits
+    tallied."""
     cfg = reduce_config(ARCHS["deepseek-v2-lite-16b"])
     mesh = Mesh.on("meta", (2, 2), ("data", "model"))
     dec = dryrun.count_cell(cfg, ShapeConfig("d", 64, 4, "decode"), mesh)
-    tp = dryrun.count_cell(cfg, ShapeConfig("d", 64, 4, "decode"), mesh,
-                           ("infer_tp",))
+    infer = dryrun.count_cell(cfg, ShapeConfig("d", 64, 4, "decode"), mesh,
+                              ("infer_tp",))
     pre = dryrun.count_cell(cfg, ShapeConfig("p", 64, 4, "prefill"), mesh)
-    assert dec["busiest"] == dict(coord=[0, 0], rows=2, compute_devices=2,
-                                  model_group=1, whole_layers=[])
+    assert dec["busiest"] == dict(coord=[0, 0], rows=2, compute_devices=4,
+                                  model_group=2, whole_layers=[])
     assert pre["busiest"] == dict(coord=[0, 0], rows=2, compute_devices=4,
                                   model_group=2, whole_layers=[])
     assert set(pre["tp_collectives"]) == {"all-reduce", "all-gather"}
-    assert dec["tp_collectives"] == {}
+    assert set(dec["tp_collectives"]) == {"all-reduce", "all-gather"}
+    assert all(set(v) == {"forward"} for v in dec["tp_collectives"].values())
+    assert dec["collectives"]["all-reduce"] == sum(
+        dec["tp_collectives"]["all-reduce"].values()) > 0
+    # the all-gathers: the parameters' compute blocks and the tally, no
+    # cache leaf
+    bundle = build_model(cfg)
+    model = bundle.abstract_params()
+    specs = ts.params_shardings(model, mesh)
+    params = {n: ts.shard(p, specs[n], mesh)
+              for n, p in model.named_parameters()}
+    splits = tp.local_model(bundle, mesh, 0).splits
+    weights = rl.step_collectives(mesh, {"params": params}, splits, (0, 0))
+    assert dec["collectives"]["all-gather"] == weights["all-gather"] + sum(
+        dec["tp_collectives"]["all-gather"].values())
     assert dec["cost"]["flops"] > 0 and pre["cost"]["flops"] > dec["cost"][
         "flops"]
-    assert dec["collectives"]["all-gather"] > 0
-    assert tp["memory"]["shard_bytes"] > dec["memory"]["shard_bytes"]
-    for r in (dec, tp, pre):
+    assert infer["memory"]["shard_bytes"] > dec["memory"]["shard_bytes"]
+    for r in (dec, infer, pre):
         assert r["collectives"]["reduce-scatter"] == 0
         assert r["memory"]["activation_bytes"] > 0
         assert r["roofline"]["dominant"] in ("compute_s", "memory_s",
                                              "collective_s")
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_decode_group_count_is_the_sum_of_rank_counts(arch):
+    """On the ``(1, 2)`` meta mesh the counted FLOPs of the whole group's
+    decode step (``make_serve_step(bundle, mesh)``, both ranks' ops)
+    equal the sum of the dry-run's two per-rank decode counts, each rank
+    below three quarters of the ``(1, 1)`` count; the counted rank's
+    tally equals a CPU decode step's on the same mesh shape."""
+    cfg = reduce_config(ARCHS[arch])
+    mesh = Mesh.on("meta", (1, 2), ("data", "model"))
+    shape = ShapeConfig("d", 64, 4, "decode")
+    bundle = build_model(cfg)
+    counts = [dryrun.count_cell(cfg, shape, mesh, model_rank=m)
+              for m in range(2)]
+    model = bundle.abstract_params()
+    specs = ts.params_shardings(model, mesh)
+    params = {n: ts.shard(p, specs[n], mesh)
+              for n, p in model.named_parameters()}
+    cache = ts.shard_cache(bundle.abstract_cache(4, 64), mesh)
+    whole = rl.step_cost(steps.make_serve_step(bundle, mesh), params, cache,
+                         input_specs(cfg, shape))
+    assert whole["flops"] == sum(c["cost"]["flops"] for c in counts)
+    assert all(c["busiest"]["model_group"] == 2 for c in counts)
+    one = dryrun.count_cell(cfg, shape, Mesh.on("meta", (1, 1),
+                                                ("data", "model")))
+    assert counts[0]["cost"]["flops"] < 0.75 * one["cost"]["flops"]
+    cpu = torch.device("cpu")
+    mesh = Mesh.on(cpu, (1, 2), ("data", "model"))
+    real = bundle.init(0, cpu)
+    specs = ts.params_shardings(real, mesh)
+    step = steps.make_serve_step(bundle, mesh)
+    step({n: ts.shard(p, specs[n], mesh) for n, p in real.named_parameters()},
+         ts.shard_cache(bundle.init_cache(4, 64, device=cpu), mesh),
+         {"tokens": torch.zeros((4, 1), dtype=torch.long), "pos": 0})
+    assert counts[0]["tp_collectives"] == step.compute.tallies[0].as_dict()
 
 
 # ------------------------------------------------------------ report
