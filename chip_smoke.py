@@ -73,7 +73,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    repro_torch.launch.train`` as ``examples/train_lm.py`` runs the
    reference's: 12 steps, then ``--steps 18 --resume``) beside a
    ``--compress-grads`` run; then the LM distribution layer:
-   ``qwen2.5-3b`` at its published widths and depth on a (data 2, model
+   ``qwen2.5-3b`` at its published widths and 8 of its 36 layers
+   (against a single-device run of that depth) on a (data 2, model
    2) mesh whose four coordinates share the card (``init_state`` /
    ``make_train_step`` with ``mesh=``, the state stored by the sharding
    rules): every shard's bytes as its spec predicts, four steps of the
@@ -86,9 +87,19 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    (save, ``plan_remesh(2, model_parallel=2, original_data=2)``, restore
    onto (data 1, model 2) bitwise with every shard by the new spec, one
    finite step with the microbatches doubled); two steps of reduced
-   qwen2.5-3b on the (1, 1) mesh bitwise ``make_train_step``'s; then
-   the LM decode on a ``model`` axis (``make_serve_step(bundle, mesh)``,
-   the cache placed by ``cache_shardings``): qwen2.5-3b whole on (data 1,
+   qwen2.5-3b on the (1, 1) mesh bitwise ``make_train_step``'s; each
+   microbatch's rows split over the data ranks wherever they divide
+   them (qwen2.5-3b on (2, 2) and (data 2, model 1), deepseek-v2-lite-16b
+   at 4 layers on (1, 4) and (2, 2), every MoE layer routing the gathered
+   microbatch), held to the gates against one device, and in float32 at
+   2 layers with the MoE dropped choices equal; the float32 prefill of
+   both on (2, 2) against one device; qwen2.5-3b with ``seq_shard`` on
+   (1, 4) (the residual stream cut over the sequence: all-gathered before
+   each layer, reduce-scattered after it), its first loss bitwise the
+   (1, 4) run's, and one float32 step's gradients within 1e-5 of the same
+   mesh's without it; then the LM decode on a ``model`` axis
+   (``make_serve_step(bundle, mesh)``, the cache placed by
+   ``cache_shardings``): qwen2.5-3b whole on (data 1,
    model 4) and (data 2, model 2), mamba2-780m whole on (1, 4) and
    deepseek-v2-lite-16b at 4 layers on (1, 4) and (2, 2), each fed one
    device's greedy bfloat16 tokens (batch 4 x (16 + 16)): in float32
@@ -107,7 +118,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    ``FlopCounterMode``, the peak within 15 %, the roofline bound's share
    of the measured step, the ratio to ``train_work`` with its causes),
    and ``python -m repro_torch.launch.dryrun`` on two production cells
-   (qwen2.5-3b train_4k, deepseek-v2-lite-16b decode_32k) as
+   (mamba2-780m train_4k, deepseek-v2-lite-16b decode_32k) as
    subprocesses beside it; and ``examples_torch/quickstart.py`` and
    ``gnn_inference.py`` at their defaults;
 10. calibrates: the reference's sweep (block 8) through ``calibrate`` on the
@@ -2259,6 +2270,18 @@ def train_work(model, cfg, tokens: int, seq: int) -> dict:
                 adamw_ms=adamw_ms, bound_ms=flop_ms + adamw_ms)
 
 
+def train_tokens(torch, cfg, batch, seq, dev) -> dict:
+    """One ``TokenPipeline`` batch of ``cfg``'s vocabulary on ``dev``."""
+    from repro_torch.data.lm import TokenPipeline
+
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq)
+    try:
+        tokens = next(pipe)["tokens"]
+    finally:
+        pipe.close()
+    return {"tokens": torch.as_tensor(tokens, device=dev).long()}
+
+
 def timed_step(torch, step, state, batch, dev):
     """One train step between two synchronizations: (state, metrics, host
     seconds, device ms by CUDA events or None off the card)."""
@@ -2320,7 +2343,6 @@ def drive_train_arch(torch, arch, cfg, dev, batch=TRAIN_BATCH,
     first (each the same rows)."""
     import gc
 
-    from repro_torch.data.lm import TokenPipeline
     from repro_torch.launch.steps import init_state, make_train_step
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import AdamWConfig
@@ -2334,12 +2356,7 @@ def drive_train_arch(torch, arch, cfg, dev, batch=TRAIN_BATCH,
     state, init_s = synced_wall(torch, lambda: init_state(bundle, 0, dev))
     model = state["params"]
     n_params = sum(p.numel() for p in model.parameters())
-    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq)
-    try:
-        tokens = next(pipe)["tokens"]
-    finally:
-        pipe.close()
-    feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    feed = train_tokens(torch, cfg, batch, seq, dev)
     if reverse:
         mb = max(1, cfg.microbatches)
         feed = {k: torch.cat(v.chunk(mb)[::-1]) for k, v in feed.items()}
@@ -2699,12 +2716,11 @@ def drive_train_restart(torch, dev, tmp_dir: str, cli_extra=()):
 
 
 def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
-                reduced_archs=None, cli_extra=(), keep=None, **arch_kw):
+                reduced_archs=None, cli_extra=(), **arch_kw):
     """The LM training phase: full-size training of each config, the flash
     VJP at qwen2.5-3b's attention, one step of every reduced arch on the
     card against the CPU, and the restart checks.  ``card`` (name and
-    power limit) goes on the phase's summary line; ``keep`` maps an arch
-    to the steps after which its parameters are kept (``params_host``)."""
+    power limit) goes on the phase's summary line."""
     t0 = time.perf_counter()
     walls = {}
 
@@ -2715,8 +2731,7 @@ def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
         return out
 
     full = part("full", lambda: [drive_train_arch(
-        torch, arch, cfg, dev, keep_after=(keep or {}).get(arch), **arch_kw)
-        for arch, cfg in configs])
+        torch, arch, cfg, dev, **arch_kw) for arch, cfg in configs])
     flash = part("flash_vjp", lambda: drive_flash_vjp(torch, dev,
                                                       flash_shape))
     log("== LM training: one float32 step of each reduced arch, card "
@@ -2751,6 +2766,14 @@ def drive_train(torch, dev, configs, card="", flash_shape=FLASH_VJP_SHAPE,
 DIST_ARCH = "qwen2.5-3b"
 DIST_MESH = (2, 2)
 DIST_STEPS = 4
+# the mesh runs of DIST_ARCH (the meshes above, psum8, the pipeline, the
+# elastic restore, seq_shard, the witness) keep DIST_LAYERS of its 36
+# layers at full width, held against a single-device run of the same
+# depth: a group's ranks run in turn on one card, so a mesh step is
+# host-bound (whole, the phase took 762.8 s on an NVIDIA H100 80GB HBM3 at
+# 700 W, with every microbatch's rows split over (2, 2)); the (1, 1) mesh
+# stays whole, against drive_train's run
+DIST_LAYERS = 8
 TP_MESH = (1, 4)
 TP_MOE_ARCH, TP_MOE_LAYERS = "deepseek-v2-lite-16b", 4
 # a bfloat16 step whose model axis is > 1 reassociates the row-parallel
@@ -2790,6 +2813,23 @@ TP_LOSS_TOL, TP_NORM_TOL, TP_PARAM_TOL = 1e-3, 3e-3, 5e-3
 F32_TP_LAYERS = 2
 F32_OPT = dict(lr=1e-3, warmup_steps=0)
 F32_LOSS_TOL, F32_NORM_TOL, F32_GRAD_TOL = 1e-5, 1e-5, 1e-4
+# a microbatch's rows split over the data ranks (where the residual
+# anchor keeps dp) and seq_shard as sequence parallelism over model:
+# qwen2.5-3b on (data 2, model 1), no longer bitwise one device's (its
+# GEMMs run on fewer rows, the loss and the gradients are summed over the
+# ranks), held to the gates above; the prefill of the train batch on
+# DIST_MESH in float32 at F32_TP_LAYERS layers within TP_DECODE_F32_TOL of
+# one device's logits, its MoE drops equal; qwen2.5-3b with seq_shard on
+# TP_MESH for SEQ_STEPS bfloat16 steps whose first loss equals the
+# TP_MESH run's bitwise (the norms are per token, the products see the
+# same gathered input, a reduce-scatter is the all-reduce's rank-order
+# sum, cut), and one float32 step at F32_TP_LAYERS layers whose loss
+# equals the same mesh's without seq_shard bitwise and each of whose
+# leaves' gradients is within SEQ_GRAD_TOL of it (the norm of the
+# difference over the norm: the norm weights' gradients are summed over
+# the slices; on the CPU at reduced widths at most 1.0e-6)
+DP_MESH = (2, 1)
+SEQ_STEPS, SEQ_GRAD_TOL = 2, 1e-5
 # the whole config on the (1, 1) mesh: two steps, whose peak memory above
 # what was held may exceed the single-device step's by 1 % at most
 MESH_1X1_STEPS, MESH_1X1_PEAK = 2, 1.01
@@ -2854,15 +2894,16 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
     the model group's collectives moved for one rank, the bound, a
     profiled step (with ``profile``: launches, idle share).  Against
     ``single``, a ``drive_train_arch`` record of the same config, batch
-    and optimizer, where given: on a ``model`` axis of 1 every loss and
-    gradient norm bitwise; on a larger one step 0's loss within
+    and optimizer, where given: every loss and gradient norm bitwise
+    where nothing reassociates (a ``model`` axis of 1 and microbatch rows
+    the data axes do not split); else (tensor-parallel, or each
+    microbatch's rows split over the data ranks) step 0's loss within
     ``TP_LOSS_TOL`` and its gradient norm within ``TP_NORM_TOL``
     (relative), and every parameter after the last step within
     ``TP_PARAM_TOL`` of those ``single`` kept after as many steps (a run
     that kept none fails)."""
     import gc
 
-    from repro_torch.data.lm import TokenPipeline
     from repro_torch.distributed import sharding
     from repro_torch.launch.steps import init_state, make_train_step
     from repro_torch.models.lm import LM
@@ -2879,12 +2920,7 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
         torch, lambda: init_state(bundle, 0, dev, mesh=mesh))
     shard_bytes = check_shard_bytes(state)
     init_peak = torch.cuda.max_memory_allocated() / 2**30
-    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq)
-    try:
-        tokens = next(pipe)["tokens"]
-    finally:
-        pipe.close()
-    feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    feed = train_tokens(torch, cfg, batch, seq, dev)
     work = train_work(LM(cfg, device="meta"), cfg, batch * seq, seq)
     T = shape[1]
     log(f"== LM distribution: {cfg.name} ({cfg.n_layers} layers, d_model "
@@ -2899,6 +2935,14 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
         f"the card {shard_bytes['distinct'] / 1e9:.3f} GB; batch {batch} x "
         f"{seq}, repeated; step bound {work['bound_ms']:.3f} ms")
     step = make_train_step(bundle, AdamWConfig(**TRAIN_OPT), mesh=mesh)
+    n_ranks = len(step.compute.owner_ranks(feed, cfg.microbatches)[0])
+    seq_split = step.compute.layout(feed, batch // cfg.microbatches)[1]
+    exact = T == 1 and n_ranks == 1
+    log(f"  each microbatch's {batch // cfg.microbatches} rows "
+        + (f"split over {n_ranks} data ranks" if n_ranks > 1
+           else "whole on one data rank")
+        + ("; the sequence split over the model ranks (seq_shard)"
+           if seq_split else ""))
     rows = []
     for i in range(steps):
         state, m, wall, event_ms = timed_step(torch, step, state, feed, dev)
@@ -2936,10 +2980,10 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
             f"{[a[1] / b[1] - 1 for a, b in pairs]}; peak above what was "
             f"held {peak - held / 2**30:.2f} GiB, single-device "
             f"{single['peak_gib'] - single['held_gib']:.2f} GiB")
-        if T == 1 and not same:
+        if exact and not same:
             raise AssertionError(f"the sharded steps differ from the "
                                  f"single-device run's: {pairs}")
-        if T > 1:
+        if not exact:
             if single.get("params_steps") != steps:
                 raise AssertionError(
                     f"the single-device run kept no parameters after {steps} "
@@ -2965,6 +3009,7 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
     event_ms = (statistics.median(r["event_ms"] for r in steady)
                 if rows[0]["event_ms"] is not None else None)
     out = dict(arch=cfg.name, mesh=tuple(shape), layers=cfg.n_layers,
+               rows_split=n_ranks, seq_split=seq_split,
                losses=[r["loss"] for r in rows],
                grad_norms=[r["grad_norm"] for r in rows],
                bitwise_single=same, gates=gates, step_wall_ms=1e3 * wall,
@@ -2984,24 +3029,29 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
     return out, bundle, mesh, state, feed
 
 
-def drive_single_then_tp(torch, dev, cfg, batch, seq, steps, shape):
+def drive_single_then_tp(torch, dev, cfg, batch, seq, steps, shape,
+                         also=()):
     """``cfg`` trained ``steps`` steps on one device (``drive_train_arch``,
     its parameters kept), its state freed, then on a mesh of ``shape``
-    (:func:`drive_sharded_train`, held to the gates against it)."""
+    and of each of ``also`` (:func:`drive_sharded_train`, held to the
+    gates against it)."""
     import gc
 
     single = drive_train_arch(torch, cfg.name, cfg, dev, batch, seq, steps,
                               keep_after=steps, profile=False)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out, _, _, state, _ = drive_sharded_train(torch, dev, cfg, single, batch,
-                                              seq, steps, shape)
-    del state
+    runs = []
+    for sh in (shape, *also):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out, _, _, state, _ = drive_sharded_train(torch, dev, cfg, single,
+                                                  batch, seq, steps, sh)
+        del state
+        runs.append(out)
     single.pop("params_host")
     gc.collect()
     torch.cuda.empty_cache()
     return dict(single={k: v for k, v in single.items() if k != "profile"},
-                sharded=out)
+                sharded=runs[0], also=runs[1:])
 
 
 def drive_reversed(torch, dev, cfg, single, batch, seq, steps, tp_runs):
@@ -3038,12 +3088,13 @@ def drive_f32_tp(torch, dev, cfg, shapes, batch, seq):
     ``F32_OPT``: the loss within ``F32_LOSS_TOL``, the gradient norm
     within ``F32_NORM_TOL`` (relative) and each leaf's gradient within
     ``F32_GRAD_TOL`` of the single-device step's (the norm of the
-    difference over the norm).  Each element's parameter change is
-    logged against the single-device one's, with the leaf, the element
-    and its single-device gradient."""
+    difference over the norm), every MoE routing's dropped choices equal
+    one device's (each of the mesh's groups and ranks routes the whole
+    microbatch).  Each element's parameter change is logged against the
+    single-device one's, with the leaf, the element and its single-device
+    gradient."""
     import gc
 
-    from repro_torch.data.lm import TokenPipeline
     from repro_torch.distributed import sharding
     from repro_torch.launch.steps import init_state, make_train_step
     from repro_torch.models.registry import build_model
@@ -3053,19 +3104,15 @@ def drive_f32_tp(torch, dev, cfg, shapes, batch, seq):
                               dtype="float32")
     bundle = build_model(cfg)
     opt = AdamWConfig(**F32_OPT)
-    pipe = TokenPipeline(vocab=cfg.vocab, batch=batch, seq_len=seq)
-    try:
-        tokens = next(pipe)["tokens"]
-    finally:
-        pipe.close()
-    feed = {"tokens": torch.as_tensor(tokens, device=dev).long()}
+    feed = train_tokens(torch, cfg, batch, seq, dev)
     cpu = torch.device("cpu")
     gc.collect()
     torch.cuda.empty_cache()
     state = init_state(bundle, 0, dev)
     init = {n: p.detach().to(cpu, copy=True)
             for n, p in state["params"].named_parameters()}
-    _, m = make_train_step(bundle, opt)(state, feed)
+    with recording_drops() as drops:
+        _, m = make_train_step(bundle, opt)(state, feed)
     want = dict(loss=m["loss"].item(), grad_norm=m["grad_norm"].item())
     grads = {n: p.grad.to(cpu, copy=True)
              for n, p in state["params"].named_parameters()}
@@ -3087,7 +3134,11 @@ def drive_f32_tp(torch, dev, cfg, shapes, batch, seq):
             seen.update(got)
             return loss, got
         step.compute.loss_and_grads = keep
-        _, m = step(state, feed)
+        per_layer = len(step.compute.owner_ranks(
+            feed, cfg.microbatches)[0]) * shape[1]
+        with recording_drops() as mesh_drops:
+            _, m = step(state, feed)
+        n_drops, differ = compare_drops(drops, mesh_drops, 1, per_layer)
         grad_rel = {n: ((seen[n].whole().to(cpu) - g).norm()
                         / g.norm()).item() for n, g in grads.items()}
         worst = max(grad_rel, key=grad_rel.get)
@@ -3104,8 +3155,9 @@ def drive_f32_tp(torch, dev, cfg, shapes, batch, seq):
                    change_diff=diffs[at].max().item(), change_leaf=at,
                    change_grad=grads[at].flatten()[i].item(),
                    changes_over_1e4=sum(int((d > 1e-4).sum())
-                                        for d in diffs.values()))
-        del state, m, step, seen, diffs
+                                        for d in diffs.values()),
+                   drops=n_drops, routings_differing=differ)
+        del state, m, step, seen, diffs, mesh_drops
         out["meshes"].append(got)
         log(f"== LM distribution: one float32 step of {cfg.name} "
             f"({cfg.n_layers} layers, full width, batch {batch} x {seq}, "
@@ -3117,14 +3169,135 @@ def drive_f32_tp(torch, dev, cfg, shapes, batch, seq):
             f"({worst}; limit {F32_GRAD_TOL}); largest |change diff| "
             f"{got['change_diff']:.3e} ({at}, flat index {i}, whose "
             f"single-device gradient is {got['change_grad']:.3e}), "
-            f"{got['changes_over_1e4']} elements over 1e-4")
+            f"{got['changes_over_1e4']} elements over 1e-4; MoE dropped "
+            f"choices {n_drops} on one device, {differ} mesh routings "
+            "differing")
         if not (got["loss_diff"] < F32_LOSS_TOL
                 and got["norm_rel"] < F32_NORM_TOL
-                and got["grad_rel"] < F32_GRAD_TOL):
+                and got["grad_rel"] < F32_GRAD_TOL and differ == 0):
             raise AssertionError(f"the float32 tensor-parallel step of "
                                  f"{cfg.name} leaves the gates: {got}")
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def drive_prefill_dp(torch, dev, cfg, batch, seq, shape=DIST_MESH):
+    """``make_prefill_step`` of one ``batch`` x ``seq`` batch of ``cfg``
+    at ``F32_TP_LAYERS`` layers, full width, in float32, on one device
+    and on a mesh of ``shape`` (each data rank's rows on its model group,
+    every MoE layer routing the whole batch, the logits concatenated in
+    rank order): the logits within ``TP_DECODE_F32_TOL`` of one device's,
+    every routing's dropped choices equal one device's; both walls and
+    rank 0's tally logged."""
+    import gc
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, F32_TP_LAYERS),
+                              dtype="float32")
+    bundle = build_model(cfg)
+    feed = train_tokens(torch, cfg, batch, seq, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = bundle.init(0, dev)
+    with recording_drops() as drops:
+        want, one_s = synced_wall(
+            torch, lambda: make_prefill_step(bundle)(model, feed))
+    mesh = mesh_on(dev, shape)
+    params = placed_params(model, mesh)
+    del model
+    step = make_prefill_step(bundle, mesh)
+    compute = step.__self__
+    n_ranks = compute.layout(feed, batch)[0]
+    with recording_drops() as mesh_drops:
+        got, mesh_s = synced_wall(torch, lambda: step(params, feed))
+    n_drops, differ = compare_drops(drops, mesh_drops, 1,
+                                    n_ranks * shape[1])
+    out = dict(arch=cfg.name, mesh=tuple(shape), layers=cfg.n_layers,
+               rows_split=n_ranks,
+               max_abs_err=(got - want).abs().max().item(),
+               single_s=one_s, mesh_s=mesh_s, drops=n_drops,
+               routings_differing=differ, tally=compute.tallies[0].as_dict())
+    log(f"== LM distribution: the float32 prefill of {cfg.name} "
+        f"({cfg.n_layers} layers, full width, batch {batch} x {seq}) on "
+        f"(data {shape[0]}, model {shape[1]}), its rows split over "
+        f"{n_ranks} data ranks, against one device: max |logit diff| "
+        f"{out['max_abs_err']:.3e} (limit {TP_DECODE_F32_TOL}); MoE dropped "
+        f"choices {n_drops} on one device, {differ} mesh routings "
+        f"differing; wall {one_s:.3f} s one device, {mesh_s:.3f} s the mesh "
+        f"(the first call of each); rank 0's tally (bytes) {out['tally']}")
+    del params, step, compute, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (out["max_abs_err"] <= TP_DECODE_F32_TOL and differ == 0):
+        raise AssertionError(f"the prefill on {shape} leaves the gates: "
+                             f"{out}")
+    return out
+
+
+def drive_f32_seq(torch, dev, cfg, batch, seq, shape=TP_MESH):
+    """One float32 step of ``cfg`` at ``F32_TP_LAYERS`` layers, full width,
+    on a mesh of ``shape`` without and with ``seq_shard``, from the same
+    parameters and batch at ``F32_OPT``: the losses bitwise equal and each
+    leaf's gradient within ``SEQ_GRAD_TOL`` (the norm of the difference
+    over the norm)."""
+    import gc
+
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    base = dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                 F32_TP_LAYERS),
+                               dtype="float32")
+    feed = train_tokens(torch, base, batch, seq, dev)
+    mesh = mesh_on(dev, shape)
+    cpu = torch.device("cpu")
+    runs = []
+    for flag in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        bundle = build_model(dataclasses.replace(base, seq_shard=flag))
+        state = init_state(bundle, 0, dev, mesh=mesh)
+        step = make_train_step(bundle, AdamWConfig(**F32_OPT), mesh=mesh)
+        seen = {}
+        reduce = step.compute.loss_and_grads
+
+        def keep(*args, reduce=reduce, seen=seen):
+            loss, got = reduce(*args)
+            seen.update({n: g.whole().to(cpu) for n, g in got.items()})
+            return loss, got
+        step.compute.loss_and_grads = keep
+        _, m, wall, _ = timed_step(torch, step, state, feed, dev)
+        runs.append(dict(loss=m["loss"].item(), grads=seen, wall_s=wall,
+                         seq_split=step.compute.layout(
+                             feed, batch // cfg.microbatches)[1],
+                         tally=step.compute.tallies[0].as_dict()))
+        del state, step, m
+    (a, b) = runs
+    rel = {n: ((b["grads"][n] - g).norm() / g.norm()).item()
+           for n, g in a["grads"].items()}
+    worst = max(rel, key=rel.get)
+    out = dict(arch=base.name, mesh=tuple(shape), layers=base.n_layers,
+               seq_split=b["seq_split"], loss_bitwise=a["loss"] == b["loss"],
+               grad_rel=rel[worst], grad_rel_leaf=worst,
+               wall_s=[a["wall_s"], b["wall_s"]], tally=b["tally"])
+    log(f"== LM distribution: one float32 step of {base.name} "
+        f"({base.n_layers} layers, full width) on (data {shape[0]}, model "
+        f"{shape[1]}) with seq_shard (sequence split: {b['seq_split']}) "
+        f"against the same mesh without it: loss bitwise "
+        f"{out['loss_bitwise']} ({b['loss']!r} / {a['loss']!r}); largest "
+        f"leaf gradient |diff| / |without's| {rel[worst]:.3e} ({worst}; "
+        f"limit {SEQ_GRAD_TOL}); wall {a['wall_s']:.2f} / {b['wall_s']:.2f} "
+        f"s; rank 0's tally with it (bytes) {b['tally']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (out["seq_split"] and out["loss_bitwise"]
+            and rel[worst] < SEQ_GRAD_TOL):
+        raise AssertionError(f"seq_shard's float32 step leaves the gates: "
+                             f"{out}")
     return out
 
 
@@ -3353,22 +3526,29 @@ def drive_mesh_1x1(torch, dev, cfg):
 def drive_distributed(torch, dev, cfg, card="", single=None,
                       reduced_cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                       steps=DIST_STEPS, moe_cfg=None):
-    """The LM distribution phase: sharded, tensor-parallel training of
-    ``cfg`` on a ``DIST_MESH`` mesh, ``psum8`` on its embedding gradients,
-    the pipeline of its first layers, the elastic restore, ``cfg`` on the
-    ``TP_MESH`` mesh, ``cfg`` on the ``(1, 1)`` mesh (its peak memory at
-    most ``MESH_1X1_PEAK`` times the single-device step's), the ``(1,
-    1)`` mesh on ``reduced_cfg`` (default: ``reduce_config(cfg)``) against
-    ``make_train_step``, and ``moe_cfg`` (default: ``TP_MOE_ARCH`` at
-    ``TP_MOE_LAYERS`` layers) on one device and on ``TP_MESH``; one
-    float32 step of each on its tensor-parallel meshes against one device
-    (:func:`drive_f32_tp`), and with ``single`` the reversed-microbatch
-    witness (:func:`drive_reversed`).  ``single`` is
-    ``drive_train_arch``'s record of ``cfg`` on the same batch (its
-    parameters kept after ``steps`` steps), against which the mesh steps
-    are held: bitwise on a ``model`` axis of 1, within the gates on a
-    larger one.  ``card`` (name and power limit) goes on the
-    phase's summary line."""
+    """The LM distribution phase.  ``cfg`` at ``DIST_LAYERS`` layers
+    (``near``: trained on one device first, its parameters kept after
+    ``steps`` steps): sharded, tensor-parallel training on a
+    ``DIST_MESH`` mesh, ``psum8`` on its embedding gradients, the
+    pipeline of its first layers, the elastic restore, then ``TP_MESH``,
+    ``DP_MESH`` (rows split, nothing tensor-parallel) and ``seq_shard``
+    on ``TP_MESH`` (its first loss bitwise the ``TP_MESH`` run's), and
+    the reversed-microbatch witness (:func:`drive_reversed`); the whole
+    ``cfg`` on the ``(1, 1)`` mesh (against ``single``,
+    ``drive_train_arch``'s record of it on the same batch, where given:
+    its peak memory at most ``MESH_1X1_PEAK`` times the single-device
+    step's); the ``(1, 1)`` mesh on ``reduced_cfg`` (default:
+    ``reduce_config(cfg)``) against ``make_train_step``; ``moe_cfg``
+    (default: ``TP_MOE_ARCH`` at ``TP_MOE_LAYERS`` layers) on one device
+    and on ``TP_MESH`` and ``DIST_MESH``; one float32 step of each on its
+    tensor-parallel meshes against one device (:func:`drive_f32_tp`, the
+    MoE drops equal); the float32 prefill of each on ``DIST_MESH``
+    against one device (:func:`drive_prefill_dp`); one float32 step of
+    ``cfg`` with ``seq_shard`` against the same mesh without it
+    (:func:`drive_f32_seq`).  The mesh steps are held against ``near``'s
+    run: bitwise where nothing reassociates (a ``model`` axis of 1,
+    microbatch rows not split), within the gates elsewhere.  ``card``
+    (name and power limit) goes on the phase's summary line."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.reduced import reduce_config
 
@@ -3381,8 +3561,13 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
         walls[name] = time.perf_counter() - t
         return out
 
+    full_cfg, cfg = cfg, dataclasses.replace(
+        cfg, n_layers=min(cfg.n_layers, DIST_LAYERS))
+    near = part("single", lambda: drive_train_arch(
+        torch, cfg.name, cfg, dev, batch, seq, steps, keep_after=steps,
+        profile=False))
     train, bundle, mesh, state, feed = part("train", lambda: (
-        drive_sharded_train(torch, dev, cfg, single, batch, seq, steps)))
+        drive_sharded_train(torch, dev, cfg, near, batch, seq, steps)))
     psum = part("psum8", lambda: drive_psum8(torch, bundle, mesh, state,
                                              feed, dev))
     pipe = part("pipeline", lambda: drive_pipeline(torch, cfg, state, dev))
@@ -3391,10 +3576,10 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
             torch, bundle, state, feed, dev, tmp))
     del state
     tp4 = part("train_tp", lambda: drive_sharded_train(
-        torch, dev, cfg, single, batch, seq, steps, shape=TP_MESH)[0])
+        torch, dev, cfg, near, batch, seq, steps, shape=TP_MESH)[0])
     full_1x1 = part("mesh_1x1_full", lambda: drive_sharded_train(
-        torch, dev, cfg, single, batch, seq, MESH_1X1_STEPS, shape=(1, 1),
-        profile=False)[0])
+        torch, dev, full_cfg, single, batch, seq, MESH_1X1_STEPS,
+        shape=(1, 1), profile=False)[0])
     if single is not None:
         above = single["peak_gib"] - single["held_gib"]
         if not full_1x1["peak_above_held_gib"] <= MESH_1X1_PEAK * above:
@@ -3403,32 +3588,54 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
                 f"{full_1x1['peak_above_held_gib']:.3f} GiB above what was "
                 f"held, the single-device step at {above:.3f} GiB")
     one = part("mesh_1x1", lambda: drive_mesh_1x1(
-        torch, dev, dataclasses.replace(reduced_cfg or reduce_config(cfg),
-                                        dtype="float32")))
+        torch, dev, dataclasses.replace(
+            reduced_cfg or reduce_config(full_cfg), dtype="float32")))
     moe_cfg = moe_cfg or dataclasses.replace(ARCHS[TP_MOE_ARCH],
                                              n_layers=TP_MOE_LAYERS)
     moe = part("moe_tp", lambda: drive_single_then_tp(
-        torch, dev, moe_cfg, batch, seq, steps, TP_MESH))
+        torch, dev, moe_cfg, batch, seq, steps, TP_MESH, also=(DIST_MESH,)))
     f32 = part("f32_tp", lambda: [
         drive_f32_tp(torch, dev, cfg, (DIST_MESH, TP_MESH), batch, seq),
-        drive_f32_tp(torch, dev, moe_cfg, (TP_MESH,), batch, seq)])
-    witness = None
-    if single is not None:
-        witness = part("witness", lambda: drive_reversed(
-            torch, dev, cfg, single, batch, seq, steps, (train, tp4)))
+        drive_f32_tp(torch, dev, moe_cfg, (TP_MESH, DIST_MESH), batch, seq)])
+    dp = part("train_dp", lambda: drive_sharded_train(
+        torch, dev, cfg, near, batch, seq, steps, shape=DP_MESH)[0])
+    prefill = part("prefill_dp", lambda: [
+        drive_prefill_dp(torch, dev, c, batch, seq) for c in (cfg, moe_cfg)])
+    seq_run = part("seq_shard", lambda: drive_sharded_train(
+        torch, dev, dataclasses.replace(cfg, seq_shard=True), None, batch,
+        seq, SEQ_STEPS, shape=TP_MESH)[0])
+    seq_same = seq_run["losses"][0] == tp4["losses"][0]
+    log(f"== LM distribution: {cfg.name} with seq_shard on {TP_MESH} "
+        f"(sequence split: {seq_run['seq_split']}): step 0's loss "
+        f"{seq_run['losses'][0]!r}, without it {tp4['losses'][0]!r}: "
+        f"bitwise {seq_same}")
+    if not (seq_run["seq_split"] and seq_same):
+        raise AssertionError("seq_shard's first loss differs from the same "
+                             "mesh's without it")
+    seq_f32 = part("seq_f32", lambda: drive_f32_seq(torch, dev, cfg, batch,
+                                                    seq))
+    witness = part("witness", lambda: drive_reversed(
+        torch, dev, cfg, near, batch, seq, steps, (train, tp4)))
+    near.pop("params_host")
     wall = time.perf_counter() - t0
-    tp_runs = [train, tp4, moe["sharded"]]
+    tp_runs = [train, tp4, moe["sharded"], *moe["also"], dp, seq_run]
     log(f"LM distribution phase: {wall:.1f} s on {card or 'no card'} "
         "(parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + "); tensor-parallel steps " + json.dumps(
-            [{k: r[k] for k in ("arch", "mesh", "layers", "step_wall_ms",
+            [{k: r[k] for k in ("arch", "mesh", "layers", "rows_split",
+                                "seq_split", "step_wall_ms",
                                 "step_event_ms", "tokens_per_s",
                                 "peak_above_held_gib", "gates", "tp_bytes")}
              | (r["profile"] or {}) for r in tp_runs], default=str)
-        + "; float32 steps " + json.dumps(f32, default=str))
-    return dict(train=train, psum8=psum, pipeline=pipe, elastic=elastic,
-                train_tp=tp4, mesh_1x1_full=full_1x1, mesh_1x1=one, moe=moe,
-                f32_tp=f32, witness=witness, wall_s=wall, part_s=walls)
+        + "; float32 steps " + json.dumps(f32, default=str)
+        + "; prefills " + json.dumps(prefill, default=str)
+        + "; float32 seq_shard " + json.dumps(seq_f32, default=str))
+    return dict(near=near, train=train, psum8=psum, pipeline=pipe,
+                elastic=elastic, train_tp=tp4, mesh_1x1_full=full_1x1,
+                mesh_1x1=one, moe=moe, f32_tp=f32, train_dp=dp,
+                prefill_dp=prefill,
+                seq_shard=seq_run, seq_f32=seq_f32, witness=witness,
+                wall_s=wall, part_s=walls)
 
 
 # ------------------------------------------------------------ LM decode on model
@@ -3777,10 +3984,12 @@ def drive_tp_decode(torch, dev, card="", configs=None, long_len=TP_DECODE_LONG,
 # training phase's qwen2.5-3b step (batch 8 x 512, 4 microbatches, remat
 # full) on the (1, 1) mesh, held against the same step on the card: FLOPs
 # equal, the peak within DRYRUN_PEAK_TOL; and two production cells of the
-# dry-run CLI, run as subprocesses beside the count
+# dry-run CLI, run as subprocesses beside the count (a train_4k cell now
+# counts three microbatches of every rank's rows, not one whole: qwen2.5-3b's
+# took 260.8 s on the card machine's CPU, mamba2-780m's is the shortest)
 DRYRUN_ARCH = "qwen2.5-3b"
 DRYRUN_PEAK_TOL = 0.15
-DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "single"),
+DRYRUN_CELLS = (("mamba2-780m", "train_4k", "single"),
                 ("deepseek-v2-lite-16b", "decode_32k", "single"))
 DRYRUN_CELL_TIMEOUT = 900
 # the tensor-parallel step's FLOPs on the card (FlopCounterMode) against the
@@ -4188,14 +4397,11 @@ def main() -> int:
                             fl_eager, co_eager, mods)
     _, lm_moe = drive_lm(torch, ops, dev, mods, lm_configs(), card=card)
     require_launched("LM-MoE", lm_moe["launches"], ("spdmm",))
-    trained = drive_train(torch, dev, train_configs(), card=card,
-                          keep={DIST_ARCH: DIST_STEPS})
+    trained = drive_train(torch, dev, train_configs(), card=card)
     from repro_torch.configs import ARCHS
     drive_distributed(torch, dev, ARCHS[DIST_ARCH], card=card,
                       single=next(r for r in trained["full"]
                                   if r["arch"] == DIST_ARCH))
-    for r in trained["full"]:
-        r.pop("params_host", None)
     drive_tp_decode(torch, dev, card=card)
     drive_dryrun(torch, dev, ARCHS[DRYRUN_ARCH], card=card)
     drive_examples(dev)

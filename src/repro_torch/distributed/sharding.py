@@ -33,8 +33,12 @@ on two devices is two copies.  :func:`shard` places a tensor,
 *Activation anchors.*  :func:`constrain` is the reference's
 ``with_sharding_constraint`` wrapper: the identity outside a mesh; inside
 one it resolves its entries exactly as the reference does
-(:func:`resolve`) and returns ``x`` unchanged (placement of activations
-is the compute layer's, ``launch/steps.py``).
+(:func:`resolve`) and returns ``x`` unchanged.  Placement of activations
+is the compute layer's (``launch/steps.py``), which reads the residual
+stream's anchor (:func:`residual_entries`, the entries the models'
+``constrain`` states) resolved on the step's shape: rows split over the
+dp axes where it keeps them, the sequence over ``model`` where it keeps
+that.
 """
 from __future__ import annotations
 
@@ -470,6 +474,13 @@ def resolve(shape, entries, mesh: Mesh) -> tuple:
             e = None
         resolved.append(e)
     return tuple(resolved)
+
+
+def residual_entries(seq_shard: bool) -> tuple:
+    """The reference's anchor of the residual stream [rows, L, D] at each
+    cycle (``repro/models/lm.py``): the batch over dp, and with
+    ``seq_shard`` the sequence over ``model`` (Megatron-style)."""
+    return ("dp", "model" if seq_shard else None, None)
 
 
 def constrain(x: torch.Tensor, *entries) -> torch.Tensor:

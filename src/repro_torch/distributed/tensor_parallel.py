@@ -14,6 +14,22 @@ positions, is a :data:`Rep`: one tensor per distinct device, shared by
 the ranks on it (as ``Sharded`` shares blocks), so a mesh of T ranks on
 one card holds one residual stream, not T.
 
+*Sequence parallelism* (``ModelGroup(..., seq=True)``, the reference's
+``seq_shard``): between layers each rank holds its slice [rows, L / T, D]
+of the residual stream (a dict rank -> slice).  The norms run on the
+slices, which are all-gathered over the sequence before each layer
+(:func:`norm_each`); the row-parallel partials are reduce-scattered in
+place of the all-reduce (:meth:`ModelGroup.combine`: the same rank-order
+sum, cut), and a module that runs whole keeps each rank's slice of its
+output (:meth:`ModelGroup.keep`).
+
+*Rows over the data-parallel ranks* (:class:`Run`): a train or prefill
+step whose rows the dp axes split runs each rank's rows on its own model
+group, the groups layer by layer in lockstep, so that an MoE layer routes
+the whole (micro)batch (:func:`gather_rows`) as one device does; the
+loss is each rank's sum over its tokens, added in rank order and divided
+once (:func:`rows_mean`).
+
 *Collectives* are plain tensor ops, differentiated by autograd: an
 all-reduce sums the partials in model-rank order on the first rank's
 device and copies the sum to every other device; an all-gather is a
@@ -107,12 +123,14 @@ class ModelGroup:
     rank ``m``.  ``members`` are the ranks whose ops run here: all of them,
     or one in counted mode."""
 
-    def __init__(self, devices, members=None, tally: Tally | None = None):
+    def __init__(self, devices, members=None, tally: Tally | None = None,
+                 seq: bool = False):
         self.devices = tuple(torch.device(d) for d in devices)
         self.members = (tuple(range(len(self.devices))) if members is None
                         else tuple(members))
         self.counted = len(self.members) < len(self.devices)
         self.tally = tally if tally is not None else Tally()
+        self.seq = seq
 
     @property
     def size(self) -> int:
@@ -145,14 +163,16 @@ class ModelGroup:
         """Rank ``r``'s tensor of a replicated value."""
         return rep[self.devices[r]]
 
-    def _count(self, kind: str, t: torch.Tensor, out=None) -> None:
+    def _count(self, kind: str, t: torch.Tensor, out=None,
+               back=None) -> None:
         """Tally ``t``'s bytes forward and, when it has a gradient,
-        ``out``'s (default ``t``) backward."""
-        self.tally.add(kind, "forward", t.numel() * t.element_size())
+        ``out``'s (default ``t``) backward, as ``kind`` or as ``back`` =
+        (kind, bytes) where the backward is another collective."""
+        self.tally.add(kind, "forward", _bytes(t))
         out = t if out is None else out
         if out.requires_grad and torch.is_grad_enabled():
-            n = out.numel() * out.element_size()
-            out.register_hook(lambda g: self.tally.add(kind, "backward", n))
+            bk, n = back if back is not None else (kind, _bytes(out))
+            out.register_hook(lambda g: self.tally.add(bk, "backward", n))
 
     def all_reduce(self, parts: dict, dtype=None) -> Rep:
         """Sum of the members' partials in rank order, rounded to ``dtype``
@@ -174,6 +194,64 @@ class ModelGroup:
         self._count("all-reduce", out)
         return self.rep(out)
 
+    def _cut(self, t: torch.Tensor, r: int) -> torch.Tensor:
+        """Rank ``r``'s slice of ``t``'s sequence (dimension 1)."""
+        n = t.shape[1] // self.size
+        return t.narrow(1, r * n, n)
+
+    def combine(self, parts: dict, dtype=None, extend=None) -> dict:
+        """The members' row-parallel partials summed into the residual
+        stream: all-reduced (a :data:`Rep`), or with the sequence split
+        (``seq``) reduce-scattered: the same rank-order sum, rounded to
+        ``dtype``, cut along the sequence, each member's slice on its
+        device (``{rank: slice}``; in counted mode the rank's own partial
+        passes through).  ``extend(t, device)`` is applied to the sum
+        before any cut (the frontend prefix ahead of the token
+        embeddings)."""
+        if not self.seq:
+            out = self.all_reduce(parts, dtype)
+            return (out if extend is None
+                    else {d: extend(t, d) for d, t in out.items()})
+        total = parts[self.members[0]]
+        if not self.counted:
+            for r in self.members[1:]:
+                total = total + parts[r].to(total.device)
+        full = total.to(dtype) if dtype is not None else total
+        if extend is not None:
+            full = extend(full, full.device)
+        out = {r: self._cut(full, r).to(self.devices[r])
+               for r in self.members}
+        self._count("reduce-scatter", self._cut(total, self.tally_rank),
+                    out[self.tally_rank], back=("all-gather", _bytes(full)))
+        return out
+
+    def seq_gather(self, parts: dict) -> Rep:
+        """The members' slices of the sequence (``parts[rank]``, dimension
+        1) concatenated in rank order, on every device, with a gradient
+        (reduce-scattered back to the slices); in counted mode the rank's
+        own slice among empty ones (the others' arrive)."""
+        if self.counted:
+            (r,) = self.members
+            own = parts[r]
+            n = own.shape[1]
+            full = own.new_empty((own.shape[0], n * self.size,
+                                  *own.shape[2:]))
+            full.narrow(1, r * n, n).copy_(own)
+        else:
+            full = torch.cat([parts[r].to(self.home) for r in self.members],
+                             1)
+        self._count("all-gather", full,
+                    back=("reduce-scatter", _bytes(full) // self.size))
+        return self.rep(full)
+
+    def keep(self, rep: Rep) -> dict:
+        """A value every member device holds whole (a module that ran
+        whole) as the residual stream: itself, or with the sequence split
+        each member's slice of its device's tensor."""
+        if not self.seq:
+            return rep
+        return {r: self._cut(self.at(rep, r), r) for r in self.members}
+
     @torch.no_grad()
     def all_gather(self, parts: dict, dim: int) -> Rep:
         """The members' blocks concatenated along ``dim`` in rank order (no
@@ -194,32 +272,47 @@ class ModelGroup:
         return self.rep(out)
 
 
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 # ------------------------------------------------------------ layer helpers
-def norm_each(group: ModelGroup, mods: dict, name: str, x: Rep,
+def norm_each(group: ModelGroup, mods: dict, name: str, x: dict,
               eps: float) -> dict:
-    """Each member's ``rms_norm`` of the replicated ``x`` with its own copy
-    of the (replicated) weight ``name``."""
+    """Each member's ``rms_norm`` of the residual stream ``x`` with its own
+    copy of the (replicated) weight ``name``; with the sequence split, of
+    its own slice, the normed slices then all-gathered
+    (:meth:`ModelGroup.seq_gather`), so every member gets the whole
+    sequence."""
+    if group.seq:
+        full = group.seq_gather({r: rms_norm(x[r], getattr(mods[r], name),
+                                             eps) for r in group.members})
+        return {r: group.at(full, r) for r in group.members}
     return {r: rms_norm(group.at(x, r), getattr(mods[r], name), eps)
             for r in group.members}
 
 
-def residual(x: Rep, y: Rep) -> Rep:
-    return {d: x[d] + y[d] for d in x}
+def residual(x: dict, y: dict) -> dict:
+    """The residual add of two values of the stream (both :data:`Rep`, or
+    both a rank's slices)."""
+    return {k: x[k] + y[k] for k in x}
 
 
-def branch(group: ModelGroup, mods: dict, run, dtype, split=None) -> Rep:
-    """The output of one layer branch on every device, in ``dtype``.  A
-    split module (``tp_split``): each member's partial (``run(module,
-    rank)``) all-reduced, or ``split(group, mods)`` for a module whose
-    ranks meet inside it.  A whole module: ``run`` once on each device,
-    by its first member rank."""
+def branch(group: ModelGroup, mods: dict, run, dtype, split=None) -> dict:
+    """The output of one layer branch as the residual stream, in
+    ``dtype``.  A split module (``tp_split``): each member's partial
+    (``run(module, rank)``) combined (:meth:`ModelGroup.combine`), or
+    ``split(group, mods)`` for a module whose ranks meet inside it.  A
+    whole module: ``run`` once on each device, by its first member rank
+    (:meth:`ModelGroup.keep`)."""
     m0 = mods[group.members[0]]
     if getattr(m0, "tp_split", False):
         if split is not None:
             return split(group, mods)
-        return group.all_reduce({r: run(mods[r], r) for r in group.members},
-                                dtype)
-    return {d: run(mods[r], r) for d, r in group.places().items()}
+        return group.combine({r: run(mods[r], r) for r in group.members},
+                             dtype)
+    return group.keep({d: run(mods[r], r)
+                       for d, r in group.places().items()})
 
 
 # ------------------------------------------------------------ the plan
@@ -525,33 +618,70 @@ def piece_grads(ranks, shapes: dict, mb: int = 1) -> dict:
     return out
 
 
-def group_loss(bundle, group: ModelGroup, models: dict, batch: dict):
-    """``bundle.loss`` of ``batch`` on the model group: ``models[m]`` is
-    rank ``m``'s local replica (members only).  A float32 scalar on the
-    group's home device."""
-    from repro_torch.models import encdec, lm
-    feeds = {d: {k: v.to(d) for k, v in batch.items()}
-             for d in group.places()}
-    mod = encdec if bundle.cfg.n_enc_layers else lm
-    return mod.lm_loss_tp(group, models, feeds)
+@dataclasses.dataclass
+class Run:
+    """One data-parallel rank's part of a train or prefill step: its model
+    group, each member's bound replica, its rows' inputs on each device
+    (``feeds[device]``, :func:`feeds_on`) and which rows of the
+    (micro)batch are its."""
+    rank: int
+    group: ModelGroup
+    models: dict
+    feeds: dict
+    rows: slice
 
 
-def group_prefill(bundle, group: ModelGroup, models: dict, batch: dict):
-    """``make_prefill_step``'s last-position logits [B, padded_vocab] on
-    the model group, on its home device."""
+def feeds_on(group: ModelGroup, batch: dict) -> dict:
+    """``batch`` on every member device of ``group``."""
+    return {d: {k: v.to(d) for k, v in batch.items()}
+            for d in group.places()}
+
+
+def _family(bundle):
     from repro_torch.models import encdec, lm
-    feeds = {d: {k: v.to(d) for k, v in batch.items()}
-             for d in group.places()}
-    if bundle.cfg.n_enc_layers:
-        logits = encdec.forward_tp(group, models, feeds)
-        logits = {r: t[:, -1:] for r, t in logits.items()}
-    else:
-        logits = lm.forward_tp(group, models, feeds, last_only=True)
-    if getattr(models[group.members[0]], "tp_split", False):
-        full = group.all_gather(logits, dim=-1)
-    else:
-        full = {group.devices[r]: t for r, t in logits.items()}
-    return full[group.home][:, 0]
+    return encdec if bundle.cfg.n_enc_layers else lm
+
+
+def rows_mean(runs: list, xent: dict, n_ranks: int) -> torch.Tensor:
+    """The mean over a (micro)batch's tokens of the per-token losses each
+    run holds for its rows (``xent[rank]``, on its group's home): with
+    one rank holding every row, its mean (the single-device arithmetic);
+    else each rank's sum, the sums added in rank order on the first run's
+    home, divided once by the token count (``n_ranks`` times a rank's; in
+    counted mode the other ranks' sums arrive)."""
+    if n_ranks == 1:
+        (run,) = runs
+        return xent[run.rank].mean()
+    runs = sorted(runs, key=lambda run: run.rank)
+    home = runs[0].group.home
+    total = None
+    for run in runs:
+        part = xent[run.rank].sum().to(home)
+        total = part if total is None else total + part
+    return total / (xent[runs[0].rank].numel() * n_ranks)
+
+
+def step_loss(bundle, runs: list, n_ranks: int) -> torch.Tensor:
+    """``bundle.loss`` of one (micro)batch whose rows are split over
+    ``n_ranks`` data-parallel ranks, each :class:`Run` on its rows: a
+    float32 scalar on the first run's home device."""
+    return _family(bundle).lm_loss_tp(runs, n_ranks)
+
+
+def step_prefill(bundle, runs: list, n_ranks: int) -> dict:
+    """``make_prefill_step``'s last-position logits [rows, padded_vocab]
+    of each run's rows (rows split over ``n_ranks`` data-parallel ranks),
+    ``{rank: tensor}`` on each group's home device."""
+    logits = _family(bundle).forward_tp(runs, n_ranks, last_only=True)
+    out = {}
+    for run in runs:
+        g = run.group
+        if getattr(run.models[g.members[0]], "tp_split", False):
+            full = g.all_gather(logits[run.rank], dim=-1)
+        else:
+            full = {g.devices[r]: t for r, t in logits[run.rank].items()}
+        out[run.rank] = full[g.home][:, 0]
+    return out
 
 
 # ------------------------------------------------------------ decode
@@ -740,9 +870,11 @@ def whole_decode(group: ModelGroup, mods: dict, caches: dict, run,
 def gather_rows(groups: dict, parts: dict, n_ranks: int) -> dict:
     """Every data-parallel rank's rows (``parts[rank]``, on its group's
     home) concatenated in rank order, on every device of each group of
-    ``groups`` ({rank: ModelGroup}): ``{rank: Rep}``.  Where only some of
-    the ``n_ranks`` ranks run here (counted mode), the others' rows arrive
-    into the buffer.  Tallied into each group's tally as an all-gather."""
+    ``groups`` ({rank: ModelGroup}): ``{rank: Rep}``, with a gradient
+    (each rank's rows' gradients reduce-scattered back).  Where only some
+    of the ``n_ranks`` ranks run here (counted mode), the others' rows
+    arrive into the buffer.  Tallied into each group's tally as an
+    all-gather."""
     out = {}
     for b, g in groups.items():
         if len(parts) == n_ranks:
@@ -752,7 +884,8 @@ def gather_rows(groups: dict, parts: dict, n_ranks: int) -> dict:
             n = own.shape[0]
             full = own.new_empty((n * n_ranks, *own.shape[1:]))
             full.narrow(0, b * n, n).copy_(own)
-        g._count("all-gather", full)
+        g._count("all-gather", full,
+                 back=("reduce-scatter", _bytes(full) // n_ranks))
         out[b] = g.rep(full)
     return out
 
@@ -778,9 +911,7 @@ def group_decode(bundle, runs: list, n_ranks: int) -> dict:
     (:class:`DecodeRun`, rows split over ``n_ranks`` data-parallel
     ranks), ``{rank: tensor}`` on each group's home device; every cache
     block written in place."""
-    from repro_torch.models import encdec, lm
-    mod = encdec if bundle.cfg.n_enc_layers else lm
-    blocks = mod.decode_tp(runs, n_ranks)
+    blocks = _family(bundle).decode_tp(runs, n_ranks)
     out = {}
     for run in runs:
         g, logits = run.group, blocks[run.rank]

@@ -21,13 +21,19 @@ tallied (``tp_collectives``, and into ``collectives``):
 
 - *train*: the state stored by the sharding rules (``abstract_state(
   bundle, mesh)``); the microbatches that ``MeshCompute`` runs on the
-  data-parallel rank that runs most of them (each microbatch whole on
-  the first rank that holds its rows), on the device's replica (its
-  local blocks gathered over the data axes; remat as configured), then
-  the AdamW update of that device's shards from its gradient blocks
-  (another rank's part of a stored block stands in as zeros);
-- *prefill*: the prefill step on the rows of one data-parallel rank, on
-  the device's replica of the parameters placed by ``params_shardings``
+  data-parallel rank that runs most of them (where the residual anchor
+  keeps dp, every rank runs its share of every microbatch's rows, and an
+  MoE layer gathers every rank's rows to route the whole microbatch;
+  else each microbatch whole on the first rank that holds its rows), on
+  the device's replica (its local blocks gathered over the data axes;
+  remat as configured; with ``seq_shard`` the residual stream cut over
+  the sequence), then the AdamW update of that device's shards from its
+  gradient blocks (another rank's part of a stored block stands in as
+  zeros);
+- *prefill*: the prefill step on the rows of one data-parallel rank (the
+  whole batch where the dp axes do not divide it; an MoE layer's inputs
+  gathered from every rank to route the whole batch), on the device's
+  replica of the parameters placed by ``params_shardings``
   (tensor-parallel on a ``model`` axis), with the serving compute
   copies;
 - *decode*: the serve step (``MeshCompute.decode`` in counted mode) on
@@ -127,7 +133,9 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _train(bundle, shape, mesh, specs, model_rank=0):
+def _train(bundle, shape, mesh, specs, model_rank=0, dp_rank=None):
+    """The train step counted on model rank ``model_rank`` of the busiest
+    data-parallel rank's group, or of ``dp_rank``'s."""
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import roofline as rl
     from repro_torch.launch.steps import (MeshCompute, abstract_state,
@@ -138,17 +146,25 @@ def _train(bundle, shape, mesh, specs, model_rank=0):
     compute = MeshCompute(bundle, mesh)
     mb = max(1, bundle.cfg.microbatches)
     owners = compute.owner_ranks(specs, mb)
-    rank, runs = collections.Counter(owners).most_common(1)[0]
+    by_rank = collections.Counter(r for ranks in owners for r in ranks)
+    rank, runs = by_rank.most_common(1)[0]
+    if dp_rank is not None:
+        rank, runs = dp_rank, by_rank[dp_rank]
+    n_ranks = len(owners[0])
+    _, seq = compute.layout(specs, shape.global_batch // mb)
     coord = compute.coord(rank, model_rank)
     dev = mesh.device(coord)
     T = compute.n_model
     # the counted rank's program: its local replica, its share of every
-    # split product, its collectives tallied
+    # split product and of every microbatch's rows, its collectives
+    # tallied
     plan = compute.plan(model_rank)
     model = compute.bind_rank(dev, state["params"], model_rank)
-    group = tp.ModelGroup(compute.group_devices(rank), members=(model_rank,))
+    group = tp.ModelGroup(compute.group_devices(rank), members=(model_rank,),
+                          seq=seq)
     k = min(runs, 3)
-    rows = shape.global_batch // mb
+    rows = shape.global_batch // mb // n_ranks
+    at = owners[0].index(rank) if n_ranks > 1 else 0
     # the device's rows are held whole; the first k microbatches run
     batch = {n: _meta((runs * rows, *t.shape[1:]), t.dtype)
              for n, t in specs.items()}
@@ -164,7 +180,9 @@ def _train(bundle, shape, mesh, specs, model_rank=0):
 
     def loss(m, b):
         marks.append((counter.totals(), group.tally.copy()))
-        return tp.group_loss(bundle, group, {model_rank: m}, b)
+        run = tp.Run(rank, group, {model_rank: m}, tp.feeds_on(group, b),
+                     slice(at * rows, (at + 1) * rows))
+        return tp.step_loss(bundle, [run], n_ranks)
 
     counted = dataclasses.replace(bundle, loss=loss)
     with rl.StepCounter(shards + rl.held_tensors(model, batch)) as counter:
@@ -182,7 +200,7 @@ def _train(bundle, shape, mesh, specs, model_rank=0):
             out[key] += (runs - k) * (marks[2][0][i] - marks[1][0][i])
         group.tally.add_between(marks[1][1], marks[2][1], runs - k)
     busiest = dict(coord=list(coord), microbatches=runs, rows=rows,
-                   compute_devices=len(set(owners)) * T, model_group=T,
+                   compute_devices=len(by_rank) * T, model_group=T,
                    whole_layers=plan.whole)
     return (out, counter.top_bytes(5),
             rl.step_collectives(mesh, state, plan.splits, coord, group.tally),
@@ -209,23 +227,30 @@ def _serve(bundle, shape, mesh, specs, opts, model_rank=0):
     plan = compute.plan(model_rank)
     replica = compute.serving_replica(mesh.device(coord), params,
                                       model_rank)
-    # the rows of one data-parallel rank (``batch_spec``), all of them
-    # on rank 0 where the dp axes do not divide the batch
     name, leaf = next(iter(specs.items()))
-    split = sharding.batch_spec(name, tuple(leaf.shape), mesh)[0] is not None
-    rows = leaf.shape[0] // (compute.n_dp if split else 1)
     shards = [leaf.local(coord) for leaf in params.values()]
     if shape.kind == "prefill":
+        # the rows of one data-parallel rank where the residual anchor
+        # keeps dp, all of them on rank 0 where it does not
+        n_ranks, seq = compute.layout(specs, leaf.shape[0])
+        split = n_ranks > 1
+        rows = leaf.shape[0] // n_ranks
         group = tp.ModelGroup(compute.group_devices(0),
-                              members=(model_rank,))
+                              members=(model_rank,), seq=seq)
         batch = {n: _meta((rows, *t.shape[1:]), t.dtype)
                  for n, t in specs.items()}
+        run = tp.Run(0, group, {model_rank: replica},
+                     tp.feeds_on(group, batch), slice(0, rows))
 
         def step():
-            tp.group_prefill(bundle, group, {model_rank: replica}, batch)
+            tp.step_prefill(bundle, [run], n_ranks)
     else:
-        # the whole batch goes in; the counted rank runs rank 0's rows
-        # against its own blocks of the placed cache
+        # the rows of one data-parallel rank (``batch_spec``); the whole
+        # batch goes in, and the counted rank runs rank 0's rows against
+        # its own blocks of the placed cache
+        split = sharding.batch_spec(name, tuple(leaf.shape),
+                                    mesh)[0] is not None
+        rows = leaf.shape[0] // (compute.n_dp if split else 1)
         batch = dict(specs)
         cache = sharding.shard_cache(
             bundle.abstract_cache(shape.global_batch, shape.seq_len), mesh)

@@ -14,23 +14,37 @@ is stored by the sharding rules: ``{"params": {name: Sharded}, "opt":
 {"mu": {name: Sharded}, "nu": ..., "step"}}``, parameters and both moments
 placed by ``param_spec`` (the reference's ZeRO-3 on top of TP), under the
 names a single-device checkpoint uses.  A step (:class:`MeshCompute`)
-runs the reference's logical step: microbatches of consecutive rows, each
-microbatch whole on the devices of the first data-parallel rank that
-holds its rows, so MoE capacity and slot order stay per microbatch (a
-batch whose rows the data axes do not divide is replicated and each
-microbatch still runs once).  Those devices are the rank's model group,
-tensor-parallel as GSPMD splits the reference's products
-(``distributed/tensor_parallel.py``): each model rank's local replica
-holds its compute blocks (a stored block in place, any other gathered
-over the data axes), computes its heads, FFN columns, vocabulary rows or
-experts, the partials are all-reduced at the layer boundaries, and each
-rank's gradient blocks are reduced over the owner ranks in rank order.
-On a ``model`` axis of 1 the group is one device whose replica is the
-whole model, and the step is ``make_train_step``'s arithmetic, bitwise.
+runs the reference's logical step: microbatches of consecutive rows,
+placed as the reference's anchor of the residual stream places them
+(``sharding.residual_entries`` resolved on a microbatch's [rows, L, D]).
+Where it keeps the dp axes, every data-parallel rank runs its share of
+each microbatch's rows on its own devices, the ranks layer by layer in
+lockstep so that an MoE layer routes the whole microbatch (capacity and
+slot order as one device's), and the microbatch's loss is each rank's
+sum over its tokens, added in rank order and divided once.  Where it
+does not (rows the dp axes do not divide), each microbatch runs whole on
+the first data-parallel rank that holds its rows (a batch the data axes
+do not divide is replicated, and each microbatch still runs once).  A
+rank's devices are its model group, tensor-parallel as GSPMD splits the
+reference's products (``distributed/tensor_parallel.py``): each model
+rank's local replica holds its compute blocks (a stored block in place,
+any other gathered over the data axes), computes its heads, FFN columns,
+vocabulary rows or experts, the partials are all-reduced at the layer
+boundaries, and each rank's gradient blocks are reduced over the
+data-parallel ranks in rank order.  With ``seq_shard`` (decoder-only),
+where the anchor keeps ``model`` on the sequence, the residual stream
+between layers is each model rank's slice of the sequence: all-gathered
+before each layer, the partials reduce-scattered after it.  On a mesh of
+one data-parallel rank with a ``model`` axis of 1 the group is one
+device whose replica is the whole model, and the step is
+``make_train_step``'s arithmetic, bitwise; so is any mesh whose
+microbatch rows do not split, on a ``model`` axis of 1.
 Each shard is updated in place (``stored_grads``, then
 ``sharded_adamw_update``: one global norm over the whole gradient).
-``make_prefill_step(bundle, mesh)`` is the prefill forward on data-parallel
-rank 0's devices, tensor-parallel alike.  ``make_serve_step(bundle, mesh)``
+``make_prefill_step(bundle, mesh)`` is the prefill forward placed alike:
+each data-parallel rank's rows on its model group where the anchor keeps
+dp (logits concatenated in rank order), else the whole batch on rank
+0's.  ``make_serve_step(bundle, mesh)``
 is the decode step against a cache placed by ``cache_shardings``
 (``sharding.shard_cache``): each data-parallel rank's model group runs its
 rows, each model rank on its own blocks of the weights and of the cache
@@ -184,8 +198,9 @@ class MeshCompute:
     :class:`~repro_torch.distributed.tensor_parallel.ModelGroup` (one rank
     on a ``model`` axis of 1), one local replica per (device, model rank)
     holds that rank's compute blocks (:meth:`bind_rank`; on a ``model``
-    axis of 1 the whole model), each microbatch runs on its owner rank's
-    group, and each rank's gradient blocks are reduced over the owner
+    axis of 1 the whole model), each microbatch runs on its owner ranks'
+    groups (:meth:`owner_ranks`: every rank on its rows, or one rank
+    whole), and each rank's gradient blocks are reduced over the owner
     ranks; a decode step runs each rank's rows on its group
     (:meth:`decode`)."""
 
@@ -296,32 +311,80 @@ class MeshCompute:
                     torch.nn.Parameter(t, requires_grad=p.requires_grad)
         return model
 
-    def owner_ranks(self, batch: dict, mb: int) -> list[int]:
-        """The data-parallel rank each microbatch runs on: the first rank
-        holding its first row (``batch_spec``: rows over the dp axes when
-        they divide; else every rank holds every row, and rank 0 runs
-        it)."""
+    def layout(self, batch: dict, rows: int) -> tuple[int, bool]:
+        """How a step places (micro)batches of ``rows`` rows of ``batch``:
+        the number of data-parallel ranks their rows split over and
+        whether their sequence splits over ``model``.  The reference's
+        anchor of the residual stream (``sharding.residual_entries``, with
+        ``seq_shard`` for the decoder-only LM) resolved on its shape
+        [rows, L, d_model]: all the dp axes or none, and the sequence
+        where ``model`` > 1 divides it."""
+        cfg = self.bundle.cfg
+        seq = bool(cfg.seq_shard) and not cfg.n_enc_layers
+        spec = sharding.resolve(
+            (rows, lm_lib.residual_len(batch), cfg.d_model),
+            sharding.residual_entries(seq), self.mesh)
+        return ((self.n_dp if spec[0] is not None else 1),
+                seq and self.n_model > 1 and spec[1] is not None)
+
+    def owner_ranks(self, batch: dict, mb: int) -> list[tuple[int, ...]]:
+        """The data-parallel ranks each microbatch runs on: every rank,
+        each on its share of the rows in rank order, where the residual
+        anchor keeps dp on a microbatch's rows (:meth:`layout`); else the
+        first rank holding its first row, which runs it whole
+        (``batch_spec``: rows over the dp axes when they divide; else
+        every rank holds every row, and rank 0 runs it)."""
         name, leaf = next(iter(batch.items()))
         rows = leaf.shape[0]
+        n_ranks, _ = self.layout(batch, rows // mb)
+        if n_ranks > 1:
+            return [tuple(range(n_ranks))] * mb
         spec = sharding.batch_spec(name, tuple(leaf.shape), self.mesh)
         per_rank = rows // self.n_dp if spec[0] is not None else rows
-        return [(i * (rows // mb)) // per_rank for i in range(mb)]
+        return [((i * (rows // mb)) // per_rank,) for i in range(mb)]
 
-    def owners(self, batch: dict, mb: int) -> list[torch.device]:
-        """The device each microbatch runs on (:meth:`owner_ranks`; its
-        group's model rank 0's)."""
-        return [self.rank_device[r] for r in self.owner_ranks(batch, mb)]
+    def owners(self, batch: dict, mb: int) -> list[tuple]:
+        """The devices each microbatch runs on (:meth:`owner_ranks`; each
+        owner group's model rank 0's)."""
+        return [tuple(self.rank_device[r] for r in ranks)
+                for ranks in self.owner_ranks(batch, mb)]
 
-    def group(self, rank: int) -> tp.ModelGroup:
-        """Data-parallel ``rank``'s model group, tallying into
-        ``tallies[rank]``."""
+    def group(self, rank: int, seq: bool = False) -> tp.ModelGroup:
+        """Data-parallel ``rank``'s model group (``seq``: the sequence
+        split over it), tallying into ``tallies[rank]``."""
         return tp.ModelGroup(self.group_devices(rank),
-                             tally=self.tallies.setdefault(rank, tp.Tally()))
+                             tally=self.tallies.setdefault(rank, tp.Tally()),
+                             seq=seq)
 
-    def group_models(self, rank: int, params: dict) -> dict:
-        """``{model rank: bound local replica}`` of ``rank``'s group."""
-        return {m: self.bind_rank(d, params, m)
-                for m, d in enumerate(self.group_devices(rank))}
+    def bound(self, groups: dict, params: dict) -> tuple[dict, dict]:
+        """The bound local replicas of ``groups``' ranks, one per (device,
+        model rank) (``{(device, m): replica}``), and each group's
+        ``{rank: {m: replica}}``."""
+        local = {}
+        for r, g in groups.items():
+            for m, d in enumerate(g.devices):
+                if (d, m) not in local:
+                    local[(d, m)] = self.bind_rank(d, params, m)
+        return local, {r: {m: local[(d, m)] for m, d in enumerate(g.devices)}
+                       for r, g in groups.items()}
+
+    @staticmethod
+    def runs(groups: dict, models: dict, batch: dict,
+             ranks: tuple) -> list:
+        """The :class:`~repro_torch.distributed.tensor_parallel.Run` of
+        each of ``ranks`` on ``batch`` (one (micro)batch): its share of
+        the rows in rank order, or every row for one rank.  ``groups`` /
+        ``models``: each rank's group and replicas."""
+        rows = next(iter(batch.values())).shape[0]
+        per = rows // len(ranks)
+        out = []
+        for i, b in enumerate(ranks):
+            sl = slice(i * per, (i + 1) * per)
+            part = batch if len(ranks) == 1 else {k: v[sl]
+                                                  for k, v in batch.items()}
+            out.append(tp.Run(b, groups[b], models[b],
+                              tp.feeds_on(groups[b], part), sl))
+        return out
 
     def loss_and_grads(self, params: dict, batch: dict, mb: int = 1):
         """The loss of ``batch`` (``loss_and_grads``'s order: microbatch
@@ -331,31 +394,29 @@ class MeshCompute:
         on a ``model`` axis of 1; None where no microbatch reached the
         parameter)."""
         owners = self.owner_ranks(batch, mb)
+        rows = next(iter(batch.values())).shape[0] // mb
+        _, seq = self.layout(batch, rows)
+        n_ranks = len(owners[0])
         self.tallies = {}
-        groups = {r: self.group(r) for r in dict.fromkeys(owners)}
-        # one local replica per (device, model rank): owner groups on the
-        # same devices share them, and their microbatches accumulate into
-        # the same .grad in microbatch order
-        local = {}
-        for r in groups:
-            for m, d in enumerate(self.group_devices(r)):
-                if (d, m) not in local:
-                    local[(d, m)] = self.bind_rank(d, params, m)
+        groups = {r: self.group(r, seq) for ranks in owners for r in ranks}
+        # one local replica per (device, model rank): groups on the same
+        # devices share them, and their rows accumulate into the same
+        # .grad
+        local, models = self.bound(groups, params)
         for model in local.values():
             model.zero_grad(set_to_none=True)
-        home = groups[owners[0]].home
+        home = groups[owners[0][0]].home
         with self.mesh:
             total = torch.zeros((), dtype=torch.float32, device=home)
-            for micro, r in zip(split_batch(batch, mb), owners):
-                g = groups[r]
-                loss = tp.group_loss(self.bundle, g, {
-                    m: local[(d, m)] for m, d in enumerate(g.devices)}, micro)
+            for micro, ranks in zip(split_batch(batch, mb), owners):
+                loss = tp.step_loss(self.bundle, self.runs(
+                    groups, models, micro, ranks), n_ranks)
                 loss.backward()
                 total = total + loss.detach().to(home)
             loss = total / mb if mb > 1 else total
         with torch.no_grad():
             # each model rank's gradients summed over its replicas (one a
-            # device) in the order their owners first ran
+            # device) in the order their ranks first ran
             by_rank = []
             for m in range(self.n_model):
                 named = [dict(mod.named_parameters())
@@ -376,11 +437,23 @@ class MeshCompute:
 
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict) -> torch.Tensor:
-        """``make_prefill_step``'s logits of ``batch`` on data-parallel
-        rank 0's model group."""
+        """``make_prefill_step``'s logits of ``batch``: each data-parallel
+        rank's rows on its model group where the residual anchor keeps dp
+        (:meth:`layout`), concatenated in rank order on rank 0's device;
+        else the whole batch on rank 0's group."""
+        rows = next(iter(batch.values())).shape[0]
+        n_ranks, seq = self.layout(batch, rows)
+        self.tallies = {}
+        ranks = tuple(range(n_ranks))
+        groups = {b: self.group(b, seq) for b in ranks}
+        _, models = self.bound(groups, params)
         with self.mesh:
-            return tp.group_prefill(self.bundle, self.group(0),
-                                    self.group_models(0, params), batch)
+            out = tp.step_prefill(self.bundle, self.runs(
+                groups, models, batch, ranks), n_ranks)
+        if n_ranks == 1:
+            return out[0]
+        home = groups[0].home
+        return torch.cat([out[b].to(home) for b in ranks])
 
     @torch.no_grad()
     def decode(self, params: dict, cache, batch: dict,
@@ -467,8 +540,8 @@ def stored_grads(grads: dict, params: dict) -> tuple[dict, list]:
 def make_prefill_step(bundle: ModelBundle, mesh=None):
     """(model, batch) -> last-position logits [B, padded_vocab].  With
     ``mesh`` the step takes the parameters placed on it (name ->
-    ``Sharded``, e.g. ``sharded_state``'s) and runs on data-parallel rank
-    0's model group (:meth:`MeshCompute.prefill`)."""
+    ``Sharded``, e.g. ``sharded_state``'s) and runs each data-parallel
+    rank's rows on its model group (:meth:`MeshCompute.prefill`)."""
     if mesh is not None:
         return MeshCompute(bundle, mesh).prefill
 

@@ -223,8 +223,8 @@ def dec_layer_tp(group, layers: dict, x: dict, positions: dict,
         dt))
 
 
-def forward_tp(group, models: dict, feeds: dict) -> dict:
-    """:meth:`EncDec.forward` on the group: ``lm.logits_tp``'s blocks."""
+def group_forward_tp(group, models: dict, feeds: dict) -> dict:
+    """:meth:`EncDec.forward` on one group: ``lm.logits_tp``'s blocks."""
     m0 = models[group.members[0]]
     cfg = m0.cfg
     dt = compute_dtype(cfg)
@@ -245,6 +245,19 @@ def forward_tp(group, models: dict, feeds: dict) -> dict:
                        {r: models[r].dec_layers[i] for r in group.members},
                        y, positions, enc)
     return logits_tp(group, models, y, last_only=False)
+
+
+def forward_tp(runs, n_ranks: int = 1, last_only: bool = False) -> dict:
+    """:meth:`EncDec.forward` of each run's rows (``tp.Run``): ``{rank:
+    lm.logits_tp's blocks}`` (the last position's with ``last_only``).
+    The enc-dec has no MoE, so each group runs its rows on its own."""
+    del n_ranks
+    out = {}
+    for run in runs:
+        logits = group_forward_tp(run.group, run.models, run.feeds)
+        out[run.rank] = ({r: t[:, -1:] for r, t in logits.items()}
+                         if last_only else logits)
+    return out
 
 
 def cross_decode_tp(group, mods: dict, h: dict, caches: dict,
@@ -313,12 +326,18 @@ def decode_tp(runs, n_ranks: int) -> dict:
     return out
 
 
-def lm_loss_tp(group, models: dict, feeds: dict) -> torch.Tensor:
-    """:func:`lm_loss` on the group, on its home device."""
-    logits = {r: t[:, :-1] for r, t in forward_tp(group, models,
-                                                   feeds).items()}
-    targets = {d: f["tokens"][:, 1:] for d, f in feeds.items()}
-    return xent_tp(group, models, logits, targets)[group.home].mean()
+def lm_loss_tp(runs, n_ranks: int = 1) -> torch.Tensor:
+    """:func:`lm_loss` of a (micro)batch whose rows the runs split over
+    ``n_ranks`` data-parallel ranks (``tp.rows_mean``), on the first
+    run's home device."""
+    logits = forward_tp(runs, n_ranks)
+    xent = {}
+    for run in runs:
+        g = run.group
+        blocks = {r: t[:, :-1] for r, t in logits[run.rank].items()}
+        targets = {d: f["tokens"][:, 1:] for d, f in run.feeds.items()}
+        xent[run.rank] = xent_tp(g, run.models, blocks, targets)[g.home]
+    return tp.rows_mean(runs, xent, n_ranks)
 
 
 # ---------------------------------------------------------------- API

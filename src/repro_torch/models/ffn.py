@@ -183,11 +183,12 @@ def moe_tp(group, mods: dict, h: dict, full: dict | None = None,
     all-reduced, so each token's choices are summed rank by rank (the
     reference's single slot-order sum, reassociated where a token's
     choices lie on more than one rank), and the shared experts (a split
-    dense FFN) are all-reduced apart and added, as the whole layer adds
-    them.  With ``full`` (a decode step whose rows are split over the
-    data-parallel ranks: the whole batch's inputs on every device, of
-    which this group's are ``rows``), every group routes the whole batch
-    and combines its own rows."""
+    dense FFN) are combined apart and added, as the whole layer adds
+    them (``group.combine``: all-reduced, or reduce-scattered over the
+    sequence).  With ``full`` (a step whose rows are split over the
+    data-parallel ranks: the whole batch's inputs [B, L, D] on every
+    device, of which this group's are the batch rows ``rows``), every
+    group routes the whole batch and combines its own rows."""
     routed, shared = {}, {}
     for r in group.members:
         m, x = mods[r], h[r]
@@ -199,7 +200,9 @@ def moe_tp(group, mods: dict, h: dict, full: dict | None = None,
         lo = slice(r * n, (r + 1) * n)
         y_e = moe_experts(m, route.slot_token[lo], route.occupied[lo], src,
                           x.dtype)
-        order = route.order if rows is None else route.order[rows]
+        order = route.order
+        if rows is not None:
+            order = order.reshape(-1, L, order.shape[-1])[rows].flatten(0, 1)
         local = order - r * n * route.cap
         inside = (local >= 0) & (local < n * route.cap)
         routed[r] = moe_combine(y_e, route.slot_w[lo], route.occupied[lo],
@@ -207,10 +210,10 @@ def moe_tp(group, mods: dict, h: dict, full: dict | None = None,
                                 ).reshape(B, L, D)
         if m.shared is not None:
             shared[r] = m.shared(xf).reshape(B, L, D)
-    out = group.all_reduce(routed)
+    out = group.combine(routed)
     if shared:
-        extra = group.all_reduce(shared, h[group.members[0]].dtype)
-        out = {d: out[d] + extra[d] for d in out}
+        extra = group.combine(shared, h[group.members[0]].dtype)
+        out = {k: out[k] + extra[k] for k in out}
     return out
 
 

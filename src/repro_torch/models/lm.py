@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, residual_entries
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mixers as mix
 from repro_torch.models.layers import (Weights, glorot,
@@ -141,10 +141,9 @@ class LM(Weights):
         before the unembedding)."""
         x, positions = self.embed_inputs(batch)
         for cycle in self.cycles:
-            # the reference's anchors at each cycle: batch over dp, and
+            # the reference's anchor at each cycle: batch over dp, and
             # with seq_shard the sequence over model (Megatron-style)
-            x = constrain(x, "dp", "model" if self.cfg.seq_shard else None,
-                          None)
+            x = constrain(x, *residual_entries(self.cfg.seq_shard))
             x = remat_call(self.cfg, run_cycle, cycle, x, positions)
         for layer in self.tail:
             x = layer(x, positions)
@@ -170,15 +169,33 @@ def _with_prefix(cfg: ModelConfig, batch: dict, x: torch.Tensor):
     """Token embeddings ``x`` behind the frontend-stub embeddings (when
     the batch has them), and the positions ([B, L], or [B, L, 3] for
     M-RoPE)."""
+    x = _prefixed(batch, x)
+    B, L, _ = x.shape
+    return x, _positions(cfg, batch, B, L, x.device)
+
+
+def _prefixed(batch: dict, x: torch.Tensor) -> torch.Tensor:
     if batch.get("embeds") is not None:
         x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
-    B, L, _ = x.shape
+    return x
+
+
+def _positions(cfg: ModelConfig, batch: dict, B: int, L: int, device):
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(L, device=x.device).expand(B, L)
+        positions = torch.arange(L, device=device).expand(B, L)
         if cfg.mrope_sections:
             positions = positions[..., None].expand(B, L, 3)
-    return x, positions
+    return positions
+
+
+def residual_len(batch: dict) -> int:
+    """The length of the residual stream of ``batch``: its tokens behind
+    the frontend prefix (when it has one)."""
+    n = batch["tokens"].shape[1]
+    if batch.get("embeds") is not None:
+        n += batch["embeds"].shape[1]
+    return n
 
 
 def run_cycle(cycle: nn.ModuleDict, x, positions):
@@ -223,18 +240,28 @@ def lm_loss(model: LM, batch: dict) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ model group
-# The forward and loss on a tensor-parallel model group
-# (``distributed/tensor_parallel.py``): ``models[r]`` is rank r's local
-# replica, ``feeds[device]`` the batch on each member device; a
-# replicated activation is one tensor per device (``tp.Rep``).
-def vocab_embed_tp(group, models: dict, feeds: dict, dtype) -> dict:
-    """The token embeddings on every device: a vocabulary-parallel lookup
-    (ids outside a rank's rows give zeros) all-reduced, or where the
-    vocabulary does not split, the whole table's lookup on each
-    device."""
+# The forward and loss on tensor-parallel model groups
+# (``distributed/tensor_parallel.py``), one group a data-parallel rank:
+# each ``tp.Run`` (or ``tp.DecodeRun``) holds its group, ``models[r]``
+# rank r's local replica and ``feeds[device]`` its rows' inputs on each
+# member device.  The residual stream is a ``tp.Rep`` (one tensor per
+# device), or each rank's slice of the sequence on a group with ``seq``;
+# the groups go layer by layer in lockstep, so an MoE layer can route
+# every rank's rows together.
+def vocab_embed_tp(group, models: dict, feeds: dict, dtype,
+                   extend=None) -> dict:
+    """The token embeddings as the residual stream: a vocabulary-parallel
+    lookup (ids outside a rank's rows give zeros) combined over the
+    ranks (``group.combine``), or where the vocabulary does not split,
+    the whole table's lookup on each device.  ``extend(t, device)`` is
+    applied to the whole embeddings before the stream is cut (the
+    frontend prefix)."""
     if not getattr(models[group.members[0]], "tp_split", False):
-        return {d: models[r].w("embed", dtype)[feeds[d]["tokens"]]
-                for d, r in group.places().items()}
+        out = {d: models[r].w("embed", dtype)[feeds[d]["tokens"]]
+               for d, r in group.places().items()}
+        if extend is not None:
+            out = {d: extend(t, d) for d, t in out.items()}
+        return group.keep(out)
     parts = {}
     for r in group.members:
         w = models[r].w("embed", dtype)
@@ -242,101 +269,38 @@ def vocab_embed_tp(group, models: dict, feeds: dict, dtype) -> dict:
         inside = (ids >= 0) & (ids < w.shape[0])
         parts[r] = torch.where(inside[..., None],
                                w[torch.where(inside, ids, 0)], 0)
-    return group.all_reduce(parts)
+    return group.combine(parts, extend=extend)
 
 
-def layer_tp(group, layers: dict, x: dict, positions: dict) -> dict:
-    """:meth:`Layer.forward` on the group."""
-    l0 = layers[group.members[0]]
-    eps = l0.cfg.norm_eps
-    dt = compute_dtype(l0.cfg)
-    h = tp.norm_each(group, layers, "mixer_norm", x, eps)
-    mixers = {r: layers[r].mixer for r in group.members}
-    ssd = isinstance(l0.mixer, mix.SSD)
-    x = tp.residual(x, tp.branch(
-        group, mixers, lambda m, r: m(h[r], group.at(positions, r)), dt,
-        (lambda g, mods: g.all_reduce(mix.ssd_partials(g, mods, h), dt))
-        if ssd else None))
+def embed_tp(group, models: dict, feeds: dict, cfg: ModelConfig):
+    """:meth:`LM.embed_inputs` on the group: the residual stream (token
+    embeddings behind the frontend prefix) and the positions on every
+    device (``tp.Rep``, whole)."""
+    x = vocab_embed_tp(group, models, feeds, compute_dtype(cfg),
+                       lambda t, d: _prefixed(feeds[d], t))
+    positions = {}
+    for d, f in feeds.items():
+        positions[d] = _positions(cfg, f, f["tokens"].shape[0],
+                                  residual_len(f), d)
+    return x, positions
+
+
+def ffn_tp(runs, layers: dict, x: dict, n_ranks: int) -> dict:
+    """The FFN half of :meth:`Layer.forward` / :meth:`Layer.decode` on the
+    model group of every run (``layers[rank][r]`` is the layer of model
+    rank r of data-parallel ``rank``, ``x[rank]`` its stream after the
+    mixer): each group's norm and FFN on its own rows, but an MoE layer
+    whose rows are split over ``n_ranks`` > 1 data-parallel ranks routes
+    every rank's rows together (``tp.gather_rows``), as the single-device
+    step routes its whole (micro)batch, and each group keeps its own
+    rows' outputs."""
+    run0 = runs[0]
+    l0 = layers[run0.rank][run0.group.members[0]]
     if l0.ffn is None:
         return x
-    h = tp.norm_each(group, layers, "ffn_norm", x, eps)
-    ffns = {r: layers[r].ffn for r in group.members}
-    moe = isinstance(l0.ffn, ffn_lib.MoEFFN)
-    return tp.residual(x, tp.branch(
-        group, ffns, lambda m, r: m(h[r]), dt,
-        (lambda g, mods: ffn_lib.moe_tp(g, mods, h)) if moe else None))
-
-
-def run_cycle_tp(group, cycles: dict, x: dict, positions: dict) -> dict:
-    """:func:`run_cycle` on the group."""
-    for j in range(len(cycles[group.members[0]])):
-        x = layer_tp(group, {r: c[f"layer{j}"] for r, c in cycles.items()},
-                     x, positions)
-    return x
-
-
-def logits_tp(group, models: dict, x: dict, last_only: bool) -> dict:
-    """The final norm and the unembedding: each rank's logits over its
-    vocabulary rows (``{rank: [B, L, V / T]}``), or where the vocabulary
-    does not split, the whole logits on each device (by its first
-    member)."""
-    m0 = models[group.members[0]]
-    ranks = (group.members if getattr(m0, "tp_split", False)
-             else tuple(group.places().values()))
-    out = {}
-    for r in ranks:
-        m = models[r]
-        y = rms_norm(group.at(x, r), m.final_norm, m.cfg.norm_eps)
-        if last_only:
-            y = y[:, -1:]
-        head = (m.head(y.dtype) if isinstance(m, LM)
-                else m.w("lm_head", y.dtype))
-        out[r] = y @ head
-    return out
-
-
-def forward_tp(group, models: dict, feeds: dict,
-               last_only: bool = False) -> dict:
-    """:meth:`LM.forward` on the group: :func:`logits_tp`'s blocks."""
-    m0 = models[group.members[0]]
-    cfg = m0.cfg
-    x, positions = {}, {}
-    for d, t in vocab_embed_tp(group, models, feeds,
-                               compute_dtype(cfg)).items():
-        x[d], positions[d] = _with_prefix(cfg, feeds[d], t)
-    for c in range(len(m0.cycles)):
-        x = remat_call(cfg, run_cycle_tp, group,
-                       {r: models[r].cycles[c] for r in group.members}, x,
-                       positions)
-    for i in range(len(m0.tail)):
-        x = layer_tp(group, {r: models[r].tail[i] for r in group.members},
-                     x, positions)
-    return logits_tp(group, models, x, last_only)
-
-
-def layer_decode_tp(runs, layers: dict, x: dict, caches: dict,
-                    n_ranks: int) -> dict:
-    """:meth:`Layer.decode` on the model group of every run of a decode
-    step (``tp.DecodeRun``; ``layers[rank][r]`` is the layer of model rank
-    r of data-parallel ``rank``, ``caches[rank][r]`` its cache blocks,
-    ``x[rank]`` the residual stream): each group's mixer
-    (``mixers.decode_tp``) and FFN on its own rows, but an MoE layer whose
-    batch is split over ``n_ranks`` > 1 data-parallel ranks routes every
-    rank's rows together (``tp.gather_rows``), as the single-device step
-    routes its whole batch."""
-    out = {}
-    for run in runs:
-        g, ls = run.group, layers[run.rank]
-        l0 = ls[g.members[0]]
-        eps, dt = l0.cfg.norm_eps, compute_dtype(l0.cfg)
-        h = tp.norm_each(g, ls, "mixer_norm", x[run.rank], eps)
-        out[run.rank] = tp.residual(x[run.rank], mix.decode_tp(
-            g, {r: layer.mixer for r, layer in ls.items()}, h,
-            caches[run.rank], run.pos, dt))
-    if l0.ffn is None:
-        return out
+    eps, dt = l0.cfg.norm_eps, compute_dtype(l0.cfg)
     h = {run.rank: tp.norm_each(run.group, layers[run.rank], "ffn_norm",
-                                out[run.rank], eps) for run in runs}
+                                x[run.rank], eps) for run in runs}
     moe = isinstance(l0.ffn, ffn_lib.MoEFFN)
     full = None
     if moe and n_ranks > 1:
@@ -344,6 +308,7 @@ def layer_decode_tp(runs, layers: dict, x: dict, caches: dict,
             {run.rank: run.group for run in runs},
             {run.rank: h[run.rank][run.group.members[0]] for run in runs},
             n_ranks)
+    out = {}
     for run in runs:
         g, hb = run.group, h[run.rank]
         ffns = {r: layer.ffn for r, layer in layers[run.rank].items()}
@@ -357,8 +322,108 @@ def layer_decode_tp(runs, layers: dict, x: dict, caches: dict,
             y = tp.branch(g, ffns, lambda m, r: ffn_lib.moe_ffn(
                 m, g.at(fb, r))[run.rows], dt, lambda gg, mods:
                 ffn_lib.moe_tp(gg, mods, hb, fb, run.rows))
-        out[run.rank] = tp.residual(out[run.rank], y)
+        out[run.rank] = tp.residual(x[run.rank], y)
     return out
+
+
+def layer_runs_tp(runs, layers: dict, x: dict, positions: dict,
+                  n_ranks: int) -> dict:
+    """:meth:`Layer.forward` on the model group of every run (``tp.Run``;
+    ``layers[rank][r]``, ``x[rank]`` and ``positions[rank]`` as in
+    :func:`ffn_tp`): each group's mixer on its own rows, then
+    :func:`ffn_tp`."""
+    out = {}
+    for run in runs:
+        g, ls = run.group, layers[run.rank]
+        l0 = ls[g.members[0]]
+        eps, dt = l0.cfg.norm_eps, compute_dtype(l0.cfg)
+        h = tp.norm_each(g, ls, "mixer_norm", x[run.rank], eps)
+        pos = positions[run.rank]
+        ssd = isinstance(l0.mixer, mix.SSD)
+        out[run.rank] = tp.residual(x[run.rank], tp.branch(
+            g, {r: ls[r].mixer for r in g.members},
+            lambda m, r: m(h[r], g.at(pos, r)), dt,
+            (lambda gg, mods: gg.combine(mix.ssd_partials(gg, mods, h), dt))
+            if ssd else None))
+    return ffn_tp(runs, layers, out, n_ranks)
+
+
+def run_cycle_tp(runs, cycles: dict, x: dict, positions: dict,
+                 n_ranks: int) -> dict:
+    """:func:`run_cycle` on every run's group (``cycles[rank][r]``)."""
+    run0 = runs[0]
+    for j in range(len(cycles[run0.rank][run0.group.members[0]])):
+        x = layer_runs_tp(runs, {b: {r: c[f"layer{j}"] for r, c in by.items()}
+                                 for b, by in cycles.items()},
+                          x, positions, n_ranks)
+    return x
+
+
+def logits_tp(group, models: dict, x: dict, last_only: bool) -> dict:
+    """The final norm and the unembedding: each rank's logits over its
+    vocabulary rows (``{rank: [B, L, V / T]}``), or where the vocabulary
+    does not split, the whole logits on each device (by its first
+    member).  With the sequence split the norm runs on each rank's slice
+    and the slices are gathered before the head."""
+    m0 = models[group.members[0]]
+    ranks = (group.members if getattr(m0, "tp_split", False)
+             else tuple(group.places().values()))
+    if group.seq:
+        h = tp.norm_each(group, models, "final_norm", x, m0.cfg.norm_eps)
+    out = {}
+    for r in ranks:
+        m = models[r]
+        y = (h[r] if group.seq
+             else rms_norm(group.at(x, r), m.final_norm, m.cfg.norm_eps))
+        if last_only:
+            y = y[:, -1:]
+        head = (m.head(y.dtype) if isinstance(m, LM)
+                else m.w("lm_head", y.dtype))
+        out[r] = y @ head
+    return out
+
+
+def forward_tp(runs, n_ranks: int = 1, last_only: bool = False) -> dict:
+    """:meth:`LM.forward` of each run's rows (``tp.Run``, the rows split
+    over ``n_ranks`` data-parallel ranks): ``{rank: logits_tp's
+    blocks}``."""
+    run0 = runs[0]
+    m0 = run0.models[run0.group.members[0]]
+    cfg = m0.cfg
+    x, positions = {}, {}
+    for run in runs:
+        x[run.rank], positions[run.rank] = embed_tp(run.group, run.models,
+                                                    run.feeds, cfg)
+    for c in range(len(m0.cycles)):
+        x = remat_call(cfg, run_cycle_tp, runs,
+                       {run.rank: {r: run.models[r].cycles[c]
+                                   for r in run.group.members}
+                        for run in runs}, x, positions, n_ranks)
+    for i in range(len(m0.tail)):
+        x = layer_runs_tp(runs, {run.rank: {r: run.models[r].tail[i]
+                                            for r in run.group.members}
+                                 for run in runs}, x, positions, n_ranks)
+    return {run.rank: logits_tp(run.group, run.models, x[run.rank],
+                                last_only) for run in runs}
+
+
+def layer_decode_tp(runs, layers: dict, x: dict, caches: dict,
+                    n_ranks: int) -> dict:
+    """:meth:`Layer.decode` on the model group of every run of a decode
+    step (``tp.DecodeRun``; ``layers[rank][r]`` is the layer of model rank
+    r of data-parallel ``rank``, ``caches[rank][r]`` its cache blocks,
+    ``x[rank]`` the residual stream): each group's mixer
+    (``mixers.decode_tp``), then :func:`ffn_tp`."""
+    out = {}
+    for run in runs:
+        g, ls = run.group, layers[run.rank]
+        l0 = ls[g.members[0]]
+        eps, dt = l0.cfg.norm_eps, compute_dtype(l0.cfg)
+        h = tp.norm_each(g, ls, "mixer_norm", x[run.rank], eps)
+        out[run.rank] = tp.residual(x[run.rank], mix.decode_tp(
+            g, {r: layer.mixer for r, layer in ls.items()}, h,
+            caches[run.rank], run.pos, dt))
+    return ffn_tp(runs, layers, out, n_ranks)
 
 
 def decode_tp(runs, n_ranks: int) -> dict:
@@ -407,14 +472,21 @@ def xent_tp(group, models: dict, logits: dict, targets: dict) -> dict:
     return {d: m[d].squeeze(-1) + torch.log(s[d]) - tgt[d] for d in s}
 
 
-def lm_loss_tp(group, models: dict, feeds: dict) -> torch.Tensor:
-    """:func:`lm_loss` on the group, on its home device."""
-    logits = forward_tp(group, models, feeds)
-    home = feeds[group.home]
-    n_prefix = 0 if home.get("embeds") is None else home["embeds"].shape[1]
-    logits = {r: t[:, n_prefix:-1] for r, t in logits.items()}
-    targets = {d: f["tokens"][:, 1:] for d, f in feeds.items()}
-    return xent_tp(group, models, logits, targets)[group.home].mean()
+def lm_loss_tp(runs, n_ranks: int = 1) -> torch.Tensor:
+    """:func:`lm_loss` of a (micro)batch whose rows the runs split over
+    ``n_ranks`` data-parallel ranks (``tp.rows_mean``), on the first
+    run's home device."""
+    logits = forward_tp(runs, n_ranks)
+    xent = {}
+    for run in runs:
+        g = run.group
+        home = run.feeds[g.home]
+        n_prefix = (0 if home.get("embeds") is None
+                    else home["embeds"].shape[1])
+        blocks = {r: t[:, n_prefix:-1] for r, t in logits[run.rank].items()}
+        targets = {d: f["tokens"][:, 1:] for d, f in run.feeds.items()}
+        xent[run.rank] = xent_tp(g, run.models, blocks, targets)[g.home]
+    return tp.rows_mean(runs, xent, n_ranks)
 
 
 # ------------------------------------------------------------------ API

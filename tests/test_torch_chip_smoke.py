@@ -404,9 +404,13 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch,
     ``psum8`` within its budget, the pipeline bitwise its serial run, the
     elastic restore bitwise onto ``(1, 2)`` and a finite step after it,
     the ``(1, 1)`` mesh bitwise, reduced deepseek-v2-lite-16b on one
-    device and on ``(1, 4)`` within the gates, one float32 step of each
-    on its tensor-parallel meshes within the float32 gates, and the
-    reversed-microbatch witness beside the tensor-parallel runs."""
+    device and on ``(1, 4)`` and ``(2, 2)`` within the gates, one float32
+    step of each on its tensor-parallel meshes within the float32 gates
+    with the MoE drops equal, the rows split over ``(2, 1)`` within the
+    gates, the float32 prefill on ``(2, 2)``, ``seq_shard`` on ``(1, 4)``
+    (its first loss bitwise the ``(1, 4)`` run's, a float32 step's
+    gradients within 1e-5 of it), and the reversed-microbatch witness
+    beside the tensor-parallel runs."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.reduced import reduce_config
     from repro_torch.data.lm import TokenPipeline
@@ -443,25 +447,41 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch,
                                   batch=batch, seq=seq, moe_cfg=moe_cfg)
     train = out["train"]
     assert len(train["losses"]) == smoke.DIST_STEPS
-    for run, mesh in ((train, smoke.DIST_MESH),
-                      (out["train_tp"], smoke.TP_MESH),
-                      (out["moe"]["sharded"], smoke.TP_MESH)):
+    for run, mesh, split in ((train, smoke.DIST_MESH, 2),
+                             (out["train_tp"], smoke.TP_MESH, 1),
+                             (out["moe"]["sharded"], smoke.TP_MESH, 1),
+                             (out["moe"]["also"][0], smoke.DIST_MESH, 2),
+                             (out["train_dp"], smoke.DP_MESH, 2)):
         assert run["mesh"] == mesh and run["bitwise_single"] is not None
+        assert run["rows_split"] == split
         gates = run["gates"]
         assert gates["first_loss_diff"] < smoke.TP_LOSS_TOL
         assert gates["first_norm_rel"] < smoke.TP_NORM_TOL
         assert gates["max_param_diff"] < smoke.TP_PARAM_TOL
-        assert run["tp_bytes"]["all-reduce"]["forward"] > 0
+        if mesh[1] > 1:
+            assert run["tp_bytes"]["all-reduce"]["forward"] > 0
     assert out["moe"]["single"]["arch"] == moe_cfg.name
     f32 = out["f32_tp"]
     assert [r["arch"] for r in f32] == [cfg.name, moe_cfg.name]
     assert [[g["mesh"] for g in r["meshes"]] for r in f32] == [
-        [smoke.DIST_MESH, smoke.TP_MESH], [smoke.TP_MESH]]
+        [smoke.DIST_MESH, smoke.TP_MESH], [smoke.TP_MESH, smoke.DIST_MESH]]
     for got in f32[0]["meshes"] + f32[1]["meshes"]:
         assert got["loss_diff"] < smoke.F32_LOSS_TOL
         assert got["norm_rel"] < smoke.F32_NORM_TOL
         assert 0 < got["grad_rel"] < smoke.F32_GRAD_TOL
         assert np.isfinite(got["change_diff"])
+        assert got["routings_differing"] == 0
+    assert f32[1]["meshes"][0]["drops"] > 0
+    for got in out["prefill_dp"]:
+        assert got["mesh"] == smoke.DIST_MESH and got["rows_split"] == 2
+        assert got["max_abs_err"] <= smoke.TP_DECODE_F32_TOL
+        assert got["routings_differing"] == 0
+    seq_run = out["seq_shard"]
+    assert seq_run["seq_split"] and seq_run["mesh"] == smoke.TP_MESH
+    assert seq_run["losses"][0] == out["train_tp"]["losses"][0]
+    assert seq_run["tp_bytes"]["reduce-scatter"]["forward"] > 0
+    assert out["seq_f32"]["loss_bitwise"]
+    assert out["seq_f32"]["grad_rel"] < smoke.SEQ_GRAD_TOL
     witness = out["witness"]
     assert list(witness) == ["reversed microbatches", str(smoke.DIST_MESH),
                              str(smoke.TP_MESH)]
@@ -543,7 +563,7 @@ def test_lm_dryrun_phase_rehearses_on_the_cpu(smoke, monkeypatch,
     for name in ("max_memory_allocated", "memory_allocated"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
     assert smoke.DRYRUN_CELLS == (
-        ("qwen2.5-3b", "train_4k", "single"),
+        ("mamba2-780m", "train_4k", "single"),
         ("deepseek-v2-lite-16b", "decode_32k", "single"))
     cfg = reduce_config(ARCHS[smoke.DRYRUN_ARCH])
     assert cfg.microbatches == 4

@@ -6,17 +6,21 @@ the port's own single-device paths, on the same numpy inputs:
 - sharded training: reduced phi3 (d 64, 2 layers) and reduced
   deepseek-v2-lite (MoE), microbatches 2, batch 8 x 16, one step on
   ``(data 4, model 1)`` and ``(data 4, model 2)``, in bfloat16 and
-  float32 compute: on ``model`` 1 bitwise the port's single-device step,
-  on ``model`` 2 (tensor-parallel: the row-parallel sums reassociate)
-  within the reference's gates of it (loss 1e-3, parameters 5e-3,
+  float32 compute: each microbatch's 4 rows split over the 4 data ranks
+  (the GEMMs of fewer rows and the rank-order sums of the loss and the
+  gradients reassociate) and on ``model`` 2 tensor-parallel (the
+  row-parallel sums reassociate), so within the reference's gates of the
+  port's single-device step (loss 1e-3, parameters 5e-3,
   ``tests/test_sharding_multidev.py:113-117``) and in float32 within the
   float32 gates below; on both within the reference's gates of the
   reference's sharded step, and in float32 the gradient norm and each
   parameter's change within tight tolerances; the same against a second
   reference run (its own subprocess, float32) of reduced qwen2.5-3b
   (GQA), recurrentgemma-9b (RG-LRU), mamba2-780m (SSD) and
-  seamless-m4t-medium (enc-dec) on ``(data 4, model 2)``; the ``(1, 1)``
-  mesh equals ``make_train_step`` bitwise for every arch;
+  seamless-m4t-medium (enc-dec) on ``(data 4, model 2)``, and of reduced
+  qwen2.5-3b with ``seq_shard`` (``tests/test_perf_variants.py``'s
+  setup); the ``(1, 1)`` mesh equals ``make_train_step`` bitwise for
+  every arch;
 - ``pipeline_apply``: within 1e-6 of the reference's and bitwise equal to
   the port's serial loop;
 - ``psum8`` on 8 rank inputs: bitwise equal to the reference's
@@ -147,15 +151,14 @@ _TP_SCRIPT = textwrap.dedent("""
 
     out = {}
     mesh = make_mesh_for_devices(8, model_parallel=2)
-    for arch in json.loads(sys.argv[2]):
-        cfg = dataclasses.replace(reduce_config(ARCHS[arch]),
-                                  microbatches=2, dtype="float32")
+
+    def run(cfg, seq):
         bundle = build_model(cfg)
         rng = np.random.default_rng(0)
-        batch = {"tokens": rng.integers(0, cfg.vocab, (8, 16)).astype(
+        batch = {"tokens": rng.integers(0, cfg.vocab, (8, seq)).astype(
             np.int32)}
         if cfg.n_enc_layers:
-            batch["frames"] = rng.normal(size=(8, 16, cfg.d_model)).astype(
+            batch["frames"] = rng.normal(size=(8, seq, cfg.d_model)).astype(
                 np.float32)
         feed = {k: jnp.asarray(v) for k, v in batch.items()}
         step = make_train_step(bundle, AdamWConfig(lr=1e-3, warmup_steps=0))
@@ -166,11 +169,20 @@ _TP_SCRIPT = textwrap.dedent("""
                 state["params"], params_shardings(state["params"], mesh)))
             s2, m2 = jax.jit(step, in_shardings=(
                 None, batch_shardings(feed, mesh)))(state, feed)
-        out[arch] = {
+        return {
             "batch": batch, "init": init, "loss": float(m2["loss"]),
             "grad_norm": float(m2["grad_norm"]),
             "params": jax.tree.map(lambda a: np.asarray(a, np.float32),
                                    s2["params"])}
+
+    for arch in json.loads(sys.argv[2]):
+        out[arch] = run(dataclasses.replace(reduce_config(ARCHS[arch]),
+                                            microbatches=2, dtype="float32"),
+                        16)
+    # tests/test_perf_variants.py's seq_shard setup
+    out["seq_shard"] = run(dataclasses.replace(
+        reduce_config(ARCHS["qwen2.5-3b"]), microbatches=2, remat="full",
+        seq_shard=True), 32)
     with open(sys.argv[1], "wb") as fh:
         pickle.dump(out, fh)
     print("RESULT:" + json.dumps({"ok": True}))
@@ -291,41 +303,44 @@ def assert_within_reference_gates(r, m2, sharded, f32):
 def test_sharded_training_matches_single_device_and_reference(arch, dtype,
                                                               shape, ref):
     """One step on ``(data 4, model shape[1])`` from the reference's
-    parameters.  With ``model`` 1: bitwise the port's single-device step
-    (every coordinate on one device, so one replica and the same
-    arithmetic).  With ``model`` 2 the step is tensor-parallel, and its
-    row-parallel sums reassociate as the reference's do: the loss within
-    1e-3 and every parameter within 5e-3 of the single-device step, and
-    in float32 within the float32 gates (loss ``F32_LOSS_TOL``, gradient
-    norm rel ``F32_NORM_TOL``, each parameter's change
-    ``F32_CHANGE_TOL``).  On both, within the reference's gates of its
-    sharded step, and in float32 within the float32 gates: the first
-    AdamW step moves an element by about the learning rate, which the
-    parameter gate would not see."""
+    parameters.  Bitwise the port's single-device step only where nothing
+    reassociates: a ``model`` axis of 1 and microbatch rows the data axes
+    do not split (``tests/test_torch_dp_rows.py::
+    test_undivided_microbatch_rows_run_whole_bitwise``).  Here each
+    microbatch's 4 rows split over the 4 data ranks (their GEMMs run on fewer rows, and the loss and the
+    gradients are summed over the ranks in rank order), and with
+    ``model`` 2 the step is also tensor-parallel (its row-parallel sums
+    reassociate as the reference's do): the loss within 1e-3 and every
+    parameter within 5e-3 of the single-device step, and in float32
+    within the float32 gates (loss ``F32_LOSS_TOL``, gradient norm rel
+    ``F32_NORM_TOL``, each parameter's change ``F32_CHANGE_TOL``).  On
+    both, within the reference's gates of its sharded step, and in
+    float32 within the float32 gates: the first AdamW step moves an
+    element by about the learning rate, which the parameter gate would
+    not see."""
     r = ref[(arch, dtype)]
+    cfg = reduced(arch, dtype=dtype)
+    mesh = mesh_of(*shape)
     (m1, single), (m2, sharded) = single_and_sharded(
-        reduced(arch, dtype=dtype), r["init"], r["tokens"], mesh_of(*shape))
+        cfg, r["init"], r["tokens"], mesh)
     f32 = dtype == "float32"
     assert len(sharded["params"]) == len(single)
     flat_init = flatten(r["init"])
-    if shape[1] == 1:
-        for k in ("loss", "grad_norm", "lr"):
-            assert torch.equal(m1[k], m2[k]), k
-        for name, leaf in sharded["params"].items():
-            assert torch.equal(ts.unshard(leaf, CPU), single[name]), name
-    else:
-        assert abs(m2["loss"].item() - m1["loss"].item()) < (
-            F32_LOSS_TOL if f32 else LOSS_TOL)
+    owners = steps.MeshCompute(build_model(cfg), mesh).owner_ranks(
+        {"tokens": torch.as_tensor(r["tokens"])}, cfg.microbatches)
+    assert owners == [(0, 1, 2, 3)] * 2
+    assert abs(m2["loss"].item() - m1["loss"].item()) < (
+        F32_LOSS_TOL if f32 else LOSS_TOL)
+    if f32:
+        assert m2["grad_norm"].item() == pytest.approx(
+            m1["grad_norm"].item(), rel=F32_NORM_TOL)
+    for name, leaf in sharded["params"].items():
+        got = ts.unshard(leaf, CPU)
+        assert (got - single[name]).abs().max().item() < PARAM_TOL, name
         if f32:
-            assert m2["grad_norm"].item() == pytest.approx(
-                m1["grad_norm"].item(), rel=F32_NORM_TOL)
-        for name, leaf in sharded["params"].items():
-            got = ts.unshard(leaf, CPU)
-            assert (got - single[name]).abs().max().item() < PARAM_TOL, name
-            if f32:
-                init = torch.as_tensor(ref_leaf(flat_init, name))
-                assert ((got - init) - (single[name] - init)).abs().max() \
-                    .item() < F32_CHANGE_TOL, name
+            init = torch.as_tensor(ref_leaf(flat_init, name))
+            assert ((got - init) - (single[name] - init)).abs().max() \
+                .item() < F32_CHANGE_TOL, name
     assert_within_reference_gates(r, m2, sharded, f32)
 
 
@@ -341,6 +356,23 @@ def test_tp_step_matches_the_reference(arch, ref_tp):
         reduced(arch, dtype="float32"), r["init"], None, mesh_of(4, 2),
         batch=r["batch"])
     assert_within_reference_gates(r, m2, sharded, True)
+
+
+def test_seq_shard_step_matches_the_reference(ref_tp):
+    """Reduced qwen2.5-3b with ``seq_shard`` (remat full, microbatches 2,
+    batch 8 x 32: ``tests/test_perf_variants.py``'s setup) on ``(data 4,
+    model 2)``: every microbatch's rows split over the data ranks and its
+    sequence over the model ranks, one step from the reference's
+    parameters within the reference's gates of its sharded step."""
+    r = ref_tp["seq_shard"]
+    cfg = reduced("qwen2.5-3b", remat="full", seq_shard=True)
+    batch = {k: torch.as_tensor(v) for k, v in r["batch"].items()}
+    mesh = mesh_of(4, 2)
+    assert steps.MeshCompute(build_model(cfg), mesh).layout(batch, 4) == (
+        4, True)
+    _, (m2, sharded) = single_and_sharded(cfg, r["init"], None, mesh,
+                                          batch=r["batch"])
+    assert_within_reference_gates(r, m2, sharded, cfg.dtype == "float32")
 
 
 def _arch_batch(cfg, rows, seq=8):
@@ -464,9 +496,12 @@ def test_replica_uses_whole_blocks_in_place(shape):
 
 
 def test_microbatches_route_whole_on_the_first_rank_holding_them():
-    """On ``(data 4, model 2)`` a batch of 8 rows puts rows 2r, 2r+1 on
-    data rank r; two microbatches of 4 rows start on ranks 0 and 2, four
-    of 2 rows on ranks 0..3; a replicated batch runs on rank 0."""
+    """On ``(data 4, model 2)`` (data rank 2 on another device): two
+    microbatches of 4 rows each split over the 4 data ranks (the residual
+    anchor keeps dp), every rank on its rows; four microbatches of 2
+    rows, which 4 ranks do not divide, run whole on the first rank
+    holding their rows (rows 2r, 2r+1 on data rank r); a replicated batch
+    (6 rows) runs whole on rank 0."""
     devs = np.empty((4, 2), dtype=object)
     for i, j in np.ndindex(4, 2):
         devs[i, j] = torch.device("meta") if i == 2 else CPU
@@ -474,9 +509,11 @@ def test_microbatches_route_whole_on_the_first_rank_holding_them():
                                 Mesh(devs, ("data", "model")))
     meta = torch.device("meta")
     batch = {"tokens": torch.zeros(8, 16, dtype=torch.long)}
-    assert compute.owners(batch, 2) == [CPU, meta]
-    assert compute.owners(batch, 4) == [CPU, CPU, meta, CPU]
-    assert compute.owners({"tokens": torch.zeros(6, 4)}, 2) == [CPU, CPU]
+    assert compute.owner_ranks(batch, 2) == [(0, 1, 2, 3)] * 2
+    assert compute.owners(batch, 2) == [(CPU, CPU, meta, CPU)] * 2
+    assert compute.owners(batch, 4) == [(CPU,), (CPU,), (meta,), (CPU,)]
+    assert compute.owners({"tokens": torch.zeros(6, 4)}, 2) == [(CPU,),
+                                                                (CPU,)]
 
 
 def test_pipeline_matches_reference_and_serial_loop(ref):

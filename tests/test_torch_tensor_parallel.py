@@ -14,8 +14,9 @@ same inputs (numpy-seeded batches, ``torch.Generator``-seeded weights):
   reference's gates, ``tests/test_sharding_multidev.py:113-117``), and in
   float32 also the loss, gradient norm and parameter change within the
   float32 gates of ``tests/test_torch_sharding_multidev.py``;
-- the bitwise invariants: ``(1, T)`` equals ``(4, T)``, a repeated step
-  equals itself;
+- the bitwise invariants: ``(1, T)`` equals ``(4, T)`` for a batch whose
+  microbatch rows 4 data ranks do not divide (within the gates for one
+  they split), a repeated step equals itself;
 - the dry-run: the whole group's counted FLOPs equal the sum of the
   per-rank counts, and ``step_collectives``' all-reduce bytes equal the
   group's tally of a CPU step;
@@ -100,7 +101,15 @@ def group_of(bundle, model, T):
     params = {n: ts.shard(p, specs[n], mesh)
               for n, p in model.named_parameters()}
     compute = steps.MeshCompute(bundle, mesh)
-    return (compute.group(0), compute.group_models(0, params), compute)
+    group = compute.group(0)
+    return group, compute.bound({0: group}, params)[1][0], compute
+
+
+def lm_layer(group, layers, x, positions):
+    """``lm.layer_runs_tp`` on one group holding every row."""
+    run = tp.Run(0, group, layers, {}, slice(None))
+    return lm.layer_runs_tp([run], {0: layers}, {0: x}, {0: positions},
+                            1)[0]
 
 
 def whole_grads(compute, names, grads_by_rank):
@@ -165,7 +174,7 @@ def test_layers_match_the_whole_layer(arch, T):
                                    + [p for _, p in layer.named_parameters()])
         x2 = x.detach().clone().requires_grad_()
         enc2 = enc.detach().clone().requires_grad_()
-        run = {"lm": lm.layer_tp, "enc": encdec.enc_layer_tp,
+        run = {"lm": lm_layer, "enc": encdec.enc_layer_tp,
                "dec": encdec.dec_layer_tp}[kind]
         extra = ({m: enc2 for m in local},) if dec else ()
         y2 = run(group, ranks, {CPU: x2}, {CPU: pos}, *extra)[CPU]
@@ -193,7 +202,8 @@ def test_layers_match_the_whole_layer(arch, T):
     batch = arch_batch(cfg)
     loss = bundle.loss(model, batch)
     want = torch.autograd.grad(loss, list(model.parameters()))
-    loss2 = tp.group_loss(bundle, group, local, batch)
+    loss2 = tp.step_loss(bundle, compute.runs({0: group}, {0: local}, batch,
+                                              (0,)), 1)
     assert abs(loss2.item() - loss.item()) < F32_LOSS_TOL
     named = [list(local[m].named_parameters()) for m in local]
     got = list(torch.autograd.grad(loss2, [p for ps in named for _, p in ps],
@@ -253,13 +263,17 @@ def test_tp_step_matches_the_single_device_step(arch, dtype):
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-lite-16b",
                                   "mamba2-780m", "seamless-m4t-medium"])
 def test_step_is_bitwise_the_same_for_every_data_size(arch):
-    """Each microbatch runs whole on one model group, so for T = 2 the
-    step on ``(1, 2)`` and on ``(4, 2)`` is bitwise the same (loss,
-    gradient norm, parameters, both moments), and a repeated step from
-    the same state is bitwise itself."""
+    """For T = 2 and a batch of 6 rows (microbatches of 3, which 4 data
+    ranks do not divide: each runs whole on one model group) the step on
+    ``(1, 2)`` and on ``(4, 2)`` is bitwise the same (loss, gradient
+    norm, parameters, both moments), and a repeated step from the same
+    state is bitwise itself.  A batch of 8 rows (microbatches of 4) splits
+    its rows over the 4 data ranks: the ``(4, 2)`` step is within the
+    reference's gates of the ``(1, 2)`` one (loss 1e-3, parameters
+    5e-3)."""
     cfg = reduced(arch, "bfloat16")
     bundle = build_model(cfg)
-    batch = arch_batch(cfg)
+    batch = arch_batch(cfg, rows=6)
     a, ma = one_step(bundle, batch, mesh_of(1, 2))
     b, mb = one_step(bundle, batch, mesh_of(4, 2))
     c, mc = one_step(bundle, batch, mesh_of(1, 2))
@@ -272,6 +286,15 @@ def test_step_is_bitwise_the_same_for_every_data_size(arch):
     pa, pb, pc = params_of(a), params_of(b), params_of(c)
     for n in pa:
         assert torch.equal(pa[n], pb[n]) and torch.equal(pa[n], pc[n]), n
+    batch = arch_batch(cfg)
+    assert steps.MeshCompute(bundle, mesh_of(4, 2)).owner_ranks(
+        batch, cfg.microbatches) == [(0, 1, 2, 3)] * 2
+    a, ma = one_step(bundle, batch, mesh_of(1, 2))
+    b, mb = one_step(bundle, batch, mesh_of(4, 2))
+    assert abs(ma["loss"].item() - mb["loss"].item()) < LOSS_TOL
+    pa, pb = params_of(a), params_of(b)
+    for n in pa:
+        assert (pa[n] - pb[n]).abs().max().item() < PARAM_TOL, n
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
