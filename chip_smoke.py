@@ -90,14 +90,20 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
    qwen2.5-3b on the (1, 1) mesh bitwise ``make_train_step``'s; each
    microbatch's rows split over the data ranks wherever they divide
    them (qwen2.5-3b on (2, 2) and (data 2, model 1), deepseek-v2-lite-16b
-   at 4 layers on (1, 4) and (2, 2), every MoE layer routing the gathered
+   at 2 layers on (1, 4) and (2, 2), every MoE layer routing the gathered
    microbatch), held to the gates against one device, and in float32 at
    2 layers with the MoE dropped choices equal; the float32 prefill of
    both on (2, 2) against one device; qwen2.5-3b with ``seq_shard`` on
    (1, 4) (the residual stream cut over the sequence: all-gathered before
    each layer, reduce-scattered after it), its first loss bitwise the
    (1, 4) run's, and one float32 step's gradients within 1e-5 of the same
-   mesh's without it; then the LM decode on a ``model`` axis
+   mesh's without it; deepseek-v2-lite-16b with ``moe_dispatch_shard``
+   (each data rank's group runs the expert GEMMs of its share of the
+   slots, the slot outputs all-gathered) on (2, 2) and (2, 1) against
+   one device at the gates, a float32 step and the float32 prefill on
+   (2, 2) within 1e-5 of the same mesh's without it (drops equal), and
+   its decode on (2, 2) at a batch whose capacity the data ranks divide;
+   then the LM decode on a ``model`` axis
    (``make_serve_step(bundle, mesh)``, the cache placed by
    ``cache_shardings``): qwen2.5-3b whole on (data 1,
    model 4) and (data 2, model 2), mamba2-780m whole on (1, 4) and
@@ -719,15 +725,43 @@ def drive_compiled(torch, tgnn, ops, name, model, g, dev, mods, eager):
                 replay_ms=[1e3 * t for t in walls]), cm
 
 
-def profile_replay(torch, cm, h, per_call):
-    """One warm replay under ``torch.profiler``: device busy time and idle
-    share, and the launches per call confirmed by kernel name."""
+# the host's idle time inside a profiler window before and after the
+# profiled call: torch.profiler (CUPTI through kineto) dropped device
+# records of kernels that ran at the edges of a window, the first kernel
+# of a replay that started right at the window's start (the missed-record
+# counts of scripts/profile_replay_misses.py)
+PROFILE_EDGE_S = 0.05
+
+
+def replay_rows(torch, fn):
+    """One call of ``fn`` (a warm replay) under ``torch.profiler``, with
+    ``PROFILE_EDGE_S`` of idle host time, the device synchronized, on
+    either side of it inside the window: (its device rows, the call's
+    wall s)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = synced_wall(torch, lambda: cm(h))
-    rows = device_rows(prof)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_EDGE_S)
+        _, wall = synced_wall(torch, fn)
+        time.sleep(PROFILE_EDGE_S)
+    return device_rows(prof), wall
+
+
+def launches_by_name(rows, names) -> dict:
+    """The launches of each of the port's kernel ``names`` in a profile's
+    device rows, by kernel name."""
+    return {kname: sum(c for _, c, key in rows if re.search(
+                rf"(?<![A-Za-z_]){kname}_kernel(?:<|I|\()", key))
+            for kname in names}
+
+
+def profile_replay(torch, cm, h, per_call):
+    """One warm replay under ``torch.profiler`` (:func:`replay_rows`):
+    device busy time and idle share, and the launches per call confirmed
+    by kernel name: every kernel the capture recorded, as many times."""
+    rows, wall = replay_rows(torch, lambda: cm(h))
     if not rows:
         log("  profiler recorded no device time in the replay: idle share "
             "and kernel names not measured")
@@ -746,10 +780,7 @@ def profile_replay(torch, cm, h, per_call):
             port[m.group(1)] = port.get(m.group(1), 0.0) + dev_us / 1e3
     log("  the port's kernels in the profiled replay (device ms): "
         + ", ".join(f"{k} {v:.4f}" for k, v in sorted(port.items())))
-    seen = {kname: sum(c for _, c, key in rows if re.search(
-                rf"(?<![A-Za-z_]){kname}_kernel(?:<|I|\()",
-                key))
-            for kname in per_call}
+    seen = launches_by_name(rows, per_call)
     log(f"  launches by kernel name in the profiled replay {seen}, recorded "
         f"at capture {per_call}")
     if not any(seen.values()):
@@ -2775,7 +2806,10 @@ DIST_STEPS = 4
 # stays whole, against drive_train's run
 DIST_LAYERS = 8
 TP_MESH = (1, 4)
-TP_MOE_ARCH, TP_MOE_LAYERS = "deepseek-v2-lite-16b", 4
+# TP_MOE_ARCH's mesh runs keep TP_MOE_LAYERS of its 27 layers (4 until
+# moe_dispatch_shard's two runs joined them and the whole script took
+# 918.3 s on an NVIDIA H100 80GB HBM3 at 700 W)
+TP_MOE_ARCH, TP_MOE_LAYERS = "deepseek-v2-lite-16b", 2
 # a bfloat16 step whose model axis is > 1 reassociates the row-parallel
 # sums, so it is held to gates against the single-device run instead of
 # bitwise.  Step 0, which both runs take from the same parameters: the
@@ -2830,6 +2864,20 @@ F32_LOSS_TOL, F32_NORM_TOL, F32_GRAD_TOL = 1e-5, 1e-5, 1e-4
 # the slices; on the CPU at reduced widths at most 1.0e-6)
 DP_MESH = (2, 1)
 SEQ_STEPS, SEQ_GRAD_TOL = 2, 1e-5
+# moe_dispatch_shard (each data rank's group runs the expert GEMMs of its
+# share of the slots, their outputs all-gathered over the data ranks) on
+# TP_MOE_ARCH: bfloat16 steps on MOE_SHARD_MESHES against the
+# single-device run at the gates above; one float32 step at F32_TP_LAYERS
+# layers on DIST_MESH against the same mesh without the flag, the loss and
+# each leaf's gradient within MOE_SHARD_REL (relative; on the CPU at
+# reduced widths at most 4.9e-7, the loss bitwise) and every routing's
+# drops equal; the float32 prefill on DIST_MESH, against one device and
+# within MOE_SHARD_REL of the unflagged mesh's logits; the decode on
+# DIST_MESH at the smallest batch from LM_BATCH up whose capacity the data
+# ranks divide (at LM_BATCH the capacity is 1 and nothing would split)
+MOE_SHARD_MESHES = (DIST_MESH, DP_MESH)
+MOE_SHARD_REL = 1e-5
+MOE_SHARD_DECODE = (4, 4)        # prompt and generated tokens
 # the whole config on the (1, 1) mesh: two steps, whose peak memory above
 # what was held may exceed the single-device step's by 1 % at most
 MESH_1X1_STEPS, MESH_1X1_PEAK = 2, 1.01
@@ -3030,28 +3078,33 @@ def drive_sharded_train(torch, dev, cfg, single, batch, seq, steps,
 
 
 def drive_single_then_tp(torch, dev, cfg, batch, seq, steps, shape,
-                         also=()):
+                         also=(), flagged=()):
     """``cfg`` trained ``steps`` steps on one device (``drive_train_arch``,
     its parameters kept), its state freed, then on a mesh of ``shape``
-    and of each of ``also`` (:func:`drive_sharded_train`, held to the
-    gates against it)."""
+    and of each of ``also``, and with ``moe_dispatch_shard`` on each of
+    ``flagged`` (:func:`drive_sharded_train`, held to the gates against
+    it: the flag changes nothing on one device)."""
     import gc
 
     single = drive_train_arch(torch, cfg.name, cfg, dev, batch, seq, steps,
                               keep_after=steps, profile=False)
     runs = []
-    for sh in (shape, *also):
+    shard = dataclasses.replace(cfg, moe_dispatch_shard=True)
+    for c, sh in ([(cfg, sh) for sh in (shape, *also)]
+                  + [(shard, sh) for sh in flagged]):
         gc.collect()
         torch.cuda.empty_cache()
-        out, _, _, state, _ = drive_sharded_train(torch, dev, cfg, single,
+        out, _, _, state, _ = drive_sharded_train(torch, dev, c, single,
                                                   batch, seq, steps, sh)
         del state
+        out["moe_shard"] = c.moe_dispatch_shard
         runs.append(out)
     single.pop("params_host")
     gc.collect()
     torch.cuda.empty_cache()
+    k = 1 + len(also)
     return dict(single={k: v for k, v in single.items() if k != "profile"},
-                sharded=runs[0], also=runs[1:])
+                sharded=runs[0], also=runs[1:k], flagged=runs[k:])
 
 
 def drive_reversed(torch, dev, cfg, single, batch, seq, steps, tp_runs):
@@ -3182,14 +3235,16 @@ def drive_f32_tp(torch, dev, cfg, shapes, batch, seq):
     return out
 
 
-def drive_prefill_dp(torch, dev, cfg, batch, seq, shape=DIST_MESH):
+def drive_prefill_dp(torch, dev, cfg, batch, seq, shape=DIST_MESH,
+                     keep=False):
     """``make_prefill_step`` of one ``batch`` x ``seq`` batch of ``cfg``
     at ``F32_TP_LAYERS`` layers, full width, in float32, on one device
     and on a mesh of ``shape`` (each data rank's rows on its model group,
     every MoE layer routing the whole batch, the logits concatenated in
     rank order): the logits within ``TP_DECODE_F32_TOL`` of one device's,
     every routing's dropped choices equal one device's; both walls and
-    rank 0's tally logged."""
+    rank 0's tally logged.  ``keep``: the mesh's logits in host memory in
+    the record (``logits``)."""
     import gc
 
     from repro_torch.launch.steps import make_prefill_step
@@ -3220,8 +3275,12 @@ def drive_prefill_dp(torch, dev, cfg, batch, seq, shape=DIST_MESH):
                max_abs_err=(got - want).abs().max().item(),
                single_s=one_s, mesh_s=mesh_s, drops=n_drops,
                routings_differing=differ, tally=compute.tallies[0].as_dict())
+    if keep:
+        out["logits"] = got.to("cpu", copy=True)
     log(f"== LM distribution: the float32 prefill of {cfg.name} "
-        f"({cfg.n_layers} layers, full width, batch {batch} x {seq}) on "
+        f"({cfg.n_layers} layers, full width, batch {batch} x {seq}"
+        + (", moe_dispatch_shard" if cfg.moe_dispatch_shard else "")
+        + ") on "
         f"(data {shape[0]}, model {shape[1]}), its rows split over "
         f"{n_ranks} data ranks, against one device: max |logit diff| "
         f"{out['max_abs_err']:.3e} (limit {TP_DECODE_F32_TOL}); MoE dropped "
@@ -3237,15 +3296,21 @@ def drive_prefill_dp(torch, dev, cfg, batch, seq, shape=DIST_MESH):
     return out
 
 
-def drive_f32_seq(torch, dev, cfg, batch, seq, shape=TP_MESH):
+def drive_f32_flag(torch, dev, cfg, batch, seq, shape=TP_MESH,
+                   flag="seq_shard"):
     """One float32 step of ``cfg`` at ``F32_TP_LAYERS`` layers, full width,
-    on a mesh of ``shape`` without and with ``seq_shard``, from the same
-    parameters and batch at ``F32_OPT``: the losses bitwise equal and each
-    leaf's gradient within ``SEQ_GRAD_TOL`` (the norm of the difference
-    over the norm)."""
+    on a mesh of ``shape`` without and with the config switch ``flag``
+    (``seq_shard`` or ``moe_dispatch_shard``), from the same parameters
+    and batch at ``F32_OPT``: each leaf's gradient within
+    ``SEQ_GRAD_TOL`` (the norm of the difference over the norm) and every
+    MoE routing's drops equal; with ``seq_shard`` the losses bitwise
+    equal and the sequence split, with ``moe_dispatch_shard`` the loss
+    within ``MOE_SHARD_REL`` (relative, its bitwise equality logged) and
+    the slots split over the data ranks (``ffn.slots_split``)."""
     import gc
 
     from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import ffn
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import AdamWConfig
 
@@ -3255,11 +3320,12 @@ def drive_f32_seq(torch, dev, cfg, batch, seq, shape=TP_MESH):
     feed = train_tokens(torch, base, batch, seq, dev)
     mesh = mesh_on(dev, shape)
     cpu = torch.device("cpu")
+    rows = batch // cfg.microbatches
     runs = []
-    for flag in (False, True):
+    for on in (False, True):
         gc.collect()
         torch.cuda.empty_cache()
-        bundle = build_model(dataclasses.replace(base, seq_shard=flag))
+        bundle = build_model(dataclasses.replace(base, **{flag: on}))
         state = init_state(bundle, 0, dev, mesh=mesh)
         step = make_train_step(bundle, AdamWConfig(**F32_OPT), mesh=mesh)
         seen = {}
@@ -3270,35 +3336,56 @@ def drive_f32_seq(torch, dev, cfg, batch, seq, shape=TP_MESH):
             seen.update({n: g.whole().to(cpu) for n, g in got.items()})
             return loss, got
         step.compute.loss_and_grads = keep
-        _, m, wall, _ = timed_step(torch, step, state, feed, dev)
+        with recording_drops() as drops:
+            _, m, wall, _ = timed_step(torch, step, state, feed, dev)
+        n_ranks, seq_split = step.compute.layout(feed, rows)
+        split = (seq_split if flag == "seq_shard" else
+                 ffn.slots_split(bundle.cfg, rows * seq, n_ranks))
         runs.append(dict(loss=m["loss"].item(), grads=seen, wall_s=wall,
-                         seq_split=step.compute.layout(
-                             feed, batch // cfg.microbatches)[1],
+                         split=split, drops=drops,
                          tally=step.compute.tallies[0].as_dict()))
         del state, step, m
     (a, b) = runs
     rel = {n: ((b["grads"][n] - g).norm() / g.norm()).item()
            for n, g in a["grads"].items()}
     worst = max(rel, key=rel.get)
+    _, differ = compare_drops(a["drops"], b["drops"], 1, 1)
+    loss_rel = abs(b["loss"] / a["loss"] - 1)
     out = dict(arch=base.name, mesh=tuple(shape), layers=base.n_layers,
-               seq_split=b["seq_split"], loss_bitwise=a["loss"] == b["loss"],
+               flag=flag, split=b["split"],
+               loss_bitwise=a["loss"] == b["loss"], loss_rel=loss_rel,
                grad_rel=rel[worst], grad_rel_leaf=worst,
+               routings_differing=differ,
                wall_s=[a["wall_s"], b["wall_s"]], tally=b["tally"])
     log(f"== LM distribution: one float32 step of {base.name} "
         f"({base.n_layers} layers, full width) on (data {shape[0]}, model "
-        f"{shape[1]}) with seq_shard (sequence split: {b['seq_split']}) "
-        f"against the same mesh without it: loss bitwise "
-        f"{out['loss_bitwise']} ({b['loss']!r} / {a['loss']!r}); largest "
-        f"leaf gradient |diff| / |without's| {rel[worst]:.3e} ({worst}; "
-        f"limit {SEQ_GRAD_TOL}); wall {a['wall_s']:.2f} / {b['wall_s']:.2f} "
-        f"s; rank 0's tally with it (bytes) {b['tally']}")
+        f"{shape[1]}) with {flag} (split: {b['split']}) against the same "
+        f"mesh without it: loss bitwise {out['loss_bitwise']} "
+        f"({b['loss']!r} / {a['loss']!r}); largest leaf gradient |diff| / "
+        f"|without's| {rel[worst]:.3e} ({worst}; limit {SEQ_GRAD_TOL}); MoE "
+        f"routings differing {differ} of {len(b['drops'])}; wall "
+        f"{a['wall_s']:.2f} / {b['wall_s']:.2f} s; rank 0's tally with it "
+        f"(bytes) {b['tally']}, without {a['tally']}")
     gc.collect()
     torch.cuda.empty_cache()
-    if not (out["seq_split"] and out["loss_bitwise"]
-            and rel[worst] < SEQ_GRAD_TOL):
-        raise AssertionError(f"seq_shard's float32 step leaves the gates: "
+    loss_ok = (out["loss_bitwise"] if flag == "seq_shard"
+               else loss_rel < MOE_SHARD_REL)
+    if not (out["split"] and loss_ok and rel[worst] < SEQ_GRAD_TOL
+            and differ == 0):
+        raise AssertionError(f"{flag}'s float32 step leaves the gates: "
                              f"{out}")
     return out
+
+
+def moe_shard_batch(cfg, n_ranks: int, start: int = LM_BATCH) -> int:
+    """The smallest decode batch from ``start`` up that ``n_ranks`` data
+    ranks divide and whose MoE capacity they divide
+    (``ffn.slots_split``)."""
+    from repro_torch.models import ffn
+    b = start
+    while b % n_ranks or not ffn.slots_split(cfg, b, n_ranks):
+        b += 1
+    return b
 
 
 def drive_psum8(torch, bundle, mesh, state, feed, dev):
@@ -3540,12 +3627,17 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
     step's); the ``(1, 1)`` mesh on ``reduced_cfg`` (default:
     ``reduce_config(cfg)``) against ``make_train_step``; ``moe_cfg``
     (default: ``TP_MOE_ARCH`` at ``TP_MOE_LAYERS`` layers) on one device
-    and on ``TP_MESH`` and ``DIST_MESH``; one float32 step of each on its
+    and on ``TP_MESH`` and ``DIST_MESH``, and with ``moe_dispatch_shard``
+    on ``MOE_SHARD_MESHES``; one float32 step of each on its
     tensor-parallel meshes against one device (:func:`drive_f32_tp`, the
     MoE drops equal); the float32 prefill of each on ``DIST_MESH``
-    against one device (:func:`drive_prefill_dp`); one float32 step of
-    ``cfg`` with ``seq_shard`` against the same mesh without it
-    (:func:`drive_f32_seq`).  The mesh steps are held against ``near``'s
+    against one device (:func:`drive_prefill_dp`), ``moe_cfg``'s also
+    with the flag; one float32 step of ``cfg`` with ``seq_shard`` against
+    the same mesh without it (:func:`drive_f32_flag`); the rest of
+    ``moe_dispatch_shard`` (:func:`drive_moe_shard`: a float32 step
+    against the unflagged mesh, the flagged prefill against the
+    unflagged one, a decode whose capacity the data ranks divide).  The
+    mesh steps are held against ``near``'s
     run: bitwise where nothing reassociates (a ``model`` axis of 1,
     microbatch rows not split), within the gates elsewhere.  ``card``
     (name and power limit) goes on the phase's summary line."""
@@ -3593,14 +3685,19 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
     moe_cfg = moe_cfg or dataclasses.replace(ARCHS[TP_MOE_ARCH],
                                              n_layers=TP_MOE_LAYERS)
     moe = part("moe_tp", lambda: drive_single_then_tp(
-        torch, dev, moe_cfg, batch, seq, steps, TP_MESH, also=(DIST_MESH,)))
+        torch, dev, moe_cfg, batch, seq, steps, TP_MESH, also=(DIST_MESH,),
+        flagged=MOE_SHARD_MESHES))
     f32 = part("f32_tp", lambda: [
         drive_f32_tp(torch, dev, cfg, (DIST_MESH, TP_MESH), batch, seq),
         drive_f32_tp(torch, dev, moe_cfg, (TP_MESH, DIST_MESH), batch, seq)])
     dp = part("train_dp", lambda: drive_sharded_train(
         torch, dev, cfg, near, batch, seq, steps, shape=DP_MESH)[0])
     prefill = part("prefill_dp", lambda: [
-        drive_prefill_dp(torch, dev, c, batch, seq) for c in (cfg, moe_cfg)])
+        drive_prefill_dp(torch, dev, c, batch, seq, keep=i > 0)
+        for i, c in enumerate((cfg, moe_cfg, dataclasses.replace(
+            moe_cfg, moe_dispatch_shard=True)))])
+    moe_shard = part("moe_shard", lambda: drive_moe_shard(
+        torch, dev, moe_cfg, batch, seq, prefill[1:]))
     seq_run = part("seq_shard", lambda: drive_sharded_train(
         torch, dev, dataclasses.replace(cfg, seq_shard=True), None, batch,
         seq, SEQ_STEPS, shape=TP_MESH)[0])
@@ -3612,13 +3709,14 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
     if not (seq_run["seq_split"] and seq_same):
         raise AssertionError("seq_shard's first loss differs from the same "
                              "mesh's without it")
-    seq_f32 = part("seq_f32", lambda: drive_f32_seq(torch, dev, cfg, batch,
-                                                    seq))
+    seq_f32 = part("seq_f32", lambda: drive_f32_flag(torch, dev, cfg, batch,
+                                                     seq))
     witness = part("witness", lambda: drive_reversed(
         torch, dev, cfg, near, batch, seq, steps, (train, tp4)))
     near.pop("params_host")
     wall = time.perf_counter() - t0
-    tp_runs = [train, tp4, moe["sharded"], *moe["also"], dp, seq_run]
+    tp_runs = [train, tp4, moe["sharded"], *moe["also"], *moe["flagged"],
+               dp, seq_run]
     log(f"LM distribution phase: {wall:.1f} s on {card or 'no card'} "
         "(parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + "); tensor-parallel steps " + json.dumps(
@@ -3629,13 +3727,63 @@ def drive_distributed(torch, dev, cfg, card="", single=None,
              | (r["profile"] or {}) for r in tp_runs], default=str)
         + "; float32 steps " + json.dumps(f32, default=str)
         + "; prefills " + json.dumps(prefill, default=str)
-        + "; float32 seq_shard " + json.dumps(seq_f32, default=str))
+        + "; float32 seq_shard " + json.dumps(seq_f32, default=str)
+        + "; moe_dispatch_shard " + json.dumps(
+            {k: v for k, v in moe_shard.items() if k != "decode"}
+            | {"decode": [{k: v for k, v in m.items() if k != "profile"}
+                          | (m["profile"] or {})
+                          for m in moe_shard["decode"]["meshes"]]},
+            default=str))
     return dict(near=near, train=train, psum8=psum, pipeline=pipe,
                 elastic=elastic, train_tp=tp4, mesh_1x1_full=full_1x1,
                 mesh_1x1=one, moe=moe, f32_tp=f32, train_dp=dp,
                 prefill_dp=prefill,
-                seq_shard=seq_run, seq_f32=seq_f32, witness=witness,
-                wall_s=wall, part_s=walls)
+                seq_shard=seq_run, seq_f32=seq_f32, moe_shard=moe_shard,
+                witness=witness, wall_s=wall, part_s=walls)
+
+
+def drive_moe_shard(torch, dev, cfg, batch, seq, prefills):
+    """``moe_dispatch_shard`` on ``cfg`` (MoE) beyond its bfloat16 steps
+    (``drive_single_then_tp``'s ``flagged``): one float32 step on
+    ``DIST_MESH`` against the same mesh without it
+    (:func:`drive_f32_flag`); the flagged float32 prefill on ``DIST_MESH``
+    (``prefills``: :func:`drive_prefill_dp`'s records without and with
+    the flag, each held against one device) within ``MOE_SHARD_REL`` of
+    the unflagged mesh's logits; the decode at :func:`moe_shard_batch`'s
+    batch on ``DIST_MESH`` (:func:`drive_tp_decode_arch` at
+    ``TP_MOE_LAYERS`` layers, ``MOE_SHARD_DECODE`` tokens: against one
+    device at the decode phase's gates, its CUDA graph bitwise)."""
+    from repro_torch.models import ffn
+
+    f32 = drive_f32_flag(torch, dev, cfg, batch, seq, DIST_MESH,
+                         "moe_dispatch_shard")
+    base, flagged = (p.pop("logits") for p in prefills)
+    prefill_rel = ((flagged - base).norm() / base.norm()).item()
+    prefill_bitwise = bool(torch.equal(flagged, base))
+    tokens = batch * seq
+    prefill_split = ffn.slots_split(dataclasses.replace(
+        cfg, moe_dispatch_shard=True), tokens, DIST_MESH[0])
+    log(f"== LM distribution: the float32 prefill of {cfg.name} with "
+        f"moe_dispatch_shard on {DIST_MESH} (capacity "
+        f"{ffn.moe_capacity(cfg, tokens)}, slots split: {prefill_split}) "
+        f"against the same mesh without it: logits |diff| / |without's| "
+        f"{prefill_rel:.3e} (limit {MOE_SHARD_REL}), bitwise "
+        f"{prefill_bitwise}")
+    if not (prefill_split and prefill_rel < MOE_SHARD_REL):
+        raise AssertionError(f"the flagged prefill leaves the gates: "
+                             f"{prefill_rel}")
+    shard = dataclasses.replace(cfg, moe_dispatch_shard=True,
+                                n_layers=min(cfg.n_layers, TP_MOE_LAYERS))
+    b = moe_shard_batch(shard, DIST_MESH[0])
+    log(f"== LM distribution: the decode of {cfg.name} with "
+        f"moe_dispatch_shard on {DIST_MESH} at batch {b} (capacity "
+        f"{ffn.moe_capacity(shard, b)}; at batch {LM_BATCH} it is "
+        f"{ffn.moe_capacity(shard, LM_BATCH)})")
+    decode = drive_tp_decode_arch(torch, cfg.name, shard, dev, (DIST_MESH,),
+                                  b, *MOE_SHARD_DECODE)
+    return dict(f32=f32, prefill_rel=prefill_rel,
+                prefill_bitwise=prefill_bitwise, decode_batch=b,
+                decode=decode)
 
 
 # ------------------------------------------------------------ LM decode on model

@@ -28,7 +28,9 @@ step whose rows the dp axes split runs each rank's rows on its own model
 group, the groups layer by layer in lockstep, so that an MoE layer routes
 the whole (micro)batch (:func:`gather_rows`) as one device does; the
 loss is each rank's sum over its tokens, added in rank order and divided
-once (:func:`rows_mean`).
+once (:func:`rows_mean`).  With ``moe_dispatch_shard`` each group runs
+the expert GEMMs of its share of the slots, whose outputs are then
+all-gathered over the ranks (:func:`gather_slots`).
 
 *Collectives* are plain tensor ops, differentiated by autograd: an
 all-reduce sums the partials in model-rank order on the first rank's
@@ -887,6 +889,43 @@ def gather_rows(groups: dict, parts: dict, n_ranks: int) -> dict:
         g._count("all-gather", full,
                  back=("reduce-scatter", _bytes(full) // n_ranks))
         out[b] = g.rep(full)
+    return out
+
+
+def gather_slots(groups: dict, parts: dict, n_ranks: int) -> dict:
+    """The expert slot outputs of every data-parallel rank (``parts[rank]
+    [r]``: [experts, cap / n_ranks, D] of model rank r, on its device of
+    the rank's group ``groups[rank]``; ``ffn.moe_dp``) concatenated in
+    rank order along the slot axis, for each of those model ranks on its
+    device of each group: ``{rank: {r: [experts, cap, D]}}``, with a
+    gradient (reduce-scattered back to each rank's share).  A rank that
+    ran nothing of its own (a module that runs whole, once per device)
+    reads its device's share; the results on one device are one tensor.
+    Where only some of the ``n_ranks`` ranks run here (counted mode), the
+    others' shares arrive into the buffer.  Tallied into each group's
+    tally as an all-gather, for its tally rank."""
+    out, made = {}, {}
+    for b, g in groups.items():
+        out[b] = {}
+        for r, own in parts[b].items():
+            dev = g.devices[r]
+            if len(parts) == n_ranks:
+                srcs = [by[r] if r in by else
+                        by[groups[k].places()[groups[k].devices[r]]]
+                        for k, by in sorted(parts.items())]
+                key = (tuple(map(id, srcs)), dev)
+                if key not in made:
+                    made[key] = torch.cat([t.to(dev) for t in srcs], 1)
+                full = made[key]
+            else:
+                n = own.shape[1]
+                full = own.new_empty((own.shape[0], n * n_ranks,
+                                      *own.shape[2:]))
+                full.narrow(1, b * n, n).copy_(own)
+            out[b][r] = full
+        t = out[b][g.tally_rank]
+        g._count("all-gather", t, back=("reduce-scatter",
+                                        _bytes(t) // n_ranks))
     return out
 
 

@@ -9,6 +9,12 @@ their slots and added one by one in increasing slot order (no atomics),
 so two runs of a step, and a step and its CUDA-graph replay, agree
 bitwise.  ``moe_dispatch_report`` is the static analyzer decision under
 ``core.perfmodel.TPUV5E``, equal to the reference's.
+
+``moe_dispatch_shard`` (the reference constrains the dispatched slots
+[E, cap, D] to ``("model", "dp", None)``) takes effect where a step's rows
+are split over the data-parallel ranks and those divide the capacity:
+each rank's group runs the grouped GEMM on its share of the slots only,
+and the slot outputs are all-gathered over the ranks (:func:`moe_dp`).
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import Weights, gelu, glorot, silu
 
 
@@ -132,13 +138,11 @@ def moe_route(m: MoEFFN, xf: torch.Tensor) -> MoERoute:
 
 
 def moe_experts(m: MoEFFN, slot_token, occupied, xf, dt) -> torch.Tensor:
-    """The slots' tokens [E, cap, D] (zeros in empty slots) through the
-    grouped GEMM of ``m``'s experts."""
+    """The slots' tokens [E, cap, D] (zeros in empty slots; any run of the
+    slots, :func:`moe_dp`) through the grouped GEMM of ``m``'s experts."""
     gathered = torch.where(occupied[..., None],
                            xf[torch.clamp(slot_token - 1, min=0)],
                            0.0).to(dt)                      # [E, cap, D]
-    if m.cfg.moe_dispatch_shard:
-        gathered = constrain(gathered, "model", "dp", None)  # EP x token-slot
     g = torch.bmm(gathered, m.w("w_gate", dt))
     u = torch.bmm(gathered, m.w("w_up", dt))
     return torch.bmm(silu(g) * u, m.w("w_down", dt))       # [E, cap, D]
@@ -160,13 +164,17 @@ def moe_combine(y_e, slot_w, occupied, order) -> torch.Tensor:
     return out
 
 
-def moe_ffn(m: MoEFFN, x: torch.Tensor) -> torch.Tensor:
+def moe_ffn(m: MoEFFN, x: torch.Tensor, routed=None) -> torch.Tensor:
     """Token-choice top-k MoE with capacity-bounded gather / scatter
-    dispatch; x: [B, L, D]."""
+    dispatch; x: [B, L, D].  ``routed``: the routing of ``x`` and its
+    slot outputs, made elsewhere (:func:`moe_dp`)."""
     B, L, D = x.shape
     xf = x.reshape(B * L, D)
-    route = moe_route(m, xf)
-    y_e = moe_experts(m, route.slot_token, route.occupied, xf, x.dtype)
+    if routed is None:
+        route = moe_route(m, xf)
+        y_e = moe_experts(m, route.slot_token, route.occupied, xf, x.dtype)
+    else:
+        route, y_e = routed
     out = moe_combine(y_e, route.slot_w, route.occupied, route.order)
     if m.shared is not None:
         out = out + m.shared(xf)
@@ -174,7 +182,7 @@ def moe_ffn(m: MoEFFN, x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_tp(group, mods: dict, h: dict, full: dict | None = None,
-           rows: slice | None = None) -> dict:
+           rows: slice | None = None, routed: dict | None = None) -> dict:
     """The split MoE layer on a tensor-parallel model group, experts over
     ``model`` (EP), its output on every device: every rank routes alike
     (the router is whole), runs the grouped GEMM of its ``E / T``
@@ -188,33 +196,87 @@ def moe_tp(group, mods: dict, h: dict, full: dict | None = None,
     sequence).  With ``full`` (a step whose rows are split over the
     data-parallel ranks: the whole batch's inputs [B, L, D] on every
     device, of which this group's are the batch rows ``rows``), every
-    group routes the whole batch and combines its own rows."""
-    routed, shared = {}, {}
+    group routes the whole batch and combines its own rows; ``routed``
+    (``{rank: (route, slot outputs [E / T, cap, D])}``, :func:`moe_dp`)
+    holds each rank's routing and its experts' slot outputs, made
+    before."""
+    parts, shared = {}, {}
     for r in group.members:
         m, x = mods[r], h[r]
         B, L, D = x.shape
         xf = x.reshape(B * L, D)
-        src = xf if full is None else group.at(full, r).reshape(-1, D)
-        route = moe_route(m, src)
         n = m.w_gate.shape[0]
         lo = slice(r * n, (r + 1) * n)
-        y_e = moe_experts(m, route.slot_token[lo], route.occupied[lo], src,
-                          x.dtype)
+        if routed is None:
+            src = xf if full is None else group.at(full, r).reshape(-1, D)
+            route = moe_route(m, src)
+            y_e = moe_experts(m, route.slot_token[lo], route.occupied[lo],
+                              src, x.dtype)
+        else:
+            route, y_e = routed[r]
         order = route.order
         if rows is not None:
             order = order.reshape(-1, L, order.shape[-1])[rows].flatten(0, 1)
         local = order - r * n * route.cap
         inside = (local >= 0) & (local < n * route.cap)
-        routed[r] = moe_combine(y_e, route.slot_w[lo], route.occupied[lo],
-                                torch.where(inside, local, n * route.cap)
-                                ).reshape(B, L, D)
+        parts[r] = moe_combine(y_e, route.slot_w[lo], route.occupied[lo],
+                               torch.where(inside, local, n * route.cap)
+                               ).reshape(B, L, D)
         if m.shared is not None:
             shared[r] = m.shared(xf).reshape(B, L, D)
-    out = group.combine(routed)
+    out = group.combine(parts)
     if shared:
         extra = group.combine(shared, h[group.members[0]].dtype)
         out = {k: out[k] + extra[k] for k in out}
     return out
+
+
+def slots_split(cfg: ModelConfig, tokens: int, n_ranks: int) -> bool:
+    """Whether ``moe_dispatch_shard`` splits the slots of a routing of
+    ``tokens`` tokens over ``n_ranks`` > 1 data-parallel ranks that split
+    the rows: where the reference's ``("model", "dp", None)`` keeps dp on
+    the slot axis of [E, cap, D] (``sharding.resolve``: the dp axes,
+    here of size ``n_ranks``, divide the capacity)."""
+    return (bool(cfg.moe_dispatch_shard) and n_ranks > 1
+            and moe_capacity(cfg, tokens) % n_ranks == 0)
+
+
+def moe_dp(runs, ffns: dict, full: dict, n_ranks: int) -> dict:
+    """``moe_dispatch_shard`` on the model groups of ``runs`` (``tp.Run``
+    or ``tp.DecodeRun``, rows split over ``n_ranks`` data-parallel ranks;
+    ``ffns[rank][r]``: the MoE module of model rank r, ``full[rank]``: the
+    whole batch's inputs [B, L, D] on each device of the rank's group,
+    ``tp.gather_rows``).  Every group routes the whole batch, as without
+    the flag; data rank b's group runs the grouped GEMM only on the slots
+    [b cap / n_ranks, (b + 1) cap / n_ranks) of its experts (a split
+    module: its model rank's E / T, on each rank; one that runs whole: all
+    E, once per device), and the slot outputs are all-gathered over the
+    data ranks in rank order (``tp.gather_slots``).  ``{rank: {r: (route,
+    slot outputs [experts, cap, D])}}``: what :func:`moe_tp` and
+    :func:`moe_ffn` then combine, each token's choices in slot order, as
+    without the flag."""
+    routes, parts = {}, {}
+    for run in runs:
+        g, mods = run.group, ffns[run.rank]
+        split = getattr(mods[g.members[0]], "tp_split", False)
+        routes[run.rank], parts[run.rank] = {}, {}
+        for r in (g.members if split else g.places().values()):
+            m = mods[r]
+            src = g.at(full[run.rank], r)
+            src = src.reshape(-1, src.shape[-1])
+            route = moe_route(m, src)
+            n = m.w_gate.shape[0]
+            e = slice(r * n, (r + 1) * n) if split else slice(None)
+            c = route.cap // n_ranks
+            s = slice(run.rank * c, (run.rank + 1) * c)
+            routes[run.rank][r] = route
+            parts[run.rank][r] = moe_experts(
+                m, route.slot_token[e, s], route.occupied[e, s], src,
+                src.dtype)
+    gathered = tp.gather_slots({run.rank: run.group for run in runs}, parts,
+                               n_ranks)
+    return {b: {r: (route, gathered[b][r]) for r, route in by.items()}
+            for b, by in routes.items()}
 
 
 def moe_dispatch_report(cfg: ModelConfig, tokens: int) -> dict:

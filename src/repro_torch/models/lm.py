@@ -293,7 +293,9 @@ def ffn_tp(runs, layers: dict, x: dict, n_ranks: int) -> dict:
     whose rows are split over ``n_ranks`` > 1 data-parallel ranks routes
     every rank's rows together (``tp.gather_rows``), as the single-device
     step routes its whole (micro)batch, and each group keeps its own
-    rows' outputs."""
+    rows' outputs.  With ``moe_dispatch_shard``, where the ranks divide
+    the capacity, each group runs the expert GEMMs of its share of the
+    slots only (``ffn.moe_dp``)."""
     run0 = runs[0]
     l0 = layers[run0.rank][run0.group.members[0]]
     if l0.ffn is None:
@@ -302,26 +304,32 @@ def ffn_tp(runs, layers: dict, x: dict, n_ranks: int) -> dict:
     h = {run.rank: tp.norm_each(run.group, layers[run.rank], "ffn_norm",
                                 x[run.rank], eps) for run in runs}
     moe = isinstance(l0.ffn, ffn_lib.MoEFFN)
-    full = None
+    ffns = {run.rank: {r: layer.ffn for r, layer in layers[run.rank].items()}
+            for run in runs}
+    full = routed = None
     if moe and n_ranks > 1:
         full = tp.gather_rows(
             {run.rank: run.group for run in runs},
             {run.rank: h[run.rank][run.group.members[0]] for run in runs},
             n_ranks)
+        B, L = next(iter(full[run0.rank].values())).shape[:2]
+        if ffn_lib.slots_split(l0.cfg, B * L, n_ranks):
+            routed = ffn_lib.moe_dp(runs, ffns, full, n_ranks)
     out = {}
     for run in runs:
         g, hb = run.group, h[run.rank]
-        ffns = {r: layer.ffn for r, layer in layers[run.rank].items()}
         if full is None:
-            y = tp.branch(g, ffns, lambda m, r: m(hb[r]), dt,
+            y = tp.branch(g, ffns[run.rank], lambda m, r: m(hb[r]), dt,
                           (lambda gg, mods: ffn_lib.moe_tp(gg, mods, hb))
                           if moe else None)
         else:
             # the whole batch routed on every group, its own rows kept
             fb = full[run.rank]
-            y = tp.branch(g, ffns, lambda m, r: ffn_lib.moe_ffn(
-                m, g.at(fb, r))[run.rows], dt, lambda gg, mods:
-                ffn_lib.moe_tp(gg, mods, hb, fb, run.rows))
+            own = {} if routed is None else routed[run.rank]
+            y = tp.branch(g, ffns[run.rank], lambda m, r: ffn_lib.moe_ffn(
+                m, g.at(fb, r), own.get(r))[run.rows], dt, lambda gg, mods:
+                ffn_lib.moe_tp(gg, mods, hb, fb, run.rows,
+                               None if routed is None else own))
         out[run.rank] = tp.residual(x[run.rank], y)
     return out
 

@@ -140,6 +140,28 @@ def test_port_ranges_name_the_line_that_made_an_op(smoke):
                     "(no line of the port)"]
 
 
+@pytest.mark.parametrize("gemm", [2, 1], ids=["whole", "gemm-missing"])
+def test_profile_replay_fails_when_a_captured_kernel_is_missing(
+        smoke, monkeypatch, gemm):
+    """``profile_replay`` confirms the capture's launches by kernel name:
+    a profile whose rows name every captured kernel as many times passes,
+    one that lacks a captured ``gemm`` launch raises."""
+    rows = ([(300.0, gemm, "void (anonymous namespace)::gemm_kernel<"
+              "sgemm_sm90::Wide<128, 16>, true, float, float>(Args)")]
+            + [(50.0, 8, "void (anonymous namespace)::spdmm_fused_kernel"
+                "<8, 8>((anonymous namespace)::Walk)"),
+               (20.0, 3, "void at::native::vectorized_elementwise_kernel")])
+    monkeypatch.setattr(smoke, "replay_rows", lambda *a, **k: (rows, 1e-3))
+    per_call = {"gemm": 2, "spdmm_fused": 8}
+    assert smoke.launches_by_name(rows, per_call) == {"gemm": gemm,
+                                                      "spdmm_fused": 8}
+    if gemm == 2:
+        smoke.profile_replay(torch, None, None, per_call)
+    else:
+        with pytest.raises(AssertionError, match="the replay ran"):
+            smoke.profile_replay(torch, None, None, per_call)
+
+
 def test_calibration_serving_and_chaos_phases_rehearse_on_the_cpu(
         smoke, monkeypatch):
     """``chip_smoke.py``'s calibration, serving and chaos phases on small
@@ -409,12 +431,16 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch,
     with the MoE drops equal, the rows split over ``(2, 1)`` within the
     gates, the float32 prefill on ``(2, 2)``, ``seq_shard`` on ``(1, 4)``
     (its first loss bitwise the ``(1, 4)`` run's, a float32 step's
-    gradients within 1e-5 of it), and the reversed-microbatch witness
+    gradients within 1e-5 of it), ``moe_dispatch_shard`` (deepseek's
+    steps on ``(2, 2)`` and ``(2, 1)`` within the gates, a float32 step
+    and the prefill within 1e-5 of the unflagged mesh's, a decode whose
+    capacity the data ranks divide), and the reversed-microbatch witness
     beside the tensor-parallel runs."""
     from repro_torch.configs import ARCHS
     from repro_torch.configs.reduced import reduce_config
     from repro_torch.data.lm import TokenPipeline
     from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import ffn
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import AdamWConfig
 
@@ -482,6 +508,32 @@ def test_lm_distribution_phase_rehearses_on_the_cpu(smoke, monkeypatch,
     assert seq_run["tp_bytes"]["reduce-scatter"]["forward"] > 0
     assert out["seq_f32"]["loss_bitwise"]
     assert out["seq_f32"]["grad_rel"] < smoke.SEQ_GRAD_TOL
+    # moe_dispatch_shard: the bfloat16 steps within the gates, the float32
+    # step and prefill within MOE_SHARD_REL of the unflagged mesh's, the
+    # decode at a batch whose capacity the data ranks divide
+    flagged = out["moe"]["flagged"]
+    assert [r["mesh"] for r in flagged] == list(smoke.MOE_SHARD_MESHES)
+    for run in flagged:
+        assert run["moe_shard"] and run["rows_split"] == 2
+        assert run["gates"]["first_loss_diff"] < smoke.TP_LOSS_TOL
+        assert run["gates"]["max_param_diff"] < smoke.TP_PARAM_TOL
+    assert out["moe"]["sharded"]["moe_shard"] is False
+    moe_shard = out["moe_shard"]
+    f32s = moe_shard["f32"]
+    assert f32s["split"] and f32s["routings_differing"] == 0
+    assert f32s["loss_rel"] < smoke.MOE_SHARD_REL
+    assert f32s["grad_rel"] < smoke.SEQ_GRAD_TOL
+    assert moe_shard["prefill_rel"] < smoke.MOE_SHARD_REL
+    assert len(out["prefill_dp"]) == 3
+    b = moe_shard["decode_batch"]
+    assert b % 2 == 0 and ffn.moe_capacity(moe_cfg, b) % 2 == 0
+    assert ffn.moe_capacity(moe_cfg, smoke.LM_BATCH) % 2
+    (dec,) = moe_shard["decode"]["meshes"]
+    assert dec["mesh"] == smoke.DIST_MESH
+    assert dec["f32_max_abs_err"] < smoke.TP_DECODE_F32_TOL
+    assert dec["f32_routings_differing"] == 0
+    assert dec["err_vs_f32"] <= (smoke.TP_DECODE_BF16_SLACK
+                                 * dec["single_err_vs_f32"])
     witness = out["witness"]
     assert list(witness) == ["reversed microbatches", str(smoke.DIST_MESH),
                              str(smoke.TP_MESH)]

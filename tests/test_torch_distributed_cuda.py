@@ -7,9 +7,10 @@ this file imports no JAX::
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_distributed_cuda.py
 
 - a ``(data 2, model 2)`` step whose data rank 0 is the CPU and rank 1 the
-  card equals the single-device pieces it is made of (each microbatch's
-  loss and gradients on its rank's device, summed on the CPU in rank
-  order, then ``adamw_update``), and the CPU's single-device step within
+  card equals the pieces it is made of (each microbatch's loss and
+  gradients from the model group of a ``(1, 2)`` mesh of its rank's
+  device, each model rank's gradients summed on the CPU in rank order,
+  then ``adamw_update``), and the CPU's single-device step within
   ``STEP_TOL``;
 - ``psum8`` over ranks on both devices == ``psum8`` of the same inputs on
   the CPU, bitwise, each rank's result on its own device;
@@ -25,10 +26,10 @@ import torch
 from repro_torch.configs import ARCHS
 from repro_torch.configs.reduced import reduce_config
 from repro_torch.distributed import sharding as ts
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.pipeline import pipeline_apply
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models.layers import trainable
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.compression import psum8
@@ -75,23 +76,37 @@ def test_mixed_mesh_step_equals_its_single_device_pieces(cuda):
     state = steps.init_state(bundle, 0, CPU, mesh=mesh)
     _, m = steps.make_train_step(bundle, OPT, mesh=mesh)(state, batch)
 
-    # the same step from single-device pieces: microbatch 0 on the CPU,
-    # microbatch 1 on the card, reduced on the CPU in rank order
+    # the same step from pieces that are tensor-parallel groups too: each
+    # microbatch's loss and gradients from the model group of a (1, 2)
+    # mesh of its rank's device (microbatch 0 on the CPU, microbatch 1 on
+    # the card), each model rank's gradients summed over the two groups'
+    # replicas on the CPU in rank order, divided by 2 when assembled, then
+    # ``adamw_update``
     micros = steps.split_batch(batch, 2)
-    pieces = steps.init_state(bundle, 0, CPU)
-    on_card = trainable(bundle.init(0, CPU).to(cuda))
+    model = bundle.init(0, CPU)
     total = torch.zeros((), dtype=torch.float32)
-    total = total + steps.loss_and_grads(bundle, pieces["params"], micros[0])
-    total = total + steps.loss_and_grads(
-        bundle, on_card, {k: v.to(cuda) for k, v in micros[1].items()}
-    ).to(CPU)
-    card_grads = dict(on_card.named_parameters())
+    groups = []
+    for dev, micro in ((CPU, micros[0]), (cuda, micros[1])):
+        pair = Mesh(np.array([[dev, dev]], dtype=object), ("data", "model"))
+        compute = steps.MeshCompute(bundle, pair)
+        loss, _ = compute.loss_and_grads(
+            steps.sharded_state(bundle, model, pair)["params"],
+            {k: v.to(dev) for k, v in micro.items()})
+        total = total + loss.to(CPU)
+        groups.append(compute)
+    by_rank = []
+    for r in range(2):
+        named = [dict(c.replicas[(d, r)].named_parameters())
+                 for c, d in zip(groups, (CPU, cuda))]
+        by_rank.append({n: named[0][n].grad + named[1][n].grad.to(CPU)
+                        for n in named[0]})
+    pieces = steps.train_state(bundle, model)
     params = dict(pieces["params"].named_parameters())
-    grads = {}
-    for n, p in params.items():
-        g = p.grad + card_grads[n].grad.to(CPU)
-        grads[n] = g.div_(2)
-    want = adamw_update(grads, pieces["opt"], params, OPT)
+    grads = tp.piece_grads(
+        [(g, groups[0].plan(r).splits) for r, g in enumerate(by_rank)],
+        {n: p.shape for n, p in params.items()}, 2)
+    want = adamw_update({n: g.whole() for n, g in grads.items()},
+                        pieces["opt"], params, OPT)
     assert torch.equal(m["loss"], total / 2)
     assert torch.equal(m["grad_norm"], want["grad_norm"])
     worst = max((ts.unshard(state["params"][n], CPU) - p).abs().max().item()

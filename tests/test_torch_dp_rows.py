@@ -22,7 +22,8 @@ inputs:
   1e-5 relative (the norm weights' gradients are summed over the
   slices);
 - the dry-run on a ``(2, 2)`` meta mesh: the counted train FLOPs of every
-  (data, model) rank sum to the whole step's count.
+  (data, model) rank sum to the whole step's count, also with
+  ``moe_dispatch_shard``, which halves each rank's expert GEMMs.
 
 The reference's sharded steps (rows split on ``(4, 2)``, and with
 ``seq_shard``) are compared in ``tests/test_torch_sharding_multidev.py``.
@@ -33,6 +34,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ShapeConfig
@@ -259,20 +262,52 @@ def test_seq_shard_is_bitwise_the_mesh_without_it(arch, shape):
     assert t0.total("reduce-scatter") == 0 < t1.total("reduce-scatter")
 
 
+class ExpertFlops(TorchDispatchMode):
+    """The FLOPs of the expert GEMMs run inside it: every ``bmm`` with an
+    operand or a result of shape [experts, D, moe_d_ff] or [experts,
+    moe_d_ff, D] (the forward products and both gradients of each)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.shapes = {(cfg.d_model, cfg.moe_d_ff),
+                       (cfg.moe_d_ff, cfg.d_model)}
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket is torch.ops.aten.bmm and self.shapes & {
+                tuple(t.shape[1:]) for t in (*args[:2], out)}:
+            self.flops += flop_registry[torch.ops.aten.bmm](*args,
+                                                            out_val=out)
+        return out
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["", "moe_shard"])
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-lite-16b"])
-def test_rank_counts_sum_to_the_whole_step(arch):
+def test_rank_counts_sum_to_the_whole_step(arch, flag):
     """On the ``(2, 2)`` meta mesh the dry-run's counted train FLOPs of
     the four (data, model) ranks, each on its data rank's rows of every
     microbatch, sum to the counted FLOPs of the whole step
     (``make_train_step(..., mesh=)``, every rank's ops); each rank counts
-    its share of the rows and every data rank computes."""
-    cfg = reduced(arch, "bfloat16")
+    its share of the rows and every data rank computes.  With
+    ``moe_dispatch_shard`` (capacity 20 a microbatch, which the 2 data
+    ranks divide) each rank's expert GEMMs count half the unflagged
+    ones'."""
     mesh = Mesh.on("meta", (2, 2), ("data", "model"))
-    bundle = build_model(cfg)
     shape = ShapeConfig("t", 8, 16, "train")
-    specs = input_specs(cfg, shape)
-    counts = [dryrun._train(bundle, shape, mesh, specs, m, b)
-              for b in range(2) for m in range(2)]
+    experts = []
+    for moe_shard in (False, flag) if flag else (False,):
+        cfg = reduced(arch, "bfloat16", moe_dispatch_shard=moe_shard)
+        bundle = build_model(cfg)
+        specs = input_specs(cfg, shape)
+        counts, per_rank = [], []
+        for b in range(2):
+            for m in range(2):
+                with ExpertFlops(cfg) as ex:
+                    counts.append(dryrun._train(bundle, shape, mesh, specs,
+                                                m, b))
+                per_rank.append(ex.flops)
+        experts.append(per_rank)
     state = steps.abstract_state(bundle, mesh)
     whole = rl.step_cost(steps.make_train_step(bundle, OPT, mesh=mesh),
                          state, specs)
@@ -280,3 +315,7 @@ def test_rank_counts_sum_to_the_whole_step(arch):
     for *_, busiest, _ in counts:
         assert busiest["rows"] == 16 // 2 // 2
         assert busiest["compute_devices"] == 4
+    if flag:
+        assert cfg.ffn != "moe" or ffn.slots_split(cfg, 4 * 16, 2)
+        assert [2 * x for x in experts[1]] == experts[0]
+        assert (min(experts[1]) > 0) == (cfg.ffn == "moe")

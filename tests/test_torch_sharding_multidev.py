@@ -54,6 +54,7 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.pipeline import pipeline_apply
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models import ffn
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compression import psum8
@@ -681,6 +682,12 @@ def test_flash_vjp_skip_loss_matches_baseline():
 
 
 def test_moe_dispatch_shard_loss_matches_baseline():
+    # each microbatch's 4 x 32 tokens: capacity 40, which the 4 data ranks
+    # of (4, 2) divide, so the flagged step runs the sharded slots
+    cfg = dataclasses.replace(reduce_config(ARCHS["deepseek-v2-lite-16b"]),
+                              moe_dispatch_shard=True)
+    assert ffn.moe_capacity(cfg, 4 * 32) == 40
+    assert ffn.slots_split(cfg, 4 * 32, 4)
     assert _variant_loss("deepseek-v2-lite-16b") == pytest.approx(
         _variant_loss("deepseek-v2-lite-16b", moe_dispatch_shard=True),
         rel=1e-2)
