@@ -2,7 +2,7 @@
 
 ``PYTHONPATH=src python -m repro_torch.launch.gnn_serve --dataset CO
 --model GCN [--requests 64] [--max-batch 8] [--scale 0.05] [--literal]
-[--cache-file plan.pkl] [--device cuda]``
+[--cache-file plan.pkl] [--device cuda] [--trace serve.json]``
 
 Fires a burst of synthetic same-graph requests through the ServingEngine
 and prints a machine-readable stats line: latency percentiles, micro-batch
@@ -11,13 +11,18 @@ wall of each phase of the process (``phases``).  With
 ``--cache-file`` the SharedPlanCache is loaded before serving (a restart
 skips re-analysis — observe packs/analyzes stay 0) and saved after.
 ``--literal`` serves through the hand-written CUDA kernels (their plain
-versions with ``--device cpu``).
+versions with ``--device cpu``).  ``--trace`` runs the serve under
+``torch.profiler`` on every thread, writes a Chrome trace and adds
+``spans``, the count, total and self time of each of the port's
+``repro.*`` ranges and the threads they ran on, to the stats line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -45,6 +50,57 @@ def batch_walls(requests) -> list[float]:
     return walls
 
 
+def span_summary(events: list[dict], threads: dict) -> dict:
+    """``{name: {count, total_ms, self_ms, threads}}`` of the ``repro.*``
+    ranges among a Chrome trace's ``events``: a range's self time is its
+    duration less the ranges nested directly in it on its thread;
+    ``threads`` names each thread id (the trace's ``tid``)."""
+    from repro_torch.trace import PREFIX
+
+    spans = sorted((e for e in events if e.get("ph") == "X"
+                    and str(e.get("name", "")).startswith(PREFIX)),
+                   key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    out: dict = {}
+    stack: list = []                    # (tid, end, name) of open ranges
+    for e in spans:
+        end = e["ts"] + e["dur"]
+        while stack and (stack[-1][0] != e["tid"] or stack[-1][1] < end):
+            stack.pop()
+        ms = e["dur"] * 1e-3
+        s = out.setdefault(e["name"], {"count": 0, "total_ms": 0.0,
+                                       "self_ms": 0.0, "threads": set()})
+        s["count"] += 1
+        s["total_ms"] += ms
+        s["self_ms"] += ms
+        s["threads"].add(threads.get(e["tid"], str(e["tid"])))
+        if stack:
+            out[stack[-1][2]]["self_ms"] -= ms
+        stack.append((e["tid"], end, e["name"]))
+    for s in out.values():
+        s["threads"] = sorted(s["threads"])
+    return out
+
+
+def profiler(device):
+    """``torch.profiler.profile`` over the host ops of every thread, and
+    the card's, on a CUDA ``device``."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        every_thread = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        raise SystemExit(
+            f"gnn_serve --trace: torch {torch.__version__} lacks "
+            "profile_all_threads, so the dispatch worker's ranges would "
+            "not be recorded") from None
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts, experimental_config=every_thread)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="CO", help="Table-IV dataset id")
@@ -63,6 +119,10 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain "
                          "versions of the kernels)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="profile the serve on every thread, write a "
+                         "Chrome trace to PATH and summarize the port's "
+                         "spans in the stats line")
     args = ap.parse_args()
 
     t0 = time.perf_counter()
@@ -99,11 +159,16 @@ def main() -> None:
                               args.requests)
 
     ops.reset_cuda_launch_counts()
+    threads = {}
     t3 = time.perf_counter()
-    try:
-        outs = srv.serve(reqs)
-    finally:
-        srv.close()
+    with (profiler(dev) if args.trace else contextlib.nullcontext()) as prof:
+        try:
+            outs = srv.serve(reqs)
+        finally:
+            if args.trace:  # the dispatch worker ends with close()
+                threads = {t.native_id: t.name
+                           for t in threading.enumerate()}
+            srv.close()
     t4 = time.perf_counter()
     launches = sum(ops.cuda_launch_counts().values())
 
@@ -121,6 +186,11 @@ def main() -> None:
                    "requests": t3 - t2, "serve": t4 - t3,
                    "batch_execute": batch_walls(srv.stats.requests)},
     })
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+        with open(args.trace) as f:
+            trace = json.load(f)
+        stats["spans"] = span_summary(trace["traceEvents"], threads)
     print("[gnn_serve] " + json.dumps(stats))
 
     if args.cache_file:

@@ -34,6 +34,7 @@ from repro_torch.core.engine import DynasparseEngine, EngineReport
 from repro_torch.core.primitives import SparseCOO
 from repro_torch.device import as_tensor, capture_graph, resolve_device
 from repro_torch.kernels import _build, ops
+from repro_torch.trace import span
 
 MM = Callable[..., torch.Tensor]   # mm(x, y, name=...) -> z
 
@@ -242,6 +243,10 @@ class CompiledModel:
         return _Program(graph=graph, h=static_h, logits=logits, diags=diags)
 
     def __call__(self, h) -> torch.Tensor:
+        with span("model.call"):
+            return self._call(h)
+
+    def _call(self, h) -> torch.Tensor:
         # the whole-model compiled-execute site, probed before any stats
         # are credited so a failed call never skews the hit accounting
         if self.faults is not None:
@@ -263,14 +268,18 @@ class CompiledModel:
             self.stats.act_hits += self.n_act
         prog = self._programs[sig]
         if prog is None:
-            logits, self.last_activation = self.run(self.payload, h)
+            with span("model.replay"):
+                logits, self.last_activation = self.run(self.payload, h)
             return logits
-        prog.h.copy_(h)
-        prog.graph.replay()
-        self.last_activation = [
-            {k: v.clone() if isinstance(v, torch.Tensor) else v
-             for k, v in d.items()} for d in prog.diags]
-        return prog.logits.clone()
+        with span("model.copy_in"):
+            prog.h.copy_(h)
+        with span("model.replay"):
+            prog.graph.replay()
+        with span("model.copy_out"):
+            self.last_activation = [
+                {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in d.items()} for d in prog.diags]
+            return prog.logits.clone()
 
 
 def compile_model(model: str, engine: DynasparseEngine, adj, h, params,

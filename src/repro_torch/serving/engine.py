@@ -88,6 +88,7 @@ from repro_torch.serving.cache import (GraphKey, SharedPlanCache,
                                        get_shared_cache)
 from repro_torch.serving.faults import DeadlineExceeded, FaultInjector
 from repro_torch.serving.sketch import SketchConfig
+from repro_torch.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,12 +201,10 @@ class ServingStats:
     # requests are visible via `RequestStats.error`), so len(batch_reports)
     # == batches - failed batches.
     batch_reports: list[EngineReport] = dataclasses.field(default_factory=list)
-    # per COMPILED batch with activation-route kernels: aggregated block-skip
-    # telemetry {stored, capacity, logical, overflows, skipped_ratio} summed
-    # over that batch's activation kernels (the bench gate's surface)
-    activation_batches: list[dict] = dataclasses.field(default_factory=list)
-    # running aggregates of the same telemetry, so dispatch_stats() stays
-    # O(1) instead of re-reducing the per-batch history on every call
+    # COMPILED batches with activation-route kernels, and running aggregates
+    # of their block-skip telemetry (``_activation_summary``, summed over
+    # each batch's activation kernels)
+    activation_batches: int = 0
     act_overflows: int = 0
     act_skipped_sum: float = 0.0
     act_kernels_last: int = 0
@@ -218,7 +217,7 @@ class ServingStats:
     deadline_expired: int = 0   # requests failed by request_timeout
 
     def record_activation(self, summary: dict) -> None:
-        self.activation_batches.append(summary)
+        self.activation_batches += 1
         self.act_overflows += summary["overflows"]
         self.act_skipped_sum += summary["skipped_ratio"]
         self.act_kernels_last = summary["kernels"]
@@ -428,7 +427,7 @@ class ServingEngine:
         (the dispatch benchmark's acceptance surface)."""
         s = self.engine.cache.stats
         st = self.stats
-        n_act = len(st.activation_batches)
+        n_act = st.activation_batches
         return {
             "plans": self.engine.cache.plan_count(),
             "n_devices": self.engine.n_devices,
@@ -731,6 +730,11 @@ class ServingEngine:
 
     def _execute_batch(self, graph_id: str, batch: list[_Request],
                        t0: float) -> None:
+        with span("serving.batch"):
+            self._run_batch(graph_id, batch, t0)
+
+    def _run_batch(self, graph_id: str, batch: list[_Request],
+                   t0: float) -> None:
         """Serve one micro-batch: stack → pad → one engine pass → split.
 
         Runs on the single dispatch worker thread; futures are resolved
@@ -743,23 +747,28 @@ class ServingEngine:
         """
         adj = self._graphs[graph_id]
         k = len(batch)
-        feats = [as_tensor(r.features, self.engine.device) for r in batch]
-        widths = [f.shape[1] for f in feats]
-        if len(set(widths)) != 1:   # model zoo fixes the fan-in per model
-            raise ValueError(f"micro-batch mixes feature widths {widths}")
-        h = feats[0] if k == 1 else torch.cat(feats, dim=1)
-        kp = k
-        if self.config.pad_to_max_batch and k < self.config.max_batch:
-            # single-plan serving: pad the stacked width to max_batch so the
-            # engine sees one kernel geometry per graph across all traffic.
-            # The padding REPLICATES the batch's own feature columns
-            # (cycling through its requests) rather than zero-filling: zero
-            # columns would register as density drift against full batches
-            # and thrash the replanner, and would bias the first plan's
-            # column densities.  Each request's output block depends only on
-            # its own columns, so replication leaves results exact.
-            kp = self.config.max_batch
-            h = torch.cat([h] + [feats[i % k] for i in range(kp - k)], dim=1)
+        with span("serving.stack"):
+            feats = [as_tensor(r.features, self.engine.device)
+                     for r in batch]
+            widths = [f.shape[1] for f in feats]
+            if len(set(widths)) != 1:   # model zoo fixes the fan-in per model
+                raise ValueError(
+                    f"micro-batch mixes feature widths {widths}")
+            h = feats[0] if k == 1 else torch.cat(feats, dim=1)
+            kp = k
+            if self.config.pad_to_max_batch and k < self.config.max_batch:
+                # single-plan serving: pad the stacked width to max_batch so
+                # the engine sees one kernel geometry per graph across all
+                # traffic.  The padding REPLICATES the batch's own feature
+                # columns (cycling through its requests) rather than
+                # zero-filling: zero columns would register as density drift
+                # against full batches and thrash the replanner, and would
+                # bias the first plan's column densities.  Each request's
+                # output block depends only on its own columns, so
+                # replication leaves results exact.
+                kp = self.config.max_batch
+                h = torch.cat([h] + [feats[i % k] for i in range(kp - k)],
+                              dim=1)
 
         saved = (self.engine.drift_threshold, self.engine.sketch_rows)
         compiled = False
@@ -774,10 +783,13 @@ class ServingEngine:
             cm = (self._compiled.get(cm_key)
                   if self.config.compile_models else None)
             thr = self.config.sketch.threshold
-            if (cm is not None and thr is not None and not breaker_open
-                    and cm.drifted(
+            drifted = False
+            if cm is not None and thr is not None and not breaker_open:
+                with span("serving.drift"):
+                    drifted = cm.drifted(
                         h, thr, max_rows=self.config.sketch.max_rows,
-                        eps=self.engine.eps)):
+                        eps=self.engine.eps)
+            if drifted:
                 if self._breaker_event(graph_id):
                     # churn breaker tripped: serve this (and the cooldown's)
                     # traffic on the last-good program instead of entering
@@ -796,54 +808,61 @@ class ServingEngine:
                     report = cm.fresh_report()
                     compiled = True
                     if cm.last_activation:
+                        with span("serving.activation"):
+                            summary = _activation_summary(cm.last_activation)
                         with self._stats_lock:
-                            self.stats.record_activation(
-                                _activation_summary(cm.last_activation))
+                            self.stats.record_activation(summary)
                 except Exception:
                     # degraded mode: compiled call failed → serve THIS batch
                     # on the eager batched path (program kept — see above)
                     degraded = True
                     self.engine.reset()
-                    logits = gnn.APPLY[self.model](
-                        batched_mm(self.engine), adj, h, self.params)
+                    with span("serving.eager"):
+                        logits = gnn.APPLY[self.model](
+                            batched_mm(self.engine), adj, h, self.params)
                     report = self.engine.report
             else:
                 self.engine.reset()
                 if self.config.compile_models:
-                    logits, built = gnn.compile_model(
-                        self.model, self.engine, adj, h, self.params,
-                        transport=stacked_transport,
-                        activation_skip=self.config.activation_skip,
-                        activation_slack=self.config.activation_slack,
-                        activation_per_stripe=(
-                            self.config.activation_per_stripe))
+                    with span("serving.compile"):
+                        logits, built = gnn.compile_model(
+                            self.model, self.engine, adj, h, self.params,
+                            transport=stacked_transport,
+                            activation_skip=self.config.activation_skip,
+                            activation_slack=self.config.activation_slack,
+                            activation_per_stripe=(
+                                self.config.activation_per_stripe))
                     if built is not None:
                         self._compiled[cm_key] = built
                         while len(self._compiled) > self.config.max_compiled:
                             self._compiled.pop(next(iter(self._compiled)))
                 else:
-                    logits = gnn.APPLY[self.model](batched_mm(self.engine),
-                                                   adj, h, self.params)
+                    with span("serving.eager"):
+                        logits = gnn.APPLY[self.model](
+                            batched_mm(self.engine), adj, h, self.params)
                 report = self.engine.report
         finally:
             self.engine.drift_threshold, self.engine.sketch_rows = saved
         t1 = time.perf_counter()
-        out_w = logits.shape[1] // kp
-        with self._stats_lock:
-            self.stats.batches += 1
-            self.stats.compiled_batches += int(compiled)
-            self.stats.degraded_batches += int(degraded)
-            self.stats.batch_reports.append(report)
-        # heartbeat BEFORE resolving any future: serve() returns the moment
-        # the last future resolves, and dispatch_stats()["health"] must
-        # already show this batch's step by then (racing the worker's
-        # epilogue against the caller reads as a missed heartbeat)
-        self._monitor.heartbeat("dispatch-0", step_time=t1 - t0)
-        share = report.attributed(k)
-        for idx, r in enumerate(batch):
-            z = logits[:, idx * out_w:(idx + 1) * out_w]
-            self._record_request(r, t0=t0, t1=t1, batch_size=k, report=share)
-            self._resolve(r.future, result=z)
+        with span("serving.split"):
+            out_w = logits.shape[1] // kp
+            with self._stats_lock:
+                self.stats.batches += 1
+                self.stats.compiled_batches += int(compiled)
+                self.stats.degraded_batches += int(degraded)
+                self.stats.batch_reports.append(report)
+            # heartbeat BEFORE resolving any future: serve() returns the
+            # moment the last future resolves, and
+            # dispatch_stats()["health"] must already show this batch's step
+            # by then (racing the worker's epilogue against the caller reads
+            # as a missed heartbeat)
+            self._monitor.heartbeat("dispatch-0", step_time=t1 - t0)
+            share = report.attributed(k)
+            for idx, r in enumerate(batch):
+                z = logits[:, idx * out_w:(idx + 1) * out_w]
+                self._record_request(r, t0=t0, t1=t1, batch_size=k,
+                                     report=share)
+                self._resolve(r.future, result=z)
 
     # ------------------------------------------------------ sync interface
     def serve(self, requests: Iterable[tuple[str, object]],
