@@ -11,9 +11,13 @@ device-resident in the :class:`~repro_torch.core.plancache.PlanCache`.
 
 Steady-state execution then goes through :func:`execute_dispatch`: pad →
 gemm_batch_scatter → spdmm_fused → spmm_fused → slice on one canvas the
-kernels update in place, with zero host descriptor work.  PyTorch runs
-eagerly, so there is no trace; the trace accounting of the reference is kept
-(one "build" per distinct executor signature) so cache statistics compare.
+kernels update in place, with zero host descriptor work.  A kernel whose
+tasks are all SpDMM takes the in-place body instead (:func:`in_place`):
+``spdmm_fused`` reads the dense operand where it lies and writes the
+``(M, N)`` result directly, with no pad, canvas fill or slice.  PyTorch
+runs eagerly, so there is no trace; the trace accounting of the reference
+is kept (one "build" per distinct executor signature) so cache statistics
+compare.
 
 Semantics vs the eager batched path (`scheduler._execute_batched`):
 
@@ -107,10 +111,15 @@ class CompiledDispatch:
     ``arrays`` holds the descriptor index arrays (int32) and the pooled
     stored-block payloads (float32); the fused kernels find their runs
     themselves.  ``fingerprint`` content-addresses the (structure, task
-    assignment, geometry) this dispatch lowers."""
+    assignment, geometry) this dispatch lowers.  ``covered``
+    (:func:`spdmm_covers`) says that the SpDMM entries write every output
+    block of the logical extent from zero, so the in-place body need not
+    zero its output; it is derived from ``arrays``, so it is in neither
+    them nor the fingerprint."""
     geom: DispatchGeometry
     arrays: dict[str, torch.Tensor]
     fingerprint: str
+    covered: bool = False
 
     @property
     def needs_x(self) -> bool:
@@ -197,6 +206,23 @@ def spdmm_entry_arrays(tasks, stripes: dict[int, BlockCSR],
             firsts[order].astype(np.int32))
 
 
+def spdmm_covers(out_rows, out_cols, first, M: int, B: int,
+                 n_col_stripes: int) -> bool:
+    """Does every output block ``(out_row, out_col)`` that holds a row
+    below ``M`` have a run that starts with ``first``?  Then the entries
+    write each such block from zero, whatever the canvas held.  Numpy
+    int32 entry arrays sorted by output block."""
+    if len(out_rows) == 0:
+        return False
+    rows = np.asarray(out_rows, dtype=np.int64)
+    cols = np.asarray(out_cols, dtype=np.int64)
+    starts = np.ones(len(rows), dtype=bool)
+    starts[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+    sel = starts & (np.asarray(first) != 0) & (rows * B < M)
+    keys = np.unique(rows[sel] * n_col_stripes + cols[sel])
+    return keys.size == -(-M // B) * n_col_stripes
+
+
 def _spmm_dense_y_triples(tasks, part, stripes, offsets, R: int, C: int,
                           n_y_block_cols: int):
     """Vectorized fused-SpMM triple list with a Y-structure-INDEPENDENT
@@ -259,6 +285,7 @@ def build_dispatch(part, stq, dtq, stripes: dict[int, BlockCSR],
     dev = next(iter(stripes.values())).blocks.device if stripes else "cpu"
     up = lambda a: torch.as_tensor(a, device=dev)
     arrays: dict[str, torch.Tensor] = {}
+    covered = False
 
     if dtq:
         arrays["gemm_rows"] = up(np.array([t.i for t in dtq], dtype=np.int32))
@@ -277,6 +304,8 @@ def build_dispatch(part, stq, dtq, stripes: dict[int, BlockCSR],
         arrays["sp_out_rows"] = up(out_rows)
         arrays["sp_out_cols"] = up(out_cols)
         arrays["sp_first"] = up(first)
+        covered = spdmm_covers(out_rows, out_cols, first, part.M, B,
+                               geom.nct)
 
     if spmm_tasks:
         offsets, pool = _stripe_pool(spmm_tasks, stripes)
@@ -290,7 +319,8 @@ def build_dispatch(part, stq, dtq, stripes: dict[int, BlockCSR],
         arrays["mm_out_cols"] = up(out_cols)
         arrays["mm_first"] = up(first)
 
-    return CompiledDispatch(geom=geom, arrays=arrays, fingerprint=fingerprint)
+    return CompiledDispatch(geom=geom, arrays=arrays, fingerprint=fingerprint,
+                            covered=covered)
 
 
 # --------------------------------------------------------------- execution
@@ -344,11 +374,33 @@ def _gemm_scatter(geom, arrays, x, y, z, *, pred=None):
                                pred=pred)
 
 
-def apply_dispatch(geom: DispatchGeometry, arrays, x, y):
-    """End-to-end executor body: pad → batched GEMM scatter → fused SpDMM →
-    fused SpMM → slice, on ONE canvas updated in place.  ``x`` (the
-    densified operand) may be ``None`` when the plan has no dense-queue
-    tasks."""
+def in_place(geom: DispatchGeometry) -> bool:
+    """Does a kernel of this geometry take the in-place body of
+    :func:`apply_dispatch`: are all its tasks SpDMM?"""
+    return geom.has_spdmm and not geom.has_gemm and not geom.has_spmm
+
+
+def apply_dispatch(geom: DispatchGeometry, arrays, x, y, *,
+                   covered: bool = False):
+    """End-to-end executor body.  Where :func:`in_place` holds, ONE
+    ``spdmm_fused`` reads ``y`` at its own row stride and writes the
+    ``(M, N)`` result, allocated uninitialized when ``covered`` (the
+    dispatch's :func:`spdmm_covers`) and zeroed otherwise.  Every other
+    plan takes pad → batched GEMM scatter → fused SpDMM → fused SpMM →
+    slice, on ONE padded canvas updated in place
+    (:func:`apply_prepared`).  Both sum each element in the same order, so
+    they agree bitwise.  ``x`` (the densified operand) may be ``None``
+    when the plan has no dense-queue tasks."""
+    if in_place(geom):
+        if tuple(y.shape) != (geom.K, geom.N):
+            raise ValueError(f"compiled dispatch: operand {tuple(y.shape)} "
+                             f"for a ({geom.K}, {geom.N}) kernel operand")
+        alloc = torch.empty if covered else torch.zeros
+        z = alloc((geom.M, geom.N), dtype=torch.float32, device=y.device)
+        return ops.spdmm_fused(
+            arrays["sp_pool"], y, arrays["sp_a_ids"], arrays["sp_y_rows"],
+            arrays["sp_out_rows"], arrays["sp_out_cols"], arrays["sp_first"],
+            block_size=geom.B, bn=geom.SN, m_pad=geom.M, z=z)
     if geom.has_gemm and x is None:
         raise ValueError("compiled dispatch: dense-queue tasks need the "
                          "densified x operand (got x=None)")
@@ -419,7 +471,7 @@ def execute_dispatch(d: CompiledDispatch, x, y, *, stats=None) -> torch.Tensor:
             stats.trace_cache_hits += 1
         else:
             stats.trace_builds += 1
-    return apply_dispatch(d.geom, d.arrays, x, y)
+    return apply_dispatch(d.geom, d.arrays, x, y, covered=d.covered)
 
 
 # ------------------------------------ activation-side capacity block-skip

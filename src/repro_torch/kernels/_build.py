@@ -45,9 +45,9 @@ SIGNATURES = {
     "gemm_batch_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gemm_batch_scatter_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                _I, _P],
-    "spdmm_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    "spdmm_f32": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "spdmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                        _P, _I, _P],
+                        _I, _I, _P, _I, _P],
     "spmm_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I,
                        _I, _I, _P, _P, _P],
 }
@@ -160,6 +160,24 @@ def check_operand(name: str, t, dtype, ndim: int) -> None:
                          f"{ndim} dims")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_rows(name: str, t, dtype) -> None:
+    """Refuse a matrix the kernels do not take as rows at a stride: not on
+    a CUDA device, of another dtype, not 2-D, with columns that are not
+    adjacent in memory, or with rows that overlap."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} on {t.device}, expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.ndim != 2:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         "2 dims")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} must have a column stride of 1")
+    if t.shape[0] > 1 and t.stride(0) < t.shape[1]:
+        raise ValueError(f"{name} has rows that overlap (row stride "
+                         f"{t.stride(0)} for {t.shape[1]} columns)")
 
 
 def predicate(pred) -> tuple[int | None, int]:

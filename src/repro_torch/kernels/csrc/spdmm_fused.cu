@@ -11,6 +11,17 @@
 //       += A_pool[a_ids[t]] @ Y[y_rows[t]*B:+B, ocol*bn:+bn]
 // Output blocks no entry covers keep their canvas content.
 //
+// Y (K x n) and Z (m x n) are read and written where they lie: each has
+// its own row stride (ldy, ldz) and unit column stride, and neither needs
+// padding.  Stripe ocol is columns [ocol*bn, min(ocol*bn + bn, n)): a
+// ragged last stripe copies only its columns below n (its other lanes sum
+// whatever the stage holds and are never stored), a canvas block only its
+// rows below m, and stores are masked to rows < m and columns < n.  Rows of
+// Y at or past K are never read: the walk reads only the Y rows of non-zero
+// A columns, and the packer leaves every A column past K zero.  The padded
+// layout (K, m block multiples, n a multiple of bn) is the case in which
+// nothing is clipped; the summation order is the same in both.
+//
 // spdmm replaces `repro/kernels/spdmm.py::spdmm` (grid (N/bn, nnzb): the
 // stored blocks of ONE BlockCSR walked per output column stripe, `first`
 // zero-initializing each block-row run): Z[row*B:+B, :] (zeroed if first)
@@ -47,9 +58,10 @@
 //      values and its Y row -- thread (entry, column) loads the column, a
 //      warp ballot makes the column masks, one warp scans the entries (the
 //      run's end, the entries that fit the item stage, the last `first`);
-//   2. issues, with cp.async, the items' Y rows (16 B where aligned), the
-//      canvas block where a run starts without a `first`, and the
-//      descriptors and A blocks of the next entries;
+//   2. issues, with cp.async, the items' Y rows (16 B where the row
+//      stride and address allow, else 4 B), the canvas block where a run
+//      starts without a `first`, and the descriptors and A blocks of the
+//      next entries;
 //   3. multiplies the items of the previous step, whose Y rows have
 //      arrived: every element does one fmaf per item, operands loaded a
 //      group ahead of the chain; a run's first step stores the finished run.
@@ -128,16 +140,17 @@ __host__ __device__ constexpr size_t align16(size_t n) {
 
 struct Walk {
   const float* a_blocks;  // (P, B, B) pool
-  const float* y;         // (K_pad, ldy)
+  const float* y;         // K rows of n columns, row stride ldy
   const int* a_ids;       // null: entry t uses pool block t
   const int* y_rows;
   const int* out_rows;
   const int* out_cols;    // null: every entry has out_col 0
   const int* first;
-  float* z;               // (m_pad, ldz), updated in place
+  float* z;               // m rows of n columns, row stride ldz
   const int* pred;
   int when;
   int n_entries, bn, ldy, ldz;
+  int m, n;               // Z's rows; the columns of Y and Z
   int lanes;              // C: column lanes (a power of two <= 128)
   int n_chunks;           // column chunks of bn
   int parts;              // entry shares per chunk (one per thread block)
@@ -204,6 +217,64 @@ __device__ __forceinline__ void fma_group(float (&acc)[R], const float (&y)[U],
   for (int u = 0; u < U; ++u) {
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = fmaf(a[u][r], y[u], acc[r]);
+  }
+}
+
+// Store a finished run's R rows of column zc, those inside Z's m rows and
+// n columns.
+template <int R>
+__device__ __forceinline__ void store_run(const Walk& p, const float (&acc)[R],
+                                          int64_t zr, int64_t zc,
+                                          bool active) {
+  if (!active || zc >= p.n) return;
+  if (zr + R <= p.m) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) p.z[(zr + r) * p.ldz + zc] = acc[r];
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (zr + r < p.m) p.z[(zr + r) * p.ldz + zc] = acc[r];
+    }
+  }
+}
+
+// Issue the copies of `rows` rows of `src` (row stride ld) into the stage,
+// row i of the stage from row iy[i] (Gather) or r0 + i: columns [col,
+// col + w), 16 B a thread where vec (w a multiple of 4, the rows 16-B
+// aligned), else 4 B.  Stage lanes from w on are not written.
+template <bool Gather>
+__device__ __forceinline__ void copy_rows(float* stage, const float* src,
+                                          int64_t ld, const int* iy,
+                                          int64_t r0, int rows, int64_t col,
+                                          int w, int C, bool vec) {
+  if (w <= 0) return;
+  const int T = kThreads, tid = threadIdx.x;
+  auto row = [&](int i) {
+    return src + (Gather ? (int64_t)iy[i] : r0 + i) * ld + col;
+  };
+  if (vec && (w & (w - 1)) == 0) {
+    const int sh = __ffs(w / 4) - 1;  // w / 4 granules a row
+    for (int v = tid; v < rows << sh; v += T) {
+      const int i = v >> sh, q = (v & ((1 << sh) - 1)) * 4;
+      cp_async16(stage + i * C + q, row(i) + q);
+    }
+  } else if (vec) {
+    const int per = w / 4;
+    for (int v = tid; v < rows * per; v += T) {
+      const int i = v / per, q = (v - i * per) * 4;
+      cp_async16(stage + i * C + q, row(i) + q);
+    }
+  } else if (w <= 8) {
+    // a row a thread: a row this short is one or two sectors
+    for (int i = tid; i < rows; i += T) {
+      const float* r = row(i);
+      for (int q = 0; q < w; ++q) cp_async4(stage + i * C + q, r + q);
+    }
+  } else {
+    for (int v = tid; v < rows * w; v += T) {
+      const int i = v / w, q = v - i * w;
+      cp_async4(stage + i * C + q, row(i) + q);
+    }
   }
 }
 
@@ -403,43 +474,21 @@ __device__ __forceinline__ void walk_share(const Walk p) {
       __syncthreads();
       // 1d. the items' Y rows, and the canvas block where a run starts
       // without a `first`
+      // the chunk's columns [col, col + cv), of which the first vn lie
+      // inside n: a ragged last stripe copies only those (its other lanes
+      // are never stored), and a canvas block only its rows inside m
       const int64_t col = (int64_t)ocol * p.bn + c0;
+      const int64_t left = (int64_t)p.n - col;
+      const int vn = left <= 0 ? 0 : left < cv ? (int)left : cv;
       float* ys_b = ys + buf * p.items * C;
-      if (vec_y && (cv & (cv - 1)) == 0) {
-        const int sh = __ffs(cv / 4) - 1;  // cv / 4 granules a row
-        for (int v = tid; v < n << sh; v += T) {
-          const int i = v >> sh, q = v & ((1 << sh) - 1);
-          cp_async16(ys_b + i * C + q * 4,
-                     p.y + (int64_t)iy_b[i] * p.ldy + col + q * 4);
-        }
-      } else if (vec_y) {
-        const int per = cv / 4;
-        for (int v = tid; v < n * per; v += T) {
-          const int i = v / per, q = v - i * per;
-          cp_async16(ys_b + i * C + q * 4,
-                     p.y + (int64_t)iy_b[i] * p.ldy + col + q * 4);
-        }
-      } else {
-        for (int v = tid; v < n * cv; v += T) {
-          const int i = v / cv, q = v - i * cv;
-          cp_async4(ys_b + i * C + q, p.y + (int64_t)iy_b[i] * p.ldy + col + q);
-        }
-      }
+      copy_rows<true>(ys_b, p.y, p.ldy, iy_b, 0, n, col, vn, C,
+                      vec_y && vn % 4 == 0);
       if (canvas) {
-        float* cs_b = ys_b + (p.items - B) * C;
-        const float* zb = p.z + (int64_t)orow * B * p.ldz + col;
-        if (vec_z) {
-          const int per = cv / 4;
-          for (int v = tid; v < B * per; v += T) {
-            const int r = v / per, q = v - r * per;
-            cp_async16(cs_b + r * C + q * 4, zb + (int64_t)r * p.ldz + q * 4);
-          }
-        } else {
-          for (int v = tid; v < B * cv; v += T) {
-            const int r = v / cv, q = v - r * cv;
-            cp_async4(cs_b + r * C + q, zb + (int64_t)r * p.ldz + q);
-          }
-        }
+        const int64_t r0 = (int64_t)orow * B;
+        const int64_t below = (int64_t)p.m - r0;
+        const int rv = below <= 0 ? 0 : below < B ? (int)below : B;
+        copy_rows<false>(ys_b + (p.items - B) * C, p.z, p.ldz, nullptr, r0,
+                         rv, col, vn, C, vec_z && vn % 4 == 0);
       }
       if (taken > 0) {
         key_r = orow;
@@ -481,10 +530,7 @@ __device__ __forceinline__ void walk_share(const Walk p) {
     if (pend) {
       const int pb = buf ^ 1;
       if (p_starts) {
-        if (have_run && active) {
-#pragma unroll
-          for (int r = 0; r < R; ++r) p.z[(zr + r) * p.ldz + zc] = acc[r];
-        }
+        if (have_run) store_run<R>(p, acc, zr, zc, active);
         zr = (int64_t)p_orow * B + g * R;
         zc = (int64_t)p_ocol * p.bn + c0 + cl;
         have_run = true;
@@ -530,10 +576,7 @@ __device__ __forceinline__ void walk_share(const Walk p) {
     buf ^= 1;
     if (c >= e && !pend) break;
   }
-  if (have_run && active) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) p.z[(zr + r) * p.ldz + zc] = acc[r];
-  }
+  if (have_run) store_run<R>(p, acc, zr, zc, active);
 }
 
 // One kernel per entry point, the same walk, so a profile tells their
@@ -675,15 +718,18 @@ int walk(Walk p, int block, bool fused, cudaStream_t stream) {
 
 }  // namespace
 
-// a_blocks (P, B, B), y (Kp, ldy), z (m_pad, ldz): f32 row-major contiguous.
-// The n_entries int32 descriptors are sorted by output block, each output
-// block one run.  pred: int32 device flag or null.
+// a_blocks (P, B, B) f32 contiguous; y (K, n) and z (m, n) f32 with unit
+// column stride and row strides ldy, ldz.  The n_entries int32 descriptors
+// are sorted by output block, each output block one run; stripe out_col
+// covers columns [out_col * bn, out_col * bn + bn) clipped to n.  pred:
+// int32 device flag or null.
 extern "C" int spdmm_fused_f32(const void* a_blocks, const void* y,
                                const void* a_ids, const void* y_rows,
                                const void* out_rows, const void* out_cols,
                                const void* first, int n_entries, void* z,
-                               int block, int bn, int ldy, int ldz,
-                               const void* pred, int when, void* stream) {
+                               int block, int bn, int ldy, int ldz, int m,
+                               int n, const void* pred, int when,
+                               void* stream) {
   if (n_entries == 0 || bn == 0) return 0;
   Walk p{};
   p.a_blocks = (const float*)a_blocks;
@@ -700,15 +746,17 @@ extern "C" int spdmm_fused_f32(const void* a_blocks, const void* y,
   p.bn = bn;
   p.ldy = ldy;
   p.ldz = ldz;
+  p.m = m;
+  p.n = n;
   return walk(p, block, true, (cudaStream_t)stream);
 }
 
-// blocks (nnzb, B, B), y (Kp, n), z (m_pad, n): f32 row-major contiguous;
+// blocks (nnzb, B, B), y (Kp, n), z (m, n): f32 row-major contiguous;
 // row_ids / col_ids / first int32 (nnzb,), sorted by block row.
 extern "C" int spdmm_f32(const void* blocks, const void* y,
                          const void* row_ids, const void* col_ids,
                          const void* first, int nnzb, void* z, int block,
-                         int n, void* stream) {
+                         int m, int n, void* stream) {
   if (nnzb == 0 || n == 0) return 0;
   Walk p{};
   p.a_blocks = (const float*)blocks;
@@ -721,5 +769,7 @@ extern "C" int spdmm_f32(const void* blocks, const void* y,
   p.bn = n;
   p.ldy = n;
   p.ldz = n;
+  p.m = m;
+  p.n = n;
   return walk(p, block, false, (cudaStream_t)stream);
 }

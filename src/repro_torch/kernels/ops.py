@@ -69,6 +69,13 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def _f32_rows(t: torch.Tensor) -> torch.Tensor:
+    """float32 matrix at its own row stride: copied only to widen it or to
+    make its columns adjacent."""
+    t = t.float()
+    return t if t.shape[1] <= 1 or t.stride(1) == 1 else t.contiguous()
+
+
 def gemm(x, y, *, out_dtype=None, pred=None):
     """Dense ``x @ y`` through the tiled GEMM kernel, float32 accumulation,
     cast to ``out_dtype`` (default: ``x``'s dtype, as the reference).
@@ -130,17 +137,19 @@ def spdmm(a: BlockCSR, y, *, out_dtype=torch.float32):
 def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
                 block_size: int, bn: int, m_pad: int, z=None, pred=None):
     """Fused multi-task SpDMM over a concatenated stored-block pool; see
-    :func:`repro_torch.kernels.spdmm.spdmm_fused`.  ``y`` must already be
-    laid out with ``bn``-padded col-stripes.  ``z`` is the canvas, updated in
-    place (a zero canvas is allocated when not given); uncovered blocks keep
-    its content."""
+    :func:`repro_torch.kernels.spdmm.spdmm_fused`.  ``y`` ``(K, N)`` is read
+    where it lies, at its row stride; its ``bn``-wide col-stripes are the
+    ones the entries address, the last one clipped to N.  ``z`` ``(m_pad,
+    N)`` is the canvas, updated in place (a zero canvas is allocated when
+    not given); uncovered blocks keep its content.  ``m_pad`` need not be a
+    block multiple: rows past it are not written."""
     dev = y.device
     if z is None:
         z = torch.zeros((m_pad, y.shape[1]), dtype=torch.float32, device=dev)
     assert z.shape == (m_pad, y.shape[1]), (z.shape, m_pad, y.shape)
     _count_call()
     return _spdmm.spdmm_fused(
-        _f32(a_blocks), _f32(y), _i32(a_ids, dev),
+        _f32(a_blocks), _f32_rows(y), _i32(a_ids, dev),
         _i32(y_rows, dev), _i32(out_rows, dev), _i32(out_cols, dev),
         _i32(first, dev),
         block_size=block_size, bn=bn, z=z, pred=pred)

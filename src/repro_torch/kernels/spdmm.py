@@ -15,6 +15,15 @@ run — before adding ``A_pool[a_ids[t]] @ Y[y_rows[t]*B:+B,
 out_cols[t]*bn:+bn]``.  Blocks no entry covers are untouched.  Each output
 block must form ONE run: two runs of one block would race on the card.
 
+``Y`` ``(K, N)`` and ``Z`` ``(M, N)`` are taken where they lie: any row
+stride, columns adjacent.  Block row ``r`` and stripe ``c`` are clipped to
+them: the product reads only Y's rows below K and columns below N, counts
+what lies outside as zero, and writes only Z's rows below M and columns
+below N.  A row at or past K is never needed: the entries' A blocks are
+zero in every column past K (the packer pads them so), and the walk skips
+an all-zero A column.  The padded layout (``K``, ``M`` block multiples,
+``N`` a multiple of ``bn``) is the case in which nothing is clipped.
+
 The plain versions form every entry's block product with
 :func:`repro_torch.kernels.gemm.ordered_matmul` and fold them run by run
 (:func:`fold_runs`), so a tile computed by ``spdmm`` and by
@@ -24,6 +33,7 @@ are on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.formats import BlockCSR, run_starts
@@ -69,11 +79,11 @@ def _validate(a_blocks, y, desc, B, bn, z):
                    f"descriptor shapes {[d.shape for d in desc]}")
     _build.require(a_blocks.ndim == 3 and a_blocks.shape[1:] == (B, B),
                    f"pool {a_blocks.shape} for block {B}")
-    k_pad, n_pad = y.shape
-    _build.require(k_pad % B == 0 and n_pad % bn == 0,
-                   f"operand {y.shape} for block {B}, bn {bn}")
-    _build.require(z.shape[1] == n_pad and z.shape[0] % B == 0,
-                   f"canvas {z.shape} for operand {y.shape}")
+    _build.require(y.ndim == 2 and z.ndim == 2 and bn >= 1,
+                   f"operand {tuple(y.shape)}, canvas {tuple(z.shape)}, "
+                   f"bn {bn}")
+    _build.require(z.shape[1] == y.shape[1],
+                   f"canvas {tuple(z.shape)} for operand {tuple(y.shape)}")
     devs = {t.device for t in (a_blocks, y, z, *desc)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
@@ -82,11 +92,12 @@ def _validate(a_blocks, y, desc, B, bn, z):
 def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
                 block_size: int, bn: int, z: torch.Tensor,
                 pred=None) -> torch.Tensor:
-    """Fused SpDMM into the canvas ``z`` ``(m_pad, n_pad)``, in place.
+    """Fused SpDMM into the canvas ``z`` ``(M, N)``, in place.
 
-    ``a_blocks`` ``(P, B, B)`` is the stored-block pool; ``y`` ``(K_pad,
-    n_pad)`` the dense operand laid out in ``bn``-wide col-stripes; the five
-    int32 descriptor arrays are sorted by output block.  The kernel finds
+    ``a_blocks`` ``(P, B, B)`` is the stored-block pool; ``y`` ``(K, N)``
+    the dense operand, whose ``bn``-wide col-stripes the entries address;
+    ``y`` and ``z`` at any row stride, clipped as the module says.  The
+    five int32 descriptor arrays are sorted by output block.  The kernel finds
     the runs itself, from the key changes of ``out_rows`` / ``out_cols``,
     so it takes no run offsets and its launch does not depend on the data
     (the compiled activation route makes its descriptors on the device).
@@ -100,8 +111,8 @@ def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
         return spdmm_fused_plain(a_blocks, y, *desc, block_size=B, bn=bn,
                                  z=z)
     _build.check_operand("a_blocks", a_blocks, torch.float32, 3)
-    _build.check_operand("y", y, torch.float32, 2)
-    _build.check_operand("z", z, torch.float32, 2)
+    _build.check_rows("y", y, torch.float32)
+    _build.check_rows("z", z, torch.float32)
     for name, d in zip(_DESCRIPTORS, desc):
         _build.check_operand(name, d, torch.int32, 1)
     n_entries = int(a_ids.shape[0])
@@ -110,8 +121,9 @@ def spdmm_fused(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first, *,
     pred_ptr, when = _build.predicate(pred)
     err = _build.library().spdmm_fused_f32(
         a_blocks.data_ptr(), y.data_ptr(), *(d.data_ptr() for d in desc),
-        n_entries, z.data_ptr(), B, bn, y.shape[1], z.shape[1], pred_ptr,
-        when, torch.cuda.current_stream(z.device).cuda_stream)
+        n_entries, z.data_ptr(), B, bn, y.stride(0), z.stride(0),
+        z.shape[0], z.shape[1], pred_ptr, when,
+        torch.cuda.current_stream(z.device).cuda_stream)
     _build.check(err, "spdmm_fused")
     _build.count_launch("spdmm_fused")
     return z
@@ -126,14 +138,24 @@ def spdmm_fused_plain(a_blocks, y, a_ids, y_rows, out_rows, out_cols, first,
     every entry's A block and Y slice, form the products in k order, then
     :func:`fold_runs`.  Its
     summation order differs from the kernel's, so the two agree within a
-    float32 tolerance."""
+    float32 tolerance.  A ``y`` or ``z`` that is not in the padded layout
+    is zero-padded to it around the fold (``z`` copied back), which is
+    the clipping the module describes."""
     B = block_size
     runs = run_starts(out_rows, out_cols)
-    k_pad, n_pad = y.shape
-    yb = y.view(k_pad // B, B, n_pad // bn, bn)
+    (k, n), m = y.shape, z.shape[0]
+    k_pad, m_pad, n_pad = -(-k // B) * B, -(-m // B) * B, -(-n // bn) * bn
+    y_p = F.pad(y, (0, n_pad - n, 0, k_pad - k)) if (k, n) != (
+        k_pad, n_pad) else y
+    z_p = F.pad(z, (0, n_pad - n, 0, m_pad - m)) if (m, n) != (
+        m_pad, n_pad) else z
+    yb = y_p.reshape(k_pad // B, B, n_pad // bn, bn)
     ys = yb[y_rows.long(), :, out_cols.long(), :]
     prod = ordered_matmul(a_blocks[a_ids.long()], ys)
-    return fold_runs(prod, first, out_rows, out_cols, runs, z, B, bn)
+    fold_runs(prod, first, out_rows, out_cols, runs, z_p, B, bn)
+    if z_p is not z:
+        z.copy_(z_p[:m, :n])
+    return z
 
 
 # ------------------------------------------------------------------ spdmm
@@ -165,7 +187,8 @@ def spdmm(a: BlockCSR, y: torch.Tensor) -> torch.Tensor:
     err = _build.library().spdmm_f32(
         a.blocks.data_ptr(), y.data_ptr(), a.row_ids.data_ptr(),
         a.col_ids.data_ptr(), a.first.data_ptr(), a.stored_blocks,
-        z.data_ptr(), B, n, torch.cuda.current_stream(y.device).cuda_stream)
+        z.data_ptr(), B, z.shape[0], n,
+        torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(err, "spdmm")
     _build.count_launch("spdmm")
     return z

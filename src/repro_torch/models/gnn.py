@@ -188,6 +188,8 @@ class CompiledModel:
     n_kernels: int
     n_sparse: int
     n_act: int = 0                # kernels on the capacity block-skip route
+    # adjacency kernels on the in-place sparse body (dispatch.in_place)
+    n_inplace: int = 0
     stats: object | None = None   # CacheStats receiving call accounting
     faults: object | None = None  # FaultInjector probed at "compiled"
     device: torch.device = torch.device("cpu")
@@ -346,7 +348,8 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
             else:
                 d, xd = pair
                 records.append(("sparse", d.geom))
-                payload.append({"arrays": dict(d.arrays), "xd": xd})
+                payload.append({"arrays": dict(d.arrays), "xd": xd,
+                                "covered": d.covered})
         else:
             ad = (engine.activation_dispatch_for(
                       engine.last_plan, x, slack=activation_slack,
@@ -384,7 +387,8 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
                 return _shard_exec.apply_sharded(
                     sgeom, band_rows, p["shards"], p["xd"], y,
                     devices=engine.mesh.devices, halo=halo)
-            return _dispatch.apply_dispatch(geom, p["arrays"], p["xd"], y)
+            return _dispatch.apply_dispatch(geom, p["arrays"], p["xd"], y,
+                                            covered=p["covered"])
 
         out = APPLY[model](transport(mm), adj, hh, params)
         return out, act_diags
@@ -400,6 +404,8 @@ def compile_model(model: str, engine: DynasparseEngine, adj, h, params,
         n_kernels=len(records),
         n_sparse=sum(1 for k, _ in records if k in ("sparse", "shard")),
         n_act=sum(1 for k, _ in records if k == "act"),
+        n_inplace=sum(1 for k, g in records
+                      if k == "sparse" and _dispatch.in_place(g)),
         stats=engine.cache.stats, faults=engine.faults,
         device=engine.device,
         mesh_devices=() if engine.mesh is None else engine.mesh.devices)

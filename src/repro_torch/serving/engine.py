@@ -446,6 +446,12 @@ class ServingEngine:
             "trace_cache_hits": s.trace_cache_hits,
             "replans": s.replans,
             "compiled_models": len(self._compiled),
+            # adjacency kernels of the compiled models, and those of them
+            # on the in-place sparse body (``CompiledModel.n_inplace``)
+            "adjacency_kernels": sum(cm.n_sparse
+                                     for cm in self._compiled.values()),
+            "inplace_kernels": sum(cm.n_inplace
+                                   for cm in self._compiled.values()),
             "compiled_batches": st.compiled_batches,
             # sparse-activation route telemetry (running aggregates)
             "act_kernels_last": st.act_kernels_last,

@@ -15,6 +15,7 @@ from repro.models import gnn as jgnn
 from repro_torch.core import DynasparseEngine as TEngine, SparseCOO as TCOO
 from repro_torch.core import dispatch as td
 from repro_torch.models import gnn as tgnn
+from test_torch_kernels_cuda import compile_small
 
 TOL = dict(rtol=1e-4, atol=1e-4)   # f32, another summation order
 COUNTERS = ("trace_builds", "trace_cache_hits", "plan_hits", "act_hits",
@@ -120,3 +121,16 @@ def test_drifted_and_fresh_report():
     assert rep is not tcm.report and rep.kernels == tcm.report.kernels
     assert [n for n, _ in rep.kernels] == [n for n, _ in
                                            jcm.fresh_report().kernels]
+
+
+@pytest.mark.parametrize("model,dense", [("GCN", 0), ("GIN", 0),
+                                         ("GCN", 32)])
+def test_compiled_model_counts_inplace_adjacency_kernels(model, dense):
+    """``n_inplace`` counts the adjacency kernels on the in-place sparse
+    body: all of them where every task is SpDMM, none where a dense stripe
+    puts GEMM tasks beside them; either way the program's logits are
+    bitwise its warm-up's."""
+    cm, h, warm = compile_small(model, "cpu", dense=dense)
+    assert cm.n_sparse == 2
+    assert cm.n_inplace == (0 if dense else 2)
+    assert torch.equal(cm(h), warm)

@@ -14,6 +14,7 @@ from repro_torch.core import DynasparseEngine as TEngine, SparseCOO as TCOO
 from repro_torch.core import dispatch as td
 from repro_torch.core.scheduler import execute_plan
 from repro_torch.kernels import formats as tf, ops as tops
+from test_torch_kernels_cuda import INPLACE, inplace_against_padded
 
 DESCRIPTORS = ("gemm_rows", "gemm_cols", "sp_a_ids", "sp_y_rows",
                "sp_out_rows", "sp_out_cols", "sp_first", "mm_a_ids",
@@ -138,3 +139,17 @@ def test_engine_cache_accounting_equals_reference():
     assert ({k: getattr(te.cache.stats, k) for k in keys}
             == {k: getattr(je.cache.stats, k) for k in keys})
     assert te.cache.stats.dispatch_hits > 0
+
+
+@pytest.mark.parametrize("case", list(INPLACE))
+def test_inplace_sparse_body_equals_padded_body(case, monkeypatch):
+    """An SpDMM-only kernel's in-place body (the plain version here, the
+    kernel in ``test_torch_kernels_cuda.py``) is bitwise the padded
+    ``apply_prepared`` body's result for a ragged last stripe (N = 500),
+    N = 128, N = 7 (SN != tn), K and M that are not block multiples and a
+    strided Y; a lowering that leaves an output block uncovered is not
+    ``covered``, and a mixed GEMM + SpDMM plan keeps ``apply_prepared``."""
+    got, a, y = inplace_against_padded(case, "cpu", monkeypatch)
+    assert not torch.isnan(got).any()
+    np.testing.assert_allclose(got.numpy(), a.astype(np.float64)
+                               @ y.double().numpy(), rtol=1e-4, atol=1e-4)

@@ -16,9 +16,10 @@ from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.formats import pack_blockcsr as tpack
-from test_torch_kernels_cuda import (ATOL, RTOL, _gemm_case, _spdmm_case,
-                                     _spmm_case, _spmm_walk_case, _t,
-                                     _walk_case)
+from test_torch_kernels_cuda import (ATOL, RTOL, STRIDED, _gemm_case,
+                                     _spdmm_case, _spmm_case,
+                                     _spmm_walk_case, _t, _walk_case,
+                                     check_strided_spdmm, strided_spdmm)
 
 
 @pytest.mark.parametrize("k", [7, 20, 32, 300, 500])
@@ -239,3 +240,11 @@ def test_refs_and_blockize_match_reference():
     np.testing.assert_array_equal(
         tops.blockize(torch.as_tensor(a), 8).numpy(),
         np.asarray(jops.blockize(jnp.asarray(a), 8)))
+
+
+@pytest.mark.parametrize("case", STRIDED)
+def test_spdmm_fused_plain_on_strided_operands_equals_padded_layout(case):
+    """The plain version keeps the kernel's contract for strided, clipped
+    operands (held on the card in ``test_torch_kernels_cuda.py``): bitwise
+    the padded layout's result, Z's border untouched."""
+    check_strided_spdmm(*strided_spdmm("cpu", *case))

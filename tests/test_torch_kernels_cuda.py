@@ -10,8 +10,10 @@ and bitwise equal to the dense ``gemm`` kernel; the SpMM triple walk on a
 run of thousands of triples, all-zero A columns and Y rows, sentinel
 blocks, runs that straddle the warps' shares, and bitwise equal to the
 dense ``gemm`` kernel through ``ops.spmm``; the predicated overflow
-route on both branches, run-time descriptors under one CUDA graph, and the
-compiled and per-task paths against the CPU.  Every case needs a card and
+route on both branches, run-time descriptors under one CUDA graph, the
+compiled and per-task paths against the CPU, and the in-place sparse
+route: ``spdmm_fused`` on strided, clipped operands bitwise the padded
+layout, and compiled models without the pads.  Every case needs a card and
 skips without one; this file imports no JAX, so it runs on a machine that
 has only the port's dependencies::
 
@@ -172,6 +174,256 @@ def _spmm_walk_case(rng, B, long_run, *, nrb=6, ncb=3, Pa=40, Py=30,
     desc = (rng.integers(0, Pa, E).astype(np.int32),
             rng.integers(0, Py, E).astype(np.int32), orow, ocol, first)
     return a, yb, desc, z
+
+
+# strided operands of spdmm_fused: (B, bn, N, M, K, Y's column offset, Z's
+# column offset); row strides are multiples of 4 floats, so an offset of 4
+# keeps rows 16-byte aligned and 2 or 3 does not
+STRIDED = [(8, 128, 500, 90, 90, 4, 4), (8, 128, 126, 37, 61, 4, 2),
+           (8, 8, 7, 45, 45, 3, 2), (4, 16, 37, 30, 50, 4, 4),
+           (16, 32, 40, 19, 70, 2, 3)]
+
+
+def strided_spdmm(device, B, bn, N, M, K, y_off, z_off):
+    """``spdmm_fused`` on ``Y`` ``(K, N)`` and ``Z`` ``(M, N)`` that are
+    column windows of wider buffers (Y's other columns and trailing rows
+    NaN, Z's border a sentinel), against the same call on the padded
+    layout.  Entries have a run of every ``first`` pattern on random
+    output blocks; each entry's A block is zero in the columns past K, as
+    the packer makes it.  Returns ``(Z's buffer after the call, the
+    padded call's result, Z's window in the buffer)``."""
+    rng = np.random.default_rng(B * N + M + K)
+    nrb, ncb, ncs = -(-M // B), -(-K // B), -(-N // bn)
+    orow, ocol, first = _runs(rng, nrb, ncs, 1, 1, cover=0.8)[2:]
+    E = len(orow)
+    y_rows = rng.integers(0, ncb, E).astype(np.int32)
+    a = rng.normal(size=(E, B, B)).astype(np.float32)
+    a *= rng.uniform(size=(E, 1, B)) >= 0.3
+    tail = np.arange(B)[None, :] + y_rows[:, None] * B >= K
+    a *= ~tail[:, None, :]
+    y = rng.normal(size=(K, N)).astype(np.float32)
+    z0 = rng.normal(size=(M, N)).astype(np.float32)
+    ceil4 = lambda v: -(-v // 4) * 4        # row strides of 16-B multiples
+    ybuf = torch.full((K + 5, ceil4(y_off + N + 9)), float("nan"),
+                      device=device)
+    ybuf[:K, y_off:y_off + N] = torch.as_tensor(y, device=device)
+    zbuf = torch.full((M + 3, ceil4(z_off + N + 5)), 7.0, device=device)
+    window = (slice(0, M), slice(z_off, z_off + N))
+    zbuf[window] = torch.as_tensor(z0, device=device)
+    args = _t(np.arange(E, dtype=np.int32), y_rows, orow, ocol, first,
+              device=device)
+    pool = torch.as_tensor(a, device=device)
+    got = tspdmm.spdmm_fused(pool, ybuf[:K, y_off:y_off + N], *args,
+                             block_size=B, bn=bn, z=zbuf[window])
+    assert got.data_ptr() == zbuf[window].data_ptr()
+    yp = torch.zeros((ncb * B, ncs * bn), device=device)
+    yp[:K, :N] = torch.as_tensor(y, device=device)
+    zp = torch.zeros((nrb * B, ncs * bn), device=device)
+    zp[:M, :N] = torch.as_tensor(z0, device=device)
+    want = tspdmm.spdmm_fused(pool, yp, *args, block_size=B, bn=bn, z=zp)
+    return zbuf, want, window
+
+
+def check_strided_spdmm(zbuf, want, window):
+    M, N = zbuf[window].shape
+    assert torch.equal(zbuf[window], want[:M, :N])
+    border = torch.ones_like(zbuf, dtype=torch.bool)
+    border[window] = False
+    assert bool((zbuf[border] == 7.0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", STRIDED)
+def test_spdmm_fused_on_strided_operands_equals_padded_layout(cuda, case):
+    """The kernel reads Y at its row stride and writes Z at its own, with
+    the last stripe, Z's last block row and Y's last block row clipped:
+    bitwise the same kernel on the padded layout, nothing read from Y's
+    NaN border, nothing written to Z's."""
+    check_strided_spdmm(*strided_spdmm(cuda, *case))
+
+
+# the in-place sparse body's cases: (vertices, width N, tile_m, tile_n,
+# the strided operand's column offset and row stride or None, dense
+# leading rows, the (i, j) task left out of the lowering or None)
+INPLACE = {
+    "n500-ragged-stripe": (90, 500, 32, 128, None, 0, None),
+    "n128": (77, 128, 32, 128, None, 0, None),
+    "n7": (45, 7, 16, None, None, 0, None),
+    "strided-aligned": (90, 124, 32, 128, (4, 140), 0, None),
+    "strided-odd": (45, 7, 16, None, (3, 20), 0, None),
+    "uncovered-block": (77, 128, 32, 128, None, 0, (1, 0)),
+    "mixed-gemm": (90, 64, 32, 32, None, 32, None),
+}
+
+
+def _inplace_case(name, device):
+    """A compiled dispatch of case ``name`` of :data:`INPLACE` on
+    ``device`` and its operands: ``(dispatch, densified x or None, y,
+    dense adjacency)``.  The adjacency has a self-loop on every vertex and
+    ~4 % other entries; where the case asks, its leading rows are dense
+    and the Analyzer sends their stripe to the dense engine, else every
+    task goes to the sparse one.  ``y`` is normal, and where the
+    case is strided it is a column window of a wider matrix whose other
+    columns and trailing rows hold NaN, so any read outside the window
+    would show in the result."""
+    from repro_torch.core import DynasparseEngine, SparseCOO
+    from repro_torch.core import dispatch as td
+    n, N, tm, tn, window, dense, drop = INPLACE[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    a = (rng.uniform(size=(n, n)) < 0.04) * rng.normal(size=(n, n))
+    np.fill_diagonal(a, 1.0 + rng.uniform(size=n))
+    a[:dense] = rng.normal(size=(dense, n))
+    a = a.astype(np.float32)
+    r, c = np.nonzero(a)
+    adj = SparseCOO((n, n), torch.as_tensor(r.astype(np.int32), device=device),
+                    torch.as_tensor(c.astype(np.int32), device=device),
+                    torch.as_tensor(a[r, c], device=device), tag="adjacency")
+    yd = rng.normal(size=(n, N)).astype(np.float32)
+    if window is None:
+        y = torch.as_tensor(yd, device=device)
+    else:
+        off, width = window
+        buf = torch.full((n + 8, width), float("nan"), device=device)
+        buf[:n, off:off + N] = torch.as_tensor(yd, device=device)
+        y = buf[:n, off:off + N]
+        assert y.stride() == (width, 1)
+    eng = DynasparseEngine(tile_m=tm, tile_n=tn, literal=True, device=device,
+                           mode="dynamic" if dense else "sparse_only")
+    plan = eng.plan(adj, y)
+    prims = {t.primitive for t in plan.stq + plan.dtq}
+    assert prims == ({"GEMM", "SpDMM"} if dense else {"SpDMM"}), prims
+    d, xd = eng.compiled_operands(plan, adj)
+    if drop is not None:
+        _, entry = eng._packed_structure(plan, adj)
+        stq = [t for t in plan.stq if (t.i, t.j) != drop]
+        assert len(stq) == len(plan.stq) - 1
+        d = td.build_dispatch(plan.part, stq, plan.dtq, entry.stripes,
+                              block=eng.block)
+        a[drop[0] * tm:(drop[0] + 1) * tm] = 0   # its rows' answer
+    return d, xd, y, a
+
+
+def inplace_against_padded(name, device, monkeypatch):
+    """Run case ``name`` through ``apply_dispatch`` and through the padded
+    ``apply_prepared`` body; assert the route each takes, the coverage
+    flag, that no entry reads a row of Y at or past K, and that the two
+    agree bitwise.  Returns ``(in-place result, dense adjacency, y)``."""
+    from repro_torch.core import dispatch as td
+    d, xd, y, a = _inplace_case(name, device)
+    g = d.geom
+    padded = []
+    prepared = td.apply_prepared
+    monkeypatch.setattr(td, "apply_prepared",
+                        lambda *args: padded.append(1) or prepared(*args))
+    assert td.in_place(g) == (name != "mixed-gemm")
+    if td.in_place(g):
+        assert d.covered == (name != "uncovered-block")
+    # the K tail: the entries address Y's last, ragged block row, but
+    # every non-zero A column of an entry maps to a row below K
+    arr = d.arrays
+    blocks = arr["sp_pool"][arr["sp_a_ids"].long()].cpu()
+    live = (blocks != 0).any(dim=1)                      # (E, B) columns
+    rows = (arr["sp_y_rows"].long().cpu()[:, None] * g.B
+            + torch.arange(g.B)[None, :])
+    assert int(rows[live].max()) < g.K
+    assert g.K % g.B == 0 or int(rows.max()) >= g.K
+    # garbage where an uninitialized result would be allocated
+    junk = torch.full((g.M * g.N + 4096,), float("nan"), device=device)
+    del junk
+    got = td.apply_dispatch(g, arr, xd, y, covered=d.covered)
+    assert padded == ([1] if name == "mixed-gemm" else [])
+    want = prepared(g, arr, xd, td._stripe_padded_y(g, y),
+                    td._gemm_y_panel(g, y) if g.has_gemm else None)
+    assert got.shape == (g.M, g.N) and got.is_contiguous()
+    assert torch.equal(got, want)
+    return got, a, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(INPLACE))
+def test_inplace_sparse_body_equals_padded_body_on_card(cuda, case,
+                                                        monkeypatch):
+    """The in-place sparse body on the card (``spdmm_fused`` reading Y at
+    its stride, clipping its ragged stripe, K and M tails) is bitwise the
+    padded body's result, takes ``torch.zeros`` where a block is
+    uncovered, leaves mixed plans on ``apply_prepared``, and equals the
+    CPU's answer."""
+    got, a, y = inplace_against_padded(case, cuda, monkeypatch)
+    assert not torch.isnan(got).any()
+    want = a.astype(np.float64) @ y.cpu().double().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-4)
+
+
+def compile_small(model, device, *, dense=0):
+    """``compile_model`` of ``model`` on a 90-vertex graph with 12
+    features on ``device``: ``(compiled model, features, warm-up
+    logits)``.  The graph
+    has a self-loop on every vertex and ~4 % other edges; with ``dense``
+    its leading rows are dense and the Analyzer chooses every kernel's
+    queues (the dense stripe goes to the dense engine), else every task
+    goes to the sparse engine."""
+    from repro_torch.core import DynasparseEngine, SparseCOO
+    from repro_torch.models import gnn
+    rng = np.random.default_rng(90 + dense)
+    n = 90
+    a = (rng.uniform(size=(n, n)) < 0.04) * rng.uniform(size=(n, n))
+    np.fill_diagonal(a, 1.0)
+    a[:dense] = rng.uniform(size=(dense, n))
+    a = a.astype(np.float32)
+    r, c = np.nonzero(a)
+    adj = SparseCOO((n, n), torch.as_tensor(r.astype(np.int32), device=device),
+                    torch.as_tensor(c.astype(np.int32), device=device),
+                    torch.as_tensor(a[r, c], device=device), tag="adjacency")
+    h = torch.as_tensor(rng.normal(size=(n, 12)).astype(np.float32),
+                        device=device)
+    params = gnn.init_params(model, 12, 16, 5, device=device)
+    eng = DynasparseEngine(tile_m=32, literal=True, device=device,
+                           mode="dynamic" if dense else "sparse_only")
+    warm, cm = gnn.compile_model(model, eng, adj, h, params)
+    assert cm is not None
+    return cm, h, warm
+
+
+def _device_ops(fn):
+    """Device operations (kernels, copies, fills) of one eager call of
+    ``fn``, counted by ``torch.profiler`` after a warm call: the most of
+    three profiles (a profile may drop a record, never add one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    counts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA))
+    return max(counts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["GCN", "GIN"])
+def test_inplace_body_drops_the_pads_on_card(cuda, model, monkeypatch):
+    """Every adjacency kernel of GCN and GIN on a small graph takes the
+    in-place body, and the model's device operations fall by at least
+    four per aggregation (the pad's fill and copy, the stripe clone, the
+    canvas fill) against the same model on the padded body, with the
+    replayed logits bitwise the same."""
+    from repro_torch.core import dispatch as td
+    cm, h, _ = compile_small(model, cuda)
+    assert cm.n_inplace == cm.n_sparse == 2
+    inplace_ops = _device_ops(lambda: cm.run(cm.payload, h))
+    logits = cm(h)
+    monkeypatch.setattr(td, "in_place", lambda geom: False)
+    padded, _, _ = compile_small(model, cuda)
+    assert padded.n_inplace == 0
+    padded_ops = _device_ops(lambda: padded.run(padded.payload, h))
+    assert padded_ops - inplace_ops >= 4 * cm.n_inplace, (padded_ops,
+                                                          inplace_ops)
+    assert torch.equal(padded(h), logits)
 
 
 @pytest.mark.gpu
